@@ -1,0 +1,207 @@
+"""GreenFlow streaming serving on the port (plain ``[GlobalAxis]`` spec).
+
+    python -m repro_torch.launch.serve --source generated \\
+        [--device cuda|cpu] [--windows N] [--requests N] [--users N]
+
+streams a ``GeneratedSource`` day: every window samples arrivals from a
+hash-generated user universe, scores DSSM, YDNN, DIN and DIEN over the
+whole corpus on the device, compacts the scores into CompactPlan tables
+and serves the window (reward scoring -> Eq. 10 -> guard -> cascade ->
+nearline dual update).  It prints one line per window: n, spend/budget,
+lambda, downgraded, revenue and host ms.
+
+The full-width stack is the paper's: a 4000-item corpus with 100-long
+histories, the ``paper_stage_specs`` chains with expose 20, the stage
+models at their dataclass widths (DIN and DIEN at the published DIN
+config: embed 18, seq_len 100, attention 80-40, MLP 200-80) with
+vocabularies sized to the world, and the reward model at
+d_feature 64 / d_hidden 64 / d_state 32.  Weights are random, drawn
+from ``--seed`` by the port's own inits; ``--small`` shrinks the world
+and the widths for a quick run on the CPU (``--device cpu``).
+"""
+from __future__ import annotations
+
+import argparse
+from dataclasses import dataclass
+
+import numpy as np
+import torch
+
+from repro_torch.cascade.engine import CascadeModels
+from repro_torch.core.action_chain import (ActionChainSet, ModelInstance,
+                                           StageSpec,
+                                           generate_action_chains,
+                                           paper_stage_specs)
+from repro_torch.core.reward_model import (RewardModelConfig,
+                                           reward_model_init)
+from repro_torch.data.request_source import GeneratedSource
+from repro_torch.data.synthetic import StreamingWorld, WorldConfig
+from repro_torch.device import resolve_device
+from repro_torch.models.recsys import dien, din, dssm, ydnn
+from repro_torch.serving.pipeline import ServingPipeline
+from repro_torch.serving.stream import (SCENARIOS, StreamStats,
+                                        TrafficScenario, run_stream,
+                                        window_table)
+
+FULL_ITEMS, FULL_HIST, FULL_EXPOSE = 4000, 100, 20
+
+
+def world_config(users: int, *, small: bool = False,
+                 seed: int = 0) -> WorldConfig:
+    if small:
+        return WorldConfig(n_users=users, n_items=400, hist_len=20,
+                           seed=seed)
+    return WorldConfig(n_users=users, n_items=FULL_ITEMS,
+                       hist_len=FULL_HIST, seed=seed)
+
+
+def small_stage_specs(n_items: int, expose: int) -> tuple:
+    """The paper's chain space scaled to a small corpus: n2 in 20-50%
+    and n3 in [expose, 20%] of it, 4 scales each."""
+    n2 = tuple(sorted({int(x) for x in
+                       np.linspace(0.2 * n_items, 0.5 * n_items, 4)}))
+    n3 = tuple(sorted({max(expose, int(x)) for x in
+                       np.linspace(expose, 0.2 * n_items, 4)}))
+    return (
+        StageSpec("recall", (ModelInstance("DSSM", 13e3),), (n_items,), 4),
+        StageSpec("prerank", (ModelInstance("YDNN", 123e3),), n2, 4),
+        StageSpec("rank", (ModelInstance("DIN", 7020e3),
+                           ModelInstance("DIEN", 7098e3)), n3, 4),
+    )
+
+
+def build_chains(wcfg: WorldConfig, expose: int, *,
+                 small: bool = False) -> ActionChainSet:
+    if small:
+        return generate_action_chains(small_stage_specs(wcfg.n_items,
+                                                        expose))
+    return generate_action_chains(paper_stage_specs())
+
+
+def build_models(wcfg: WorldConfig, gen: torch.Generator, device, *,
+                 small: bool = False) -> CascadeModels:
+    """Stage models with vocabularies sized to the world."""
+    n_uf = wcfg.n_user_fields
+    voc = dict(item_vocab=wcfg.n_items, user_vocab=n_uf
+               * wcfg.user_field_vocab)
+    rank = dict(voc, cat_vocab=wcfg.n_cats, n_user_fields=n_uf,
+                seq_len=wcfg.hist_len)
+    if small:
+        dssm_cfg = dssm.DSSMConfig(**voc, n_user_fields=n_uf, embed_dim=4,
+                                   hidden=(16, 8), d_out=4)
+        ydnn_cfg = ydnn.YDNNConfig(**voc, n_user_fields=n_uf,
+                                   hist_len=wcfg.hist_len, embed_dim=8,
+                                   hidden=(24, 12), d_out=8)
+        rank.update(embed_dim=4, attn_hidden=(16, 8), mlp_hidden=(16, 8))
+    else:
+        dssm_cfg = dssm.DSSMConfig(**voc, n_user_fields=n_uf)
+        ydnn_cfg = ydnn.YDNNConfig(**voc, n_user_fields=n_uf,
+                                   hist_len=wcfg.hist_len)
+    din_cfg = din.DINConfig(**rank)
+    dien_cfg = dien.DIENConfig(**rank)
+    return CascadeModels(
+        dssm.init(gen, dssm_cfg, device), dssm_cfg,
+        ydnn.init(gen, ydnn_cfg, device), ydnn_cfg,
+        din.init(gen, din_cfg, device), din_cfg,
+        dien.init(gen, dien_cfg, device), dien_cfg)
+
+
+def reward_config(chains: ActionChainSet, d_context: int, *,
+                  small: bool = False) -> RewardModelConfig:
+    """``configs/greenflow_cascade.full_config`` widths (2 models, 4
+    scale groups) with the world's context width."""
+    widths = (dict(d_feature=16, d_hidden=16, d_state=8) if small
+              else dict(d_feature=64, d_hidden=64, d_state=32))
+    return RewardModelConfig(
+        n_stages=chains.n_stages, max_models=2, n_scale_groups=4,
+        d_context=d_context, **widths)
+
+
+@dataclass
+class ServeStack:
+    source: GeneratedSource
+    pipeline: ServingPipeline
+    sizes: list
+    budget: float
+    c_max: float
+    device: torch.device
+
+
+def build_stack(*, users: int = 100_000, requests: int = 512,
+                windows: int = 6, scenario: str = "constant",
+                budget_frac: float = 0.6, seed: int = 0,
+                expose: int | None = None, chunk: int = 512,
+                item_block: int = 256, small: bool = False,
+                device=None) -> ServeStack:
+    """World, chains, random-weight stage and reward models, the
+    ``GeneratedSource`` and the plain pipeline, all on ``device``."""
+    dev = resolve_device(device)
+    expose = (8 if small else FULL_EXPOSE) if expose is None else expose
+    wcfg = world_config(users, small=small, seed=seed)
+    world = StreamingWorld.build(wcfg)
+    chains = build_chains(wcfg, expose, small=small)
+    gen = torch.Generator().manual_seed(seed)
+    models = build_models(wcfg, gen, dev, small=small)
+    rcfg = reward_config(chains, world.d_context, small=small)
+    rparams = reward_model_init(gen, rcfg, dev)
+    source = GeneratedSource(world, models, chains, expose=expose,
+                             seed=seed, chunk=chunk, item_block=item_block,
+                             device=dev)
+    budget = float(budget_frac * chains.costs.max() * requests)
+    pipe = ServingPipeline(source.universe, rparams, rcfg, budget,
+                           device=dev)
+    sizes = TrafficScenario(scenario, windows, requests).window_sizes()
+    return ServeStack(source, pipe, sizes, budget,
+                      float(chains.costs.max()), dev)
+
+
+def serve(stack: ServeStack, *, sync: bool = True) -> StreamStats:
+    """Run the stack's windows; with ``sync`` the per-window times
+    include the device work."""
+    do_sync = None
+    if sync and stack.device.type == "cuda":
+        do_sync = torch.cuda.synchronize
+    with torch.no_grad():
+        return run_stream(stack.pipeline, stack.sizes, stack.source,
+                          sync=do_sync)
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(
+        description="GreenFlow streaming serving on PyTorch/CUDA")
+    ap.add_argument("--source", default="generated", choices=("generated",),
+                    help="request source (only the hash-generated "
+                         "stream is ported)")
+    ap.add_argument("--device", default=None,
+                    help="cuda (default) or cpu; without a card the run "
+                         "fails unless --device cpu is given")
+    ap.add_argument("--windows", type=int, default=6)
+    ap.add_argument("--requests", type=int, default=512,
+                    help="requests per normal window")
+    ap.add_argument("--users", type=int, default=100_000,
+                    help="size of the streamed user universe")
+    ap.add_argument("--scenario", default="constant",
+                    choices=tuple(SCENARIOS))
+    ap.add_argument("--budget-frac", type=float, default=0.6)
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--small", action="store_true",
+                    help="small world and narrow models (CPU-sized)")
+    args = ap.parse_args(argv)
+    stack = build_stack(users=args.users, requests=args.requests,
+                        windows=args.windows, scenario=args.scenario,
+                        budget_frac=args.budget_frac, seed=args.seed,
+                        small=args.small, device=args.device)
+    print(f"[serve] device {stack.device}, {len(stack.sizes)} windows, "
+          f"U={args.users:,}, budget {stack.budget:.4e} FLOPs/window")
+    st = serve(stack)
+    for line in window_table(st):
+        print(line)
+    c_min = float(stack.source.chains.costs.min())
+    print(f"[serve] {len(st.sizes)} windows in {st.wall_s:.2f}s, worst "
+          f"overshoot vs cap: {st.overshoot(c_min) * 100:.3f}%, revenue "
+          f"{st.total_revenue:.1f}")
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

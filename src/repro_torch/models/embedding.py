@@ -1,0 +1,32 @@
+"""Fixed-size embedding bags: static (B, L) bags with a pad mask.
+
+The sum and mean forms are the ``embedding_bag`` kernel
+(``kernels.ops``): the mean is its weighted form with weights
+mask / max(count, 1), so no (B, L, D) gather is materialised on the
+card.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import ops
+
+
+def fixed_bag(table, ids, mask=None, *, mode: str = "sum"):
+    """table (V, D); ids (..., L) -> (..., D). mask (..., L) 1=valid."""
+    lead, bag = ids.shape[:-1], ids.shape[-1]
+    flat_ids = ids.reshape(-1, bag)
+    flat_mask = None if mask is None else mask.reshape(-1, bag)
+    if mode == "sum":
+        out = ops.embedding_bag(table, flat_ids, flat_mask)
+    elif mode == "mean":
+        if flat_mask is None:
+            w = torch.full(flat_ids.shape, 1.0 / max(bag, 1),
+                           dtype=table.dtype, device=table.device)
+        else:
+            count = flat_mask.sum(dim=-1, keepdim=True)
+            w = flat_mask / torch.clamp(count, min=1.0)
+        out = ops.embedding_bag(table, flat_ids, w)
+    else:
+        raise ValueError(f"unknown mode {mode!r}")
+    return out.reshape(*lead, table.shape[-1])

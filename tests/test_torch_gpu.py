@@ -1,0 +1,101 @@
+"""The CUDA kernels against their plain versions, on the card.
+
+Marked ``gpu``: they need a CUDA device and skip without one (the skip
+is decided inside the fixture, never at import).  Run them on a machine
+with a card with
+
+    PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py
+
+Tolerances as on the CPU: truncation exact, target attention 2e-5,
+embedding bag 1e-5.
+"""
+import pytest
+import torch
+
+from repro_torch.kernels import ops, ref
+
+pytestmark = pytest.mark.gpu
+
+
+@pytest.fixture()
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (kernels have no CPU mode)")
+    return torch.device("cuda")
+
+
+def _gen():
+    return torch.Generator().manual_seed(0)
+
+
+@pytest.mark.parametrize("g_n,u_n,cap,b_n,expose", [
+    (3, 5, 40, 32, 6), (16, 512, 200, 512, 20), (2, 3, 33, 9, 50)])
+def test_cascade_truncate_kernel(cuda, g_n, u_n, cap, b_n, expose):
+    gen = _gen()
+    perm = torch.argsort(torch.rand(g_n, u_n, cap, generator=gen), dim=-1)
+    count = torch.randint(cap // 2, cap + 1, (g_n, u_n, 1), generator=gen)
+    p = torch.where(perm < count, perm, torch.full_like(perm, cap)).int()
+    ck = (torch.rand(g_n, u_n, cap, generator=gen) < 0.2).float()
+    groups = torch.randint(0, g_n, (b_n,), generator=gen).int()
+    rows = torch.randint(0, u_n, (b_n,), generator=gen).int()
+    n3 = torch.randint(1, cap + 1, (b_n,), generator=gen).int()
+    args = [x.to(cuda) for x in (p, ck, groups, rows, n3)]
+    before = ops.LAUNCHES["cascade_truncate"]
+    got = ops.cascade_truncate(*args, expose=expose)
+    assert ops.LAUNCHES["cascade_truncate"] == before + 1
+    want = ref.cascade_truncate_ref(*args, expose=expose)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("b,n,t,d,h1,h2,shared", [
+    (3, 5, 7, 8, 12, 6, False), (4, 1, 100, 36, 80, 40, False),
+    (64, 256, 100, 36, 80, 40, True), (2, 130, 9, 36, 80, 64, False)])
+def test_target_attention_kernel(cuda, b, n, t, d, h1, h2, shared):
+    gen = _gen()
+
+    def r(*s, scale=1.0):
+        return (scale * torch.randn(*s, generator=gen)).to(cuda)
+    q = r(n, d, scale=0.3)[None].expand(b, n, d) if shared \
+        else r(b, n, d, scale=0.3)
+    keys = r(b, t, d, scale=0.3)
+    mask = (torch.rand(b, t, generator=gen) > 0.3).float().to(cuda)
+    ws = []
+    for di, do in ((4 * d, h1), (h1, h2), (h2, 1)):
+        ws += [r(di, do, scale=di ** -0.5), r(do, scale=0.1)]
+    got = ops.target_attention(q, keys, mask, *ws)
+    want = ref.target_attention_ref(q, keys, mask, *ws)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, want, rtol=2e-5, atol=2e-5)
+
+
+@pytest.mark.parametrize("v,d,b,l", [(50, 20, 7, 9), (4000, 32, 512, 100),
+                                     (100, 1000, 3, 5)])
+@pytest.mark.parametrize("weighted", [False, True])
+def test_embedding_bag_kernel(cuda, v, d, b, l, weighted):
+    gen = _gen()
+    table = torch.randn(v, d, generator=gen).to(cuda)
+    ids = torch.randint(0, v, (b, l), generator=gen).to(cuda)
+    w = None
+    if weighted:
+        w = torch.rand(b, l, generator=gen).to(cuda)
+        w[:, l // 2:] = 0.0  # padded history is skipped
+    got = ops.embedding_bag(table, ids, w)
+    want = ref.embedding_bag_ref(table, ids, w)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+
+
+def test_small_serve_card_matches_cpu(cuda):
+    """The same small stack on the card and on the CPU."""
+    from repro_torch.launch import serve
+
+    runs = []
+    for dev in ("cuda", "cpu"):
+        stack = serve.build_stack(users=5000, requests=64, windows=2,
+                                  small=True, device=dev)
+        runs.append(serve.serve(stack))
+    for a, b in zip(*(r.windows for r in runs)):
+        assert (a.decisions_np == b.decisions_np).mean() >= 0.99
+        torch.testing.assert_close(a.lam_after.cpu(), b.lam_after.cpu(),
+                                   rtol=1e-2, atol=0.0)
