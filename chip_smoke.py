@@ -5,8 +5,9 @@
 
 In order, it
   1. prints the card's name and power limit (nvidia-smi);
-  2. builds the three CUDA kernels from ``src/repro_torch/kernels/csrc``
-     (one nvcc per source, all at once);
+  2. builds the three CUDA kernels and their PyTorch binding from
+     ``src/repro_torch/kernels/csrc`` with ``torch.utils.cpp_extension``
+     (ninja compiles the sources in parallel);
   3. holds every kernel against its plain-torch version on the card, at
      small shapes and at the serving path's full widths (truncation
      exact, target attention 2e-5, embedding bag 1e-5) and times both,
@@ -17,11 +18,16 @@ In order, it
      paper chains, stage and reward models at full width, random
      weights from the seed) with the kernel launch counters reset just
      before and read just after; checks the budget, the price, the
-     revenue, that every kernel launched, that the window's device tables
-     equal the NumPy host builder and its revenue the plain version;
-  5. serves a small world on the card and on the CPU from the same seed
+     revenue, that every kernel launched, that the device tables served
+     in window 0 equal the NumPy host builder on the same stage scores
+     and that its revenue equals the plain truncation on those tables;
+  5. profiles one more full-width window under ``torch.profiler`` and
+     prints its wall time, the device's busy time and idle share, each
+     phase range's host and device span, and the operators that took the
+     most device time;
+  6. serves a small world on the card and on the CPU from the same seed
      and holds the two runs' decisions and prices against each other;
-  6. prints the ``kernels`` JSON line, the card line and, last, the
+  7. prints the ``kernels`` JSON line, the card line and, last, the
      ``{"ok": true, ...}`` line.
 
 Any failed check raises and the script exits non-zero without the last
@@ -178,8 +184,17 @@ def check_target_attention(gen, dev, hist_mask):
     ms = cuda_ms(lambda: ops.target_attention(*full), reps=10)
     plain_ms = cuda_ms(lambda: ref.target_attention_ref(*full), reps=3,
                        warm=1)
-    steps = float((hist_mask != 0).sum()) * n  # unmasked (b, n, t)
-    ops_n = steps * (2 * (4 * d * h1 + h1 * h2 + h2 + d) + 2 * d)
+    # The function's least work: with W1's row blocks Wq, Wk, Wd, Wp for
+    # q, k, q-k and q*k, feat W1 = q (Wq + Wd) + k (Wk - Wd) + (q*k) Wp.
+    # The first term is needed once per distinct candidate, the second
+    # once per unmasked (user, step); only (q*k) Wp, the sum of the
+    # terms, W2, W3 and the pooling are needed per unmasked (candidate,
+    # step).
+    user_steps = float((hist_mask != 0).sum())
+    steps = user_steps * n  # unmasked (b, n, t)
+    cands = n if full[0].stride(0) == 0 else b * n
+    per_step = d + 2 * d * h1 + 2 * h1 + 2 * h1 * h2 + 2 * h2 + 2 * d
+    ops_n = steps * per_step + (cands + user_steps) * 2 * d * h1
     nbytes = 4 * (n * d + b * t * d + b * t + 4 * d * h1 + h1 * h2
                   + h1 + 2 * h2 + 1 + b * n * d)
     b_ms, by = bound(nbytes, ops_n)
@@ -221,36 +236,35 @@ def check_embedding_bag(gen, dev, hist_ids, hist_mask, n_items, dim):
 # -- phase 4: the serving path at full width --------------------------------
 
 
-def check_window(stack, res, t: int):
-    """Window t, regenerated (a pure function of (seed, t)): its device
-    tables equal the NumPy host builder on the same scores, and its
-    revenue equals the plain truncation on those tables."""
+def check_window(stack, chunk, res):
+    """The served window: its device tables equal the NumPy host builder
+    on the same stage scores of its users, and its revenue equals the
+    plain truncation on those tables."""
     import numpy as np
     import torch
-    from repro_torch.cascade.engine import (_compact_group_tables,
-                                            _compact_group_tables_torch,
-                                            _user_batch)
+    from repro_torch.cascade.engine import _compact_group_tables, _user_batch
     from repro_torch.kernels import ref
 
     src = stack.source
-    chunk = src.window(t, res.n_valid)
-    users = chunk.users[:src.chunk]
+    users = chunk.users
     m = len(users)
+    if m > src.chunk:
+        raise AssertionError(f"window of {m} users spans several scoring "
+                             f"chunks of {src.chunk}")
     slab = src.world.user_slab(users)
     ub = _user_batch(slab, np.arange(m), stack.device, pad_to=src.chunk)
     with torch.no_grad():
         scores = src.score_slab(ub)
     clicks = src.world.clicks_slab(users, slab, pad_rows=src.chunk)
-    p_dev, ck_dev = _compact_group_tables_torch(
-        scores, src._lay, torch.from_numpy(clicks).to(stack.device))
     p_host, ck_host, _ = _compact_group_tables(
         {k: v[:m].cpu().numpy() for k, v in scores.items()}, src._lay,
         clicks[:m], expose=src.expose)
-    if not (np.array_equal(p_dev[:, :m].cpu().numpy(),
+    if not (np.array_equal(chunk.tables["p"].cpu().numpy(),
                            p_host.astype(np.int32))
-            and np.array_equal(ck_dev[:, :m].cpu().numpy(),
+            and np.array_equal(chunk.tables["ck"].cpu().numpy(),
                                ck_host.astype(np.float32))):
-        raise AssertionError("device tables differ from the host builder")
+        raise AssertionError("served device tables differ from the host "
+                             "builder")
     pipe = stack.pipeline
     p, ck = pipe._pad_chunk_tables(chunk.tables, res.n_valid,
                                    len(res.valid))
@@ -281,10 +295,21 @@ def serve_full(args):
                               device="cuda")
     log(f"stack built in {time.perf_counter() - t0:.1f}s: budget "
         f"{stack.budget:.4e} FLOPs/window, c_max {stack.c_max:.4e}")
+    served = {}
+    produce = stack.source.window
+
+    def window(t, n):  # keep window 0 as it was served, to check it
+        chunk = produce(t, n)
+        if t == 0:
+            served[0] = chunk
+        return chunk
+
+    stack.source.window = window
     torch.cuda.synchronize()
     ops.reset_launches()
     st = serve.serve(stack, sync=True)
     launches = dict(ops.LAUNCHES)
+    del stack.source.window
     for line in window_table(st):
         log(line)
     log(f"main-path launches over {len(st.windows)} windows: {launches}")
@@ -304,13 +329,13 @@ def serve_full(args):
         if cnt < 1:
             raise AssertionError(f"kernel {name} never launched on the "
                                  f"main path")
-    check_window(stack, st.windows[0], 0)
-    log("window 0: device tables == host builder, revenue == plain "
-        "truncation")
+    check_window(stack, served[0], st.windows[0])
+    log("window 0 as served: device tables == host builder, revenue == "
+        "plain truncation")
     return stack, st, launches
 
 
-def profile_window(stack, path: str) -> None:
+def profile_window(stack) -> None:
     """One more full-width window (produce + serve) under torch.profiler:
     device time per kernel, the host and device span of each phase
     range, and the device's idle share of the window's wall time."""
@@ -328,37 +353,26 @@ def profile_window(stack, path: str) -> None:
                                     tables=chunk.tables, update_lam=False)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    events = prof.events()
-    # device busy: kernels, copies and sets - not the annotation spans
-    def annotation(e):
-        return getattr(e, "is_user_annotation", False)
-
-    busy_ms = sum(e.time_range.elapsed_us() for e in events
+    # device busy: the table's "Self CUDA time total" - kernels, copies
+    # and sets, not the annotation ranges (one stream, so no overlap)
+    busy_ms = sum(e.self_device_time_total for e in prof.key_averages()
                   if e.device_type == DeviceType.CUDA
-                  and not annotation(e)) / 1e3
+                  and not e.is_user_annotation) / 1e3
     spans: dict = {}
-    for e in events:
-        if annotation(e) and e.name.split("/")[0] in (
-                "world", "score", "tables", "window"):
+    for e in prof.events():
+        if e.name.split("/")[0] in ("world", "score", "tables", "window"):
             side = "device" if e.device_type == DeviceType.CUDA else "host"
             spans.setdefault(e.name, {"host": 0.0, "device": 0.0})
             spans[e.name][side] += e.time_range.elapsed_us() / 1e3
     order = sorted(spans.items(), key=lambda kv: -kv[1]["host"])
-    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
-    with open(path, "w") as f:
-        f.write(f"wall {wall_ms:.3f} ms, device busy {busy_ms:.3f} ms\n")
-        for k, v in order:
-            f.write(f"range {k}: host span {v['host']:.3f} ms, device "
-                    f"span {v['device']:.3f} ms\n")
-        f.write(prof.key_averages().table(
-            sort_by="self_device_time_total", row_limit=40))
-    log(f"profiled window: wall {wall_ms:.1f} ms, device busy "
-        f"{busy_ms:.1f} ms (idle share "
-        f"{max(0.0, 1 - busy_ms / wall_ms):.3f})")
+    log(f"profiled window: wall {wall_ms:.3f} ms, device busy "
+        f"{busy_ms:.3f} ms (idle share "
+        f"{max(0.0, 1 - busy_ms / wall_ms):.4f})")
     for k, v in order:
-        log(f"  range {k}: host span {v['host']:.2f} ms, device span "
-            f"{v['device']:.2f} ms")
-    log(f"profile table -> {path}")
+        log(f"  range {k}: host span {v['host']:.3f} ms, device span "
+            f"{v['device']:.3f} ms")
+    print(prof.key_averages().table(sort_by="self_device_time_total",
+                                    row_limit=15), flush=True)
 
 
 def small_parity(seed: int):
@@ -393,13 +407,6 @@ def main(argv=None) -> int:
     ap.add_argument("--windows", type=int, default=3)
     ap.add_argument("--requests", type=int, default=512)
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--ptxas", action="store_true",
-                    help="print nvcc's register/shared-memory report")
-    ap.add_argument("--kernels-only", action="store_true",
-                    help="stop after the kernel checks (phases 1-3)")
-    ap.add_argument("--profile", default=None, metavar="PATH",
-                    help="also profile one full-width window and write "
-                         "the kernel table to PATH")
     args = ap.parse_args(argv)
 
     import torch
@@ -418,8 +425,9 @@ def main(argv=None) -> int:
     log(f"torch {torch.__version__} cuda {torch.version.cuda}, "
         f"{torch.cuda.get_device_name(0)} x {torch.cuda.device_count()}")
     t0 = time.perf_counter()
-    build.build(build.KERNELS, verbose=args.ptxas)
-    log(f"kernels built in {time.perf_counter() - t0:.1f}s")
+    build.load()
+    log(f"kernels built in {time.perf_counter() - t0:.1f}s "
+        f"(torch.utils.cpp_extension, into {build.build_dir()})")
 
     dev = torch.device("cuda")
     gen = torch.Generator().manual_seed(args.seed)
@@ -443,14 +451,10 @@ def main(argv=None) -> int:
             f"{r['ms']:.4f} ms (plain {r['plain_ms']:.4f} ms, bound "
             f"{r['bound_ms']:.4f} ms by {r['bound_by']}, library "
             f"{r['library_ms']})")
-    launches = {k: 0 for k in results}
-    n_windows = 0
-    if not args.kernels_only:
-        stack, st, launches = serve_full(args)
-        n_windows = len(st.windows)
-        if args.profile:
-            profile_window(stack, args.profile)
-        small_parity(args.seed)
+    stack, st, launches = serve_full(args)
+    n_windows = len(st.windows)
+    profile_window(stack)
+    small_parity(args.seed)
 
     src = "src/repro_torch/kernels/csrc/{}.cu"
     tpu = "src/repro/kernels/{}"
@@ -460,17 +464,13 @@ def main(argv=None) -> int:
     line = {"kernels": [
         {"name": name, "route": "cuda", "source": src.format(name),
          "replaces": replaces[name], "launches": int(launches[name]),
-         "launches_per_window": (launches[name] / n_windows
-                                 if n_windows else 0.0),
+         "launches_per_window": launches[name] / n_windows,
          "max_abs_err": r["max_abs_err"], "ms": r["ms"],
          "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
          "bound_by": r["bound_by"], "library_ms": r["library_ms"],
          "shape": r["shape"]}
         for name, r in results.items()]}
     print(json.dumps(line), flush=True)
-    if args.kernels_only:
-        log("kernels only: no serving run, no result line")
-        return 3
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,33 +1,28 @@
 """Build the CUDA kernels from ``kernels/csrc`` at first use.
 
-Each ``csrc/<name>.cu`` has a plain C interface and compiles with
-``nvcc`` alone (no PyTorch headers) into ``lib<name>-<hash>.so`` for
-``sm_90a``; the library is loaded with ``ctypes``.  All sources build in
-parallel, one ``nvcc`` per source.  The hash covers the source and the
-flags, so an edited kernel rebuilds and an unchanged one is reused.
+``torch.utils.cpp_extension.load`` compiles the kernels
+``csrc/<name>.cu`` (plain CUDA with a C launcher, no PyTorch headers,
+for ``sm_90a``) and their PyTorch binding ``csrc/bind.cpp`` into one
+extension.  ninja compiles the sources in parallel and rebuilds only
+when a source or a flag changed.
 
 The build directory defaults to ``build/kernels`` at the repository
-root (listed in ``.gitignore``); ``REPRO_TORCH_BUILD_DIR`` overrides it
-and ``REPRO_TORCH_NVCC`` names the compiler.  A missing compiler or a
-failed compile raises: there is no fallback.
+root (listed in ``.gitignore``); ``REPRO_TORCH_BUILD_DIR`` overrides it.
+The compiler is ``$CUDA_HOME/bin/nvcc``.  A missing compiler or a failed
+compile raises: there is no fallback.
 """
 from __future__ import annotations
 
-import ctypes
-import hashlib
 import os
-import shutil
-import subprocess
 import threading
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 KERNELS = ("cascade_truncate", "target_attention", "embedding_bag")
-NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC")
+CUDA_FLAGS = ["-gencode=arch=compute_90a,code=sm_90a", "-O3"]
 
 _LOCK = threading.Lock()
-_LIBS: dict = {}
+_EXT = None
 
 
 def build_dir() -> Path:
@@ -37,75 +32,27 @@ def build_dir() -> Path:
     return Path(__file__).resolve().parents[3] / "build" / "kernels"
 
 
-def nvcc_path() -> str:
-    env = os.environ.get("REPRO_TORCH_NVCC")
-    if env:
-        return env
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
-    return os.path.join(home, "bin", "nvcc")
+def load(*, verbose: bool = False):
+    """The compiled extension module (built on first use).
 
-
-def _lib_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha1(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return build_dir() / f"lib{name}-{digest[:12]}.so"
-
-
-def build(names=KERNELS, *, verbose: bool = False) -> dict:
-    """Compile every named kernel that is not built yet, all at once.
-
-    Returns {name: path of the shared library}.  Raises RuntimeError
-    with the compiler's output when ``nvcc`` is missing or fails."""
-    out = {n: _lib_path(n) for n in names}
-    todo = {n: p for n, p in out.items() if not p.exists()}
-    if not todo:
-        return out
-    nvcc = nvcc_path()
-    if not os.path.exists(nvcc):
-        raise RuntimeError(f"cannot build CUDA kernels: nvcc not found "
-                           f"(looked for {nvcc})")
-    build_dir().mkdir(parents=True, exist_ok=True)
-    procs = {}
-    for n, p in todo.items():
-        tmp = p.with_name(p.name + f".{os.getpid()}.tmp")
-        cmd = [nvcc, *NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else []),
-               "-o", str(tmp), str(CSRC / f"{n}.cu")]
-        procs[n] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                     stderr=subprocess.STDOUT, text=True),
-                    tmp)
-    errors = []
-    for n, (proc, tmp) in procs.items():
-        log, _ = proc.communicate()
-        if proc.returncode != 0:
-            errors.append(f"nvcc failed for {n}.cu (exit "
-                          f"{proc.returncode}):\n{log}")
-            continue
-        if verbose and log:
-            print(f"[build] {n}.cu:\n{log}")
-        os.replace(tmp, todo[n])
-    if errors:
-        raise RuntimeError("\n".join(errors))
-    return out
-
-
-def load(name: str) -> ctypes.CDLL:
-    """The loaded library of one kernel (built on first use)."""
+    Raises RuntimeError when ``nvcc`` is missing or a compile fails."""
+    global _EXT
     with _LOCK:
-        lib = _LIBS.get(name)
-        if lib is None:
-            path = build((name,))[name]
-            lib = ctypes.CDLL(str(path))
-            lib.kernel_error_string.restype = ctypes.c_char_p
-            lib.kernel_error_string.argtypes = [ctypes.c_int]
-            _LIBS[name] = lib
-        return lib
+        if _EXT is None:
+            from torch.utils import cpp_extension
 
-
-def check(lib: ctypes.CDLL, err: int, what: str) -> None:
-    """Raise if a launcher returned a CUDA error code."""
-    if err != 0:
-        msg = lib.kernel_error_string(err).decode()
-        raise RuntimeError(f"{what} kernel launch failed: {msg} ({err})")
+            home = cpp_extension.CUDA_HOME
+            nvcc = os.path.join(home or "", "bin", "nvcc")
+            if not home or not os.path.exists(nvcc):
+                raise RuntimeError(f"cannot build CUDA kernels: nvcc not "
+                                   f"found (CUDA_HOME={home})")
+            out = build_dir()
+            out.mkdir(parents=True, exist_ok=True)
+            sources = [CSRC / "bind.cpp"] + [CSRC / f"{n}.cu"
+                                             for n in KERNELS]
+            _EXT = cpp_extension.load(
+                name="repro_torch_kernels",
+                sources=[str(s) for s in sources],
+                extra_cflags=["-O3"], extra_cuda_cflags=CUDA_FLAGS,
+                build_directory=str(out), verbose=verbose)
+        return _EXT

@@ -1,0 +1,186 @@
+// PyTorch binding of the port's CUDA kernels (csrc/*.cu).
+//
+// Each function takes tensors on one CUDA device, checks their shapes,
+// types and layout, allocates the output and calls the kernel's plain-C
+// launcher under that device's guard, on its current stream.  A failed
+// check or launch raises (RuntimeError in Python); nothing falls back.
+// The kernels include no PyTorch header, so nvcc compiles them quickly;
+// only this file is compiled against PyTorch.
+
+#include <ATen/cuda/CUDAContext.h>
+#include <c10/cuda/CUDAGuard.h>
+#include <cuda_runtime.h>
+#include <torch/extension.h>
+
+#include <optional>
+
+extern "C" {
+int cascade_truncate_launch(const int* p, const float* ck, const int* groups,
+                            const int* rows, const int* n3, float* out, int U,
+                            int C, int B, int expose, void* stream);
+long long target_attention_smem_bytes(int T, int d, int h1, int h2);
+int target_attention_launch(const float* q, long long q_bstride,
+                            const float* keys, const float* mask,
+                            const float* w1, const float* b1, const float* w2,
+                            const float* b2, const float* w3, const float* b3,
+                            float* out, int B, int N, int T, int d, int h1,
+                            int h2, void* stream);
+int embedding_bag_launch(const float* table, const int* ids,
+                         const float* weights, float* out, int B, int D,
+                         int L, void* stream);
+}
+
+namespace {
+
+void same_device(const char* what, const torch::Tensor& first,
+                 std::initializer_list<const torch::Tensor*> rest) {
+  TORCH_CHECK(first.is_cuda(), what, ": inputs must be CUDA tensors");
+  for (const torch::Tensor* t : rest)
+    TORCH_CHECK(t->device() == first.device(), what,
+                ": inputs must all lie on one CUDA device, got ",
+                first.device(), " and ", t->device());
+}
+
+void check_launch(int err, const char* what) {
+  TORCH_CHECK(err == 0, what, " kernel launch failed: ",
+              cudaGetErrorString(static_cast<cudaError_t>(err)), " (", err,
+              ")");
+}
+
+void* stream() { return at::cuda::getCurrentCUDAStream().stream(); }
+
+int as_int(int64_t v, const char* what) {
+  TORCH_CHECK(v >= 0 && v <= INT32_MAX, what, " does not fit an int: ", v);
+  return static_cast<int>(v);
+}
+
+}  // namespace
+
+// (B,) revenue@expose from (G, U, C) CompactPlan tables.
+torch::Tensor cascade_truncate(const torch::Tensor& p, const torch::Tensor& ck,
+                               const torch::Tensor& groups,
+                               const torch::Tensor& rows,
+                               const torch::Tensor& n3, int64_t expose) {
+  same_device("cascade_truncate", p, {&ck, &groups, &rows, &n3});
+  TORCH_CHECK(p.dim() == 3 && p.sizes() == ck.sizes(),
+              "tables must be matching (G, U, C) tensors");
+  TORCH_CHECK(p.scalar_type() == torch::kInt32 &&
+                  ck.scalar_type() == torch::kFloat32,
+              "tables must be int32 positions and float32 clicks");
+  TORCH_CHECK(p.is_contiguous() && ck.is_contiguous(),
+              "tables must be contiguous");
+  TORCH_CHECK(groups.dim() == 1 && rows.sizes() == groups.sizes() &&
+                  n3.sizes() == groups.sizes(),
+              "groups, rows and n3 must be (B,) vectors");
+  const c10::cuda::CUDAGuard guard(p.device());
+  const auto g = groups.to(torch::kInt32).contiguous();
+  const auto r = rows.to(torch::kInt32).contiguous();
+  const auto n = n3.to(torch::kInt32).contiguous();
+  const int b = as_int(groups.size(0), "B");
+  auto out = torch::empty({b}, ck.options());
+  if (b == 0) return out;
+  check_launch(
+      cascade_truncate_launch(p.data_ptr<int>(), ck.data_ptr<float>(),
+                              g.data_ptr<int>(), r.data_ptr<int>(),
+                              n.data_ptr<int>(), out.data_ptr<float>(),
+                              as_int(p.size(1), "U"), as_int(p.size(2), "C"),
+                              b, as_int(expose, "expose"), stream()),
+      "cascade_truncate");
+  return out;
+}
+
+// (B, N, d) candidates against per-user (B, T, d) keys -> (B, N, d).
+// q may share one candidate list across users (batch stride 0).
+torch::Tensor target_attention(torch::Tensor q, const torch::Tensor& keys,
+                               const torch::Tensor& mask,
+                               const torch::Tensor& w1,
+                               const torch::Tensor& b1,
+                               const torch::Tensor& w2,
+                               const torch::Tensor& b2,
+                               const torch::Tensor& w3,
+                               const torch::Tensor& b3) {
+  same_device("target_attention", q, {&keys, &mask, &w1, &b1, &w2, &b2, &w3,
+                                      &b3});
+  TORCH_CHECK(q.dim() == 3 && keys.dim() == 3 && mask.dim() == 2,
+              "want q (B, N, d), keys (B, T, d), mask (B, T)");
+  const int64_t bsz = q.size(0), n = q.size(1), d = q.size(2);
+  const int64_t t = keys.size(1);
+  TORCH_CHECK(keys.size(0) == bsz && keys.size(2) == d &&
+                  mask.size(0) == bsz && mask.size(1) == t,
+              "keys/mask shapes do not match q");
+  TORCH_CHECK(w1.dim() == 2 && w2.dim() == 2, "W1 and W2 must be matrices");
+  const int64_t h1 = w1.size(1), h2 = w2.size(1);
+  TORCH_CHECK(w1.size(0) == 4 * d && b1.numel() == h1 && w2.size(0) == h1 &&
+                  b2.numel() == h2 && w3.numel() == h2 && b3.numel() == 1,
+              "attention MLP weights must be (4d, h1), (h1, h2), (h2, 1) "
+              "with matching biases");
+  TORCH_CHECK(h2 <= 64, "the kernel supports a second hidden layer <= 64");
+  for (const torch::Tensor* x : std::initializer_list<const torch::Tensor*>{
+           &q, &keys, &mask, &w1, &b1, &w2, &b2, &w3, &b3})
+    TORCH_CHECK(x->scalar_type() == torch::kFloat32, "inputs must be f32");
+  if (!(q.stride(2) == 1 && q.stride(1) == d)) q = q.contiguous();
+  const c10::cuda::CUDAGuard guard(q.device());
+  const auto k = keys.contiguous(), m = mask.contiguous();
+  const auto w1c = w1.contiguous(), b1c = b1.contiguous();
+  const auto w2c = w2.contiguous(), b2c = b2.contiguous();
+  const auto w3c = w3.contiguous(), b3c = b3.contiguous();
+  auto out = torch::empty({bsz, n, d}, q.options());
+  if (bsz == 0 || n == 0) return out;
+  const int ti = as_int(t, "T"), di = as_int(d, "d");
+  const int h1i = as_int(h1, "h1"), h2i = as_int(h2, "h2");
+  const int err = target_attention_launch(
+      q.data_ptr<float>(), q.stride(0), k.data_ptr<float>(),
+      m.data_ptr<float>(), w1c.data_ptr<float>(), b1c.data_ptr<float>(),
+      w2c.data_ptr<float>(), b2c.data_ptr<float>(), w3c.data_ptr<float>(),
+      b3c.data_ptr<float>(), out.data_ptr<float>(), as_int(bsz, "B"),
+      as_int(n, "N"), ti, di, h1i, h2i, stream());
+  TORCH_CHECK(err == 0, "target_attention kernel launch failed: ",
+              cudaGetErrorString(static_cast<cudaError_t>(err)),
+              " (shared memory ",
+              target_attention_smem_bytes(ti, di, h1i, h2i), " bytes)");
+  return out;
+}
+
+// (B, L) bags into a (V, D) table -> (B, D) sums, weighted when weights
+// is given.
+torch::Tensor embedding_bag(const torch::Tensor& table,
+                            const torch::Tensor& ids,
+                            const std::optional<torch::Tensor>& weights) {
+  if (weights)
+    same_device("embedding_bag", table, {&ids, &*weights});
+  else
+    same_device("embedding_bag", table, {&ids});
+  TORCH_CHECK(table.dim() == 2 && ids.dim() == 2,
+              "want table (V, D), ids (B, L)");
+  TORCH_CHECK(table.scalar_type() == torch::kFloat32, "table must be f32");
+  const int64_t d = table.size(1);
+  TORCH_CHECK(d <= 1024, "the kernel supports D <= 1024");
+  const c10::cuda::CUDAGuard guard(table.device());
+  torch::Tensor w;
+  if (weights) {
+    TORCH_CHECK(weights->sizes() == ids.sizes() &&
+                    weights->scalar_type() == torch::kFloat32,
+                "weights must be f32 and shaped like ids");
+    w = weights->contiguous();
+  }
+  const auto tab = table.contiguous();
+  const auto i = ids.to(torch::kInt32).contiguous();
+  const int b = as_int(ids.size(0), "B");
+  auto out = torch::empty({b, d}, table.options());
+  if (b == 0) return out;
+  check_launch(embedding_bag_launch(tab.data_ptr<float>(), i.data_ptr<int>(),
+                                    weights ? w.data_ptr<float>() : nullptr,
+                                    out.data_ptr<float>(), b, as_int(d, "D"),
+                                    as_int(ids.size(1), "L"), stream()),
+               "embedding_bag");
+  return out;
+}
+
+PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
+  m.def("cascade_truncate", &cascade_truncate,
+        "CompactPlan truncation: (B,) revenue@expose");
+  m.def("target_attention", &target_attention,
+        "DIN target attention, candidate form");
+  m.def("embedding_bag", &embedding_bag,
+        "(weighted) embedding bag sums");
+}

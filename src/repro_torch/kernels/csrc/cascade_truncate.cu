@@ -70,7 +70,3 @@ extern "C" int cascade_truncate_launch(const int* p, const float* ck,
       p, ck, groups, rows, n3, out, U, C, B, expose);
   return static_cast<int>(cudaGetLastError());
 }
-
-extern "C" const char* kernel_error_string(int err) {
-  return cudaGetErrorString(static_cast<cudaError_t>(err));
-}

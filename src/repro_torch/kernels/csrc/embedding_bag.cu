@@ -73,7 +73,3 @@ extern "C" int embedding_bag_launch(const float* table, const int* ids,
       table, ids, weights, out, D, L);
   return static_cast<int>(cudaGetLastError());
 }
-
-extern "C" const char* kernel_error_string(int err) {
-  return cudaGetErrorString(static_cast<cudaError_t>(err));
-}

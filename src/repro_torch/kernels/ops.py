@@ -2,29 +2,23 @@
 
 A CUDA tensor goes to the hand-written kernel (``kernels/csrc``, built
 on first use by ``kernels.build``); a CPU tensor goes to the kernel's
-plain-torch version in ``kernels.ref``.  Any other device, or a kernel
-that fails to build or launch, raises - nothing falls back.
+plain-torch version in ``kernels.ref``.  Any other device, tensors on
+more than one device, or a kernel that fails to build or launch, raises
+- nothing falls back.  The binding (``csrc/bind.cpp``) checks shapes,
+types and layout and launches under the inputs' device guard, on that
+device's current stream; it never synchronises.
 
 ``LAUNCHES`` counts kernel launches per kernel: each wrapper adds one
 right where it launches, and nowhere else, so a run can show that its
-main path went through the kernels.  Kernels launch on PyTorch's current
-stream and never synchronise; the wrappers allocate the outputs.
+main path went through the kernels.
 """
 from __future__ import annotations
 
-import ctypes
-
-import torch
-
 from repro_torch.kernels import ref
-from repro_torch.kernels.build import check, load
+from repro_torch.kernels.build import load
 
 LAUNCHES = {"cascade_truncate": 0, "target_attention": 0,
             "embedding_bag": 0}
-
-_P = ctypes.c_void_p
-_I = ctypes.c_int
-_L = ctypes.c_longlong
 
 
 def reset_launches() -> None:
@@ -33,34 +27,13 @@ def reset_launches() -> None:
 
 
 def _on_cpu(*ts) -> bool:
-    devs = {t.device.type for t in ts if t is not None}
-    if devs == {"cpu"}:
+    devs = {t.device for t in ts if t is not None}
+    if {d.type for d in devs} == {"cpu"}:
         return True
-    if devs != {"cuda"}:
+    if len(devs) != 1 or next(iter(devs)).type != "cuda":
         raise ValueError(f"kernel inputs must all lie on the CPU or all "
-                         f"on one CUDA device, got {sorted(devs)}")
+                         f"on one CUDA device, got {sorted(map(str, devs))}")
     return False
-
-
-def _stream() -> int:
-    return torch.cuda.current_stream().cuda_stream
-
-
-def _lib(name: str, argtypes) -> ctypes.CDLL:
-    lib = load(name)
-    fn = getattr(lib, f"{name}_launch")
-    if fn.argtypes is None:
-        fn.argtypes = argtypes
-        fn.restype = _I
-    return lib
-
-
-def _need(cond: bool, msg: str) -> None:
-    if not cond:
-        raise ValueError(msg)
-
-
-# -- cascade truncation -----------------------------------------------------
 
 
 def cascade_truncate(p_sorted, clicks_sorted, groups, rows, n3, *,
@@ -70,33 +43,11 @@ def cascade_truncate(p_sorted, clicks_sorted, groups, rows, n3, *,
     if _on_cpu(p_sorted, clicks_sorted, groups, rows, n3):
         return ref.cascade_truncate_ref(p_sorted, clicks_sorted, groups,
                                         rows, n3, expose=expose)
-    _need(p_sorted.dim() == 3 and p_sorted.shape == clicks_sorted.shape,
-          "tables must be matching (G, U, C) tensors")
-    _need(p_sorted.dtype == torch.int32
-          and clicks_sorted.dtype == torch.float32,
-          "tables must be int32 positions and float32 clicks")
-    _need(p_sorted.is_contiguous() and clicks_sorted.is_contiguous(),
-          "tables must be contiguous")
-    b = groups.shape[0]
-    _need(rows.shape == (b,) and n3.shape == (b,),
-          "groups, rows and n3 must be (B,) vectors")
-    groups, rows, n3 = (x.to(torch.int32).contiguous()
-                        for x in (groups, rows, n3))
-    out = torch.empty(b, dtype=torch.float32, device=p_sorted.device)
-    if b == 0:
-        return out
-    _, u, c = p_sorted.shape
-    lib = _lib("cascade_truncate", [_P] * 6 + [_I] * 4 + [_P])
-    err = lib.cascade_truncate_launch(
-        p_sorted.data_ptr(), clicks_sorted.data_ptr(), groups.data_ptr(),
-        rows.data_ptr(), n3.data_ptr(), out.data_ptr(), u, c, b,
-        int(expose), _stream())
-    check(lib, err, "cascade_truncate")
-    LAUNCHES["cascade_truncate"] += 1
+    out = load().cascade_truncate(p_sorted, clicks_sorted, groups, rows, n3,
+                                  int(expose))
+    if groups.shape[0]:  # the binding launches for B > 0
+        LAUNCHES["cascade_truncate"] += 1
     return out
-
-
-# -- target attention -------------------------------------------------------
 
 
 def target_attention(q, keys, mask, w1, b1, w2, b2, w3, b3):
@@ -106,45 +57,10 @@ def target_attention(q, keys, mask, w1, b1, w2, b2, w3, b3):
     if _on_cpu(q, keys, mask, w1, b1, w2, b2, w3, b3):
         return ref.target_attention_ref(q, keys, mask, w1, b1, w2, b2, w3,
                                         b3)
-    _need(q.dim() == 3 and keys.dim() == 3 and mask.dim() == 2,
-          "want q (B, N, d), keys (B, T, d), mask (B, T)")
-    bsz, n, d = q.shape
-    t = keys.shape[1]
-    _need(keys.shape == (bsz, t, d) and mask.shape == (bsz, t),
-          "keys/mask shapes do not match q")
-    h1, h2 = w1.shape[1], w2.shape[1]
-    _need(w1.shape == (4 * d, h1) and b1.shape == (h1,)
-          and w2.shape == (h1, h2) and b2.shape == (h2,)
-          and w3.shape == (h2, 1) and b3.shape == (1,),
-          "attention MLP weights must be (4d, h1), (h1, h2), (h2, 1) "
-          "with matching biases")
-    _need(h2 <= 64, "the kernel supports a second hidden layer <= 64")
-    ts = (q, keys, mask, w1, b1, w2, b2, w3, b3)
-    _need(all(x.dtype == torch.float32 for x in ts), "inputs must be f32")
-    if not (q.stride(2) == 1 and q.stride(1) == d):
-        q = q.contiguous()
-    q_bstride = q.stride(0)
-    keys, mask, w1, b1, w2, b2, w3, b3 = (
-        x.contiguous() for x in (keys, mask, w1, b1, w2, b2, w3, b3))
-    out = torch.empty((bsz, n, d), dtype=torch.float32, device=q.device)
-    if bsz == 0 or n == 0:
-        return out
-    lib = _lib("target_attention",
-               [_P, _L] + [_P] * 9 + [_I] * 6 + [_P])
-    lib.target_attention_smem_bytes.restype = _L
-    lib.target_attention_smem_bytes.argtypes = [_I] * 4
-    smem = lib.target_attention_smem_bytes(t, d, h1, h2)
-    err = lib.target_attention_launch(
-        q.data_ptr(), q_bstride, keys.data_ptr(), mask.data_ptr(),
-        w1.data_ptr(), b1.data_ptr(), w2.data_ptr(), b2.data_ptr(),
-        w3.data_ptr(), b3.data_ptr(), out.data_ptr(), bsz, n, t, d, h1, h2,
-        _stream())
-    check(lib, err, f"target_attention (shared memory {smem} bytes)")
-    LAUNCHES["target_attention"] += 1
+    out = load().target_attention(q, keys, mask, w1, b1, w2, b2, w3, b3)
+    if q.shape[0] and q.shape[1]:  # launched for B, N > 0
+        LAUNCHES["target_attention"] += 1
     return out
-
-
-# -- embedding bag ----------------------------------------------------------
 
 
 def embedding_bag(table, ids, weights=None):
@@ -152,27 +68,7 @@ def embedding_bag(table, ids, weights=None):
     ``ref.embedding_bag_ref``."""
     if _on_cpu(table, ids, weights):
         return ref.embedding_bag_ref(table, ids, weights)
-    _need(table.dim() == 2 and ids.dim() == 2, "want table (V, D), "
-          "ids (B, L)")
-    _need(table.dtype == torch.float32, "table must be f32")
-    bsz, bag = ids.shape
-    d = table.shape[1]
-    _need(d <= 1024, "the kernel supports D <= 1024")
-    if weights is not None:
-        _need(weights.shape == ids.shape
-              and weights.dtype == torch.float32,
-              "weights must be f32 and shaped like ids")
-        weights = weights.contiguous()
-    table = table.contiguous()
-    ids = ids.to(torch.int32).contiguous()
-    out = torch.empty((bsz, d), dtype=torch.float32, device=table.device)
-    if bsz == 0:
-        return out
-    lib = _lib("embedding_bag", [_P] * 4 + [_I] * 3 + [_P])
-    err = lib.embedding_bag_launch(
-        table.data_ptr(), ids.data_ptr(),
-        None if weights is None else weights.data_ptr(), out.data_ptr(),
-        bsz, d, bag, _stream())
-    check(lib, err, "embedding_bag")
-    LAUNCHES["embedding_bag"] += 1
+    out = load().embedding_bag(table, ids, weights)
+    if ids.shape[0]:  # launched for B > 0
+        LAUNCHES["embedding_bag"] += 1
     return out

@@ -75,12 +75,42 @@ def test_entry_points_raise_without_a_card(monkeypatch):
 
 
 def test_kernel_build_raises_without_nvcc(monkeypatch, tmp_path):
+    from torch.utils import cpp_extension
+
     from repro_torch.kernels import build
 
-    monkeypatch.setenv("REPRO_TORCH_NVCC", str(tmp_path / "no-nvcc"))
+    monkeypatch.setattr(cpp_extension, "CUDA_HOME", str(tmp_path / "none"))
     monkeypatch.setenv("REPRO_TORCH_BUILD_DIR", str(tmp_path / "b"))
     with pytest.raises(RuntimeError, match="nvcc not found"):
-        build.build(build.KERNELS)
+        build.load()
+
+
+def test_kernel_build_compiles_every_source_for_sm90a(monkeypatch,
+                                                      tmp_path):
+    """The extension is built from the repository's sources, for
+    ``sm_90a``, into the build directory (the compile itself needs a
+    GPU machine, so ``cpp_extension.load`` is recorded, not run)."""
+    from torch.utils import cpp_extension
+
+    from repro_torch.kernels import build
+
+    nvcc = tmp_path / "cuda" / "bin" / "nvcc"
+    nvcc.parent.mkdir(parents=True)
+    nvcc.write_text("")
+    monkeypatch.setattr(cpp_extension, "CUDA_HOME", str(tmp_path / "cuda"))
+    monkeypatch.setenv("REPRO_TORCH_BUILD_DIR", str(tmp_path / "b"))
+    monkeypatch.setattr(build, "_EXT", None)
+    seen = {}
+    monkeypatch.setattr(cpp_extension, "load",
+                        lambda **kw: seen.update(kw) or "ext")
+    assert build.load() == "ext" and build.load() == "ext"
+    assert "-gencode=arch=compute_90a,code=sm_90a" in \
+        seen["extra_cuda_cflags"]
+    assert sorted(os.path.basename(s) for s in seen["sources"]) == [
+        "bind.cpp", "cascade_truncate.cu", "embedding_bag.cu",
+        "target_attention.cu"]
+    assert all(os.path.exists(s) for s in seen["sources"])
+    assert seen["build_directory"] == str(tmp_path / "b")
 
 
 def test_kernel_wrappers_refuse_other_devices():
