@@ -5,29 +5,43 @@
 
 In order, it
   1. prints the card's name and power limit (nvidia-smi);
-  2. builds the three CUDA kernels and their PyTorch binding from
+  2. builds the five CUDA kernels and their PyTorch binding from
      ``src/repro_torch/kernels/csrc`` with ``torch.utils.cpp_extension``
      (ninja compiles the sources in parallel);
   3. holds every kernel against its plain-torch version on the card, at
-     small shapes and at the serving path's full widths (truncation
-     exact, target attention 2e-5, embedding bag 1e-5) and times both,
-     with the least time the card could take (``bound_ms``) and, where
-     one PyTorch call computes the same function, that call's time;
+     small shapes and at its path's full widths (truncation exact,
+     target attention 2e-5, embedding bag 1e-5, dot interaction 2e-5 in
+     f32 and 2e-2 in bf16, CIN 1e-4) and times both, with the least time
+     the card could take (``bound_ms``) and the time of the PyTorch
+     call(s) that compute the same function (for dot interaction and
+     CIN a composition of calls: bmm and a gather, two einsums);
   4. serves full-width ``GeneratedSource`` windows through
      ``repro_torch.launch.serve`` (100k-user world, 4000-item corpus,
      paper chains, stage and reward models at full width, random
      weights from the seed) with the kernel launch counters reset just
      before and read just after; checks the budget, the price, the
-     revenue, that every kernel launched, that the device tables served
-     in window 0 equal the NumPy host builder on the same stage scores
-     and that its revenue equals the plain truncation on those tables;
+     revenue, that the window's three kernels launched (and no other),
+     that the device tables served in window 0 equal the NumPy host
+     builder on the same stage scores and that its revenue equals the
+     plain truncation on those tables;
   5. profiles one more full-width window under ``torch.profiler`` and
      prints its wall time, the device's busy time and idle share, each
      phase range's host and device span, and the operators that took the
      most device time;
-  6. serves a small world on the card and on the CPU from the same seed
+  6. serves the model zoo's ``dlrm-rm2`` and ``xdeepfm`` cells at
+     ``full_config()`` through ``configs.get_arch(...).make_cell(...)``:
+     serve_p99 (B = 512) x 10, serve_bulk (B = 262,144) x 2 and
+     retrieval_cand (1 user x 1,000,000 candidates) x 1, each after one
+     warm call, with the counters reset before and read after each cell
+     (dot_interact once per DLRM forward, cin_layer three times per
+     xDeepFM forward); checks finite logits, prints each call's ms and
+     the peak memory, and holds retrieval_forward against forward on
+     the broadcast batch;
+  7. serves a small world on the card and on the CPU from the same seed
      and holds the two runs' decisions and prices against each other;
-  7. prints the ``kernels`` JSON line, the card line and, last, the
+     runs smoke_config DLRM and xDeepFM from one seed on both and holds
+     their logits against each other;
+  8. prints the ``kernels`` JSON line, the card line and, last, the
      ``{"ok": true, ...}`` line.
 
 Any failed check raises and the script exits non-zero without the last
@@ -49,6 +63,7 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 
 PEAK_BYTES_S = 3.35e12  # H100 SXM HBM3
 PEAK_F32_S = 67e12  # H100 SXM f32 outside the tensor cores
+PEAK_BF16_S = 989e12  # H100 SXM bf16 tensor cores, dense
 
 
 def log(msg: str) -> None:
@@ -79,16 +94,20 @@ def cuda_ms(fn, *, reps: int, warm: int = 2) -> float:
     return start.elapsed_time(end) / reps
 
 
-def bound(nbytes: float, ops: float) -> tuple[float, str]:
-    t_b, t_o = nbytes / PEAK_BYTES_S, ops / PEAK_F32_S
+def bound(nbytes: float, ops: float,
+          peak_ops: float = PEAK_F32_S) -> tuple[float, str]:
+    """The least time (ms) for moving ``nbytes`` and doing ``ops`` at the
+    peak rate of the inputs' type, and which of the two bounds it."""
+    t_b, t_o = nbytes / PEAK_BYTES_S, ops / peak_ops
     return max(t_b, t_o) * 1e3, ("bytes" if t_b >= t_o else "operations")
 
 
 def close(got, want, tol: float) -> float:
-    """Max abs error; raises unless |got - want| <= tol + tol * |want|."""
+    """Max abs error; raises unless |got - want| <= tol + tol * |want|.
+    Computed in f64 on the tensors' device."""
     import torch
     torch.cuda.synchronize()
-    got, want = got.double().cpu(), want.double().cpu()
+    got, want = got.double(), want.double()
     if got.shape != want.shape:
         raise AssertionError(f"shape {tuple(got.shape)} != "
                              f"{tuple(want.shape)}")
@@ -233,6 +252,108 @@ def check_embedding_bag(gen, dev, hist_ids, hist_mask, n_items, dim):
             "shape": f"V={n_items} D={dim} B={b} L={bag}"}
 
 
+def check_dot_interact(dev):
+    """Small shapes, then DLRM-RM2's (B, 27, 64) at B = 512 and 262,144 in
+    f32 and bf16.  The kernel line reports the serve_bulk bf16 case."""
+    import torch
+    from repro_torch.kernels import ops, ref
+
+    gen = torch.Generator(device=dev).manual_seed(11)
+    tols = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+
+    def feats(b, f, d, dtype):
+        x = 0.3 * torch.randn(b, f, d, generator=gen, device=dev)
+        return x.to(dtype)
+
+    for b, f, d in ((7, 13, 32), (5, 27, 63), (32, 27, 64)):
+        for dt, tol in tols.items():
+            x = feats(b, f, d, dt)
+            close(ops.dot_interact(x).float(), ref.dot_interact_ref(x).float(),
+                  tol)
+    rows = {}
+    for b in (512, 262_144):
+        for dt, tol in tols.items():
+            x = feats(b, 27, 64, dt)
+            err = close(ops.dot_interact(x).float(),
+                        ref.dot_interact_ref(x).float(), tol)
+            reps = 200 if b == 512 else 20
+            ms = cuda_ms(lambda: ops.dot_interact(x), reps=reps)
+            plain_ms = cuda_ms(lambda: ref.dot_interact_ref(x),
+                               reps=max(2, reps // 4))
+            iu, ju = torch.tril_indices(27, 27, offset=-1, device=dev)
+            lib_ms = cuda_ms(lambda: torch.bmm(x, x.mT)[:, iu, ju],
+                             reps=max(2, reps // 4))
+            esize = x.element_size()
+            p = 27 * 26 // 2
+            b_ms, by = bound(b * 27 * 64 * esize + b * p * esize,
+                             2.0 * b * p * 64,
+                             PEAK_BF16_S if dt == torch.bfloat16
+                             else PEAK_F32_S)
+            name = "bf16" if dt == torch.bfloat16 else "f32"
+            rows[(b, name)] = {
+                "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                "bound_ms": b_ms, "bound_by": by, "library_ms": lib_ms,
+                "shape": f"B={b} F=27 D=64 {name}"}
+            del x
+    for r in rows.values():
+        log(f"dot_interact [{r['shape']}]: max_abs_err "
+            f"{r['max_abs_err']:.3e}, {r['ms']:.4f} ms (plain "
+            f"{r['plain_ms']:.4f}, bmm + tril gather {r['library_ms']:.4f}, "
+            f"bound {r['bound_ms']:.4f} by {r['bound_by']})")
+    return rows[(262_144, "bf16")]
+
+
+def check_cin(dev):
+    """Small shapes, then xDeepFM's layers 1 (Hp = 39) and 2 (Hp = 200)
+    at m = 39, D = 10, H_out = 200, at B = 512 and 4,096 (the first rows
+    of a bulk batch).  The kernel line reports layer 2 at B = 4,096."""
+    import torch
+    from repro_torch.kernels import ops, ref
+
+    gen = torch.Generator(device=dev).manual_seed(12)
+
+    def r(*shape, scale=1.0):
+        return scale * torch.randn(*shape, generator=gen, device=dev)
+
+    for b, hp, m, d, ho in ((5, 8, 12, 4, 16), (3, 7, 5, 1, 41),
+                            (8, 39, 39, 10, 200)):
+        args = (r(ho, hp * m, scale=0.05), r(b, hp, d), r(b, m, d))
+        close(ops.cin_layer(*args), ref.cin_layer_ref(*args), 1e-4)
+    rows = {}
+    m, d, ho = 39, 10, 200
+    for b in (512, 4096):
+        x0 = r(b, m, d)
+        for hp in (39, 200):
+            k = hp * m
+            w = r(ho, k, scale=(2.0 / (ho + k)) ** 0.5)  # glorot's std
+            xp = x0 if hp == m else r(b, hp, d)
+            args = (w, xp, x0)
+            err = close(ops.cin_layer(*args), ref.cin_layer_ref(*args), 1e-4)
+            reps = 20 if b == 512 else 5
+            ms = cuda_ms(lambda: ops.cin_layer(*args), reps=reps)
+            plain_ms = cuda_ms(lambda: ref.cin_layer_ref(*args), reps=2,
+                               warm=1)
+
+            def two_einsums():
+                z = torch.einsum("bhd,bmd->bhmd", xp, x0).reshape(b, k, d)
+                return torch.einsum("oc,bcd->bod", w, z)
+
+            lib_ms = cuda_ms(two_einsums, reps=2, warm=1)
+            nbytes = 4 * (ho * k + b * hp * d + (b * m * d if hp != m else 0)
+                          + b * ho * d)
+            b_ms, by = bound(nbytes, 2.0 * b * ho * k * d + b * k * d)
+            rows[(b, hp)] = {
+                "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                "bound_ms": b_ms, "bound_by": by, "library_ms": lib_ms,
+                "shape": f"B={b} Hp={hp} m={m} D={d} H_out={ho}"}
+    for row in rows.values():
+        log(f"cin_layer [{row['shape']}]: max_abs_err "
+            f"{row['max_abs_err']:.3e}, {row['ms']:.4f} ms (plain "
+            f"{row['plain_ms']:.4f}, two einsums {row['library_ms']:.4f}, "
+            f"bound {row['bound_ms']:.4f} by {row['bound_by']})")
+    return rows[(4096, 200)]
+
+
 # -- phase 4: the serving path at full width --------------------------------
 
 
@@ -278,6 +399,9 @@ def check_window(stack, chunk, res):
     if not torch.equal(res.revenue.cpu(), want):
         raise AssertionError("served revenue differs from the plain "
                              "truncation on the same tables")
+
+
+WINDOW_KERNELS = ("cascade_truncate", "target_attention", "embedding_bag")
 
 
 def serve_full(args):
@@ -326,9 +450,10 @@ def serve_full(args):
         if r.decisions.shape != (len(r.valid),):
             raise AssertionError(f"window {t}: decisions shape")
     for name, cnt in launches.items():
-        if cnt < 1:
-            raise AssertionError(f"kernel {name} never launched on the "
-                                 f"main path")
+        if (cnt < 1) == (name in WINDOW_KERNELS):
+            raise AssertionError(f"kernel {name} launched {cnt} times on "
+                                 f"the serving window path")
+    launches = {k: launches[k] for k in WINDOW_KERNELS}
     check_window(stack, served[0], st.windows[0])
     log("window 0 as served: device tables == host builder, revenue == "
         "plain truncation")
@@ -373,6 +498,121 @@ def profile_window(stack) -> None:
             f"{v['device']:.3f} ms")
     print(prof.key_averages().table(sort_by="self_device_time_total",
                                     row_limit=15), flush=True)
+
+
+# -- phase 6: the zoo's serving cells at full width -------------------------
+
+ZOO = {"dlrm-rm2": "dot_interact", "xdeepfm": "cin_layer"}
+ZOO_CALLS = {"serve_p99": 10, "serve_bulk": 2, "retrieval_cand": 1}
+
+
+def retrieval_matches_forward(mod, cfg, params, user, cand) -> float:
+    """retrieval_forward on the first 512 candidates against forward on
+    the user's batch broadcast to them, with the candidates swapped in."""
+    import torch
+    c = cand[:512]
+    got = mod.model.retrieval_forward(params, cfg, user, c)
+    full = {k: v.expand(len(c), v.shape[1]).clone() for k, v in user.items()}
+    full["sparse"][:, -c.shape[1]:] = c
+    return close(got, mod.model.forward(params, cfg, full), 1e-5)
+
+
+def serve_zoo(seed: int) -> dict:
+    """Each cell of ``ZOO`` at ``full_config()``: weights and inputs drawn
+    from the seed on the card, one warm call and ``ZOO_CALLS[shape]``
+    timed calls.  The launch counters are reset just before and read just
+    after each cell: each DLRM forward launches dot_interact once, each
+    xDeepFM forward cin_layer once per CIN layer (the retrieval cell runs
+    one forward per candidate chunk), and nothing else launches."""
+    import gc
+
+    import torch
+    from repro_torch import configs
+    from repro_torch.configs.xdeepfm_arch import RETRIEVAL_CHUNKS
+    from repro_torch.kernels import ops
+
+    launched = {k: 0 for k in ZOO.values()}
+    for arch, kernel in ZOO.items():
+        mod = configs.get_arch(arch)
+        cfg = mod.full_config()
+        per_fwd = len(cfg.cin_layers) if arch == "xdeepfm" else 1
+        for shape, calls in ZOO_CALLS.items():
+            cell = mod.make_cell(shape, cfg=cfg)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            args = cell.make_args(seed, "cuda")
+            torch.cuda.synchronize()
+            setup_s = time.perf_counter() - t0
+            torch.cuda.reset_peak_memory_stats()
+            ops.reset_launches()
+            out = cell.fn(*args)  # warm call
+            times = []
+            for _ in range(calls):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = cell.fn(*args)
+                torch.cuda.synchronize()
+                times.append((time.perf_counter() - t0) * 1e3)
+            got = dict(ops.LAUNCHES)
+            peak_gb = torch.cuda.max_memory_allocated() / 1e9
+            fwds = 1 + calls
+            if arch == "xdeepfm" and shape == "retrieval_cand":
+                fwds *= RETRIEVAL_CHUNKS
+            want = {k: 0 for k in got}
+            want[kernel] = fwds * per_fwd
+            if got != want:
+                raise AssertionError(f"{arch} x {shape}: launches {got}, "
+                                     f"want {want}")
+            launched[kernel] += got[kernel]
+            n = (args[2].shape[0] if cell.kind == "retrieval"
+                 else args[1]["sparse"].shape[0])
+            if out.shape != (n,) or not torch.isfinite(out).all():
+                raise AssertionError(f"{arch} x {shape}: logits "
+                                     f"{tuple(out.shape)} not finite (n={n})")
+            gflop = cell.meta["model_flops"] / 1e9
+            log(f"{arch} x {shape} (n={n}): set-up {setup_s:.2f} s; calls "
+                f"{', '.join(f'{t:.3f}' for t in times)} ms; "
+                f"{gflop / (min(times) * 1e-3) / 1e3:.2f} model TFLOP/s at "
+                f"the fastest; peak memory {peak_gb:.2f} GB; launches "
+                f"{got[kernel]} {kernel}; logits sum "
+                f"{float(out.double().sum()):.6f}")
+            if cell.kind == "retrieval":
+                err = retrieval_matches_forward(mod, cfg, *args)
+                log(f"{arch} retrieval_forward == forward on the broadcast "
+                    f"batch (first 512 candidates): max abs err {err:.3e}")
+            del args, out, cell
+            gc.collect()
+            torch.cuda.empty_cache()
+    return launched
+
+
+def zoo_parity(seed: int) -> None:
+    """smoke_config DLRM and xDeepFM from one seed, on the CPU and (the
+    same weights moved) on the card: logits within 1e-5 with f32 tables
+    and 2e-2 with the default bf16 tables."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from repro_torch import configs
+    from repro_torch.models import layers as L
+
+    for arch in ZOO:
+        mod = configs.get_arch(arch)
+        for table, tol in (("bfloat16", 2e-2), ("float32", 1e-5)):
+            cfg = dataclasses.replace(mod.smoke_config(), table_dtype=table,
+                                      lookup_dtype=table)
+            params = mod.init_smoke(torch.Generator().manual_seed(seed), cfg,
+                                    "cpu")
+            batch = mod.smoke_batch(np.random.default_rng(seed), cfg)
+            batch.pop("label")
+            with torch.no_grad():
+                want = mod.model.forward(params, cfg, batch)
+                got = mod.model.forward(L.to_device(params, "cuda"), cfg,
+                                        L.to_device(batch, "cuda"))
+            err = close(got, want.cuda(), tol)
+            log(f"{arch} smoke_config ({table} tables) card vs cpu: max abs "
+                f"err {err:.3e} (tol {tol})")
 
 
 def small_parity(seed: int):
@@ -445,6 +685,8 @@ def main(argv=None) -> int:
         "target_attention": check_target_attention(gen, dev, hist_mask),
         "embedding_bag": check_embedding_bag(gen, dev, hist_ids, hist_mask,
                                              wcfg.n_items, 32),
+        "dot_interact": check_dot_interact(dev),
+        "cin_layer": check_cin(dev),
     }
     for name, r in results.items():
         log(f"{name} [{r['shape']}]: max_abs_err {r['max_abs_err']:.3e}, "
@@ -454,21 +696,31 @@ def main(argv=None) -> int:
     stack, st, launches = serve_full(args)
     n_windows = len(st.windows)
     profile_window(stack)
+    del stack, st
+    torch.cuda.empty_cache()
+    zoo_launches = serve_zoo(args.seed)
     small_parity(args.seed)
+    zoo_parity(args.seed)
 
-    src = "src/repro_torch/kernels/csrc/{}.cu"
+    window_path = f"serving window ({n_windows} windows)"
+    paths = {k: window_path for k in launches}
+    paths.update({k: f"{arch} cells ({', '.join(ZOO_CALLS)})"
+                  for arch, k in ZOO.items()})
+    launches.update(zoo_launches)
     tpu = "src/repro/kernels/{}"
     replaces = {"cascade_truncate": tpu.format("cascade_truncate.py:34"),
                 "target_attention": tpu.format("target_attention.py:46"),
-                "embedding_bag": tpu.format("embedding_bag.py:24")}
+                "embedding_bag": tpu.format("embedding_bag.py:24"),
+                "dot_interact": tpu.format("dot_interact.py:34"),
+                "cin_layer": tpu.format("cin.py:34")}
     line = {"kernels": [
-        {"name": name, "route": "cuda", "source": src.format(name),
+        {"name": name, "route": "cuda",
+         "source": f"src/repro_torch/kernels/csrc/{build.KERNELS[name]}",
          "replaces": replaces[name], "launches": int(launches[name]),
-         "launches_per_window": launches[name] / n_windows,
-         "max_abs_err": r["max_abs_err"], "ms": r["ms"],
-         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-         "bound_by": r["bound_by"], "library_ms": r["library_ms"],
-         "shape": r["shape"]}
+         "path": paths[name], "max_abs_err": r["max_abs_err"],
+         "ms": r["ms"], "plain_ms": r["plain_ms"],
+         "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+         "library_ms": r["library_ms"], "shape": r["shape"]}
         for name, r in results.items()]}
     print(json.dumps(line), flush=True)
     print(card, flush=True)

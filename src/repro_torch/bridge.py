@@ -11,6 +11,14 @@ for MLP layers), so a trained tree maps over leaf by leaf:
     ``repro/training/checkpoint.py`` writes (``arrays.npz`` +
     ``manifest.json``, leaves keyed by their "/"-joined tree path) back
     into such a nested tree.
+
+bfloat16 leaves (the DLRM and xDeepFM tables) cross bit for bit.  JAX
+hands them over as ``ml_dtypes.bfloat16`` arrays, which numpy sees as
+2-byte voids and ``torch.from_numpy`` refuses; they are recognised by
+their dtype's name (the port does not import ``ml_dtypes``) and
+reinterpreted through ``uint16``.  ``np.savez`` stores them as plain
+2-byte voids, so ``load_checkpoint`` takes their type from the
+manifest.
 """
 from __future__ import annotations
 
@@ -23,11 +31,40 @@ import torch
 from repro_torch.device import resolve_device
 
 
+def _is_bf16(arr) -> bool:
+    return arr.dtype.name == "bfloat16"
+
+
+def _bf16_tensor(arr) -> torch.Tensor:
+    """A 2-byte bfloat16 (or void) array -> a torch.bfloat16 tensor with
+    the same bits."""
+    bits = np.ascontiguousarray(arr).view(np.uint16)
+    if not bits.flags.writeable:  # e.g. np.asarray of a JAX array
+        bits = bits.copy()
+    return torch.from_numpy(bits).view(torch.bfloat16)
+
+
 def _leaf(x, device):
+    if isinstance(x, torch.Tensor):
+        return x.to(device)
     arr = np.asarray(x)
+    if _is_bf16(arr):
+        return _bf16_tensor(arr).to(device)
     if arr.dtype.kind == "f":
         arr = arr.astype(np.float32)
     return torch.from_numpy(np.ascontiguousarray(arr)).to(device)
+
+
+def _torch_dtype(x) -> torch.dtype:
+    """The dtype ``_leaf`` gives ``x``."""
+    if isinstance(x, torch.Tensor):
+        return x.dtype
+    arr = np.asarray(x)
+    if _is_bf16(arr):
+        return torch.bfloat16
+    if arr.dtype.kind == "f":
+        return torch.float32
+    return torch.from_numpy(np.zeros(0, arr.dtype)).dtype
 
 
 def _check(tree, like, path: str) -> None:
@@ -46,12 +83,18 @@ def _check(tree, like, path: str) -> None:
     elif tuple(np.shape(tree)) != tuple(like.shape):
         raise ValueError(f"{path}: shape {tuple(np.shape(tree))} != the "
                          f"port's {tuple(like.shape)}")
+    else:
+        dtype = getattr(like, "dtype", None)
+        if isinstance(dtype, torch.dtype) and _torch_dtype(tree) != dtype:
+            raise ValueError(f"{path}: dtype {_torch_dtype(tree)} != the "
+                             f"port's {dtype}")
 
 
 def from_numpy_tree(tree, *, like=None, device=None):
     """Nested dict/list of arrays -> the same structure of tensors on
-    ``device`` (float leaves as float32).  ``like`` checks structure and
-    shapes against a port parameter tree first; a trained reward
+    ``device`` (bfloat16 leaves as bfloat16, bit for bit; other float
+    leaves as float32).  ``like`` checks structure, shapes and dtypes
+    against a port parameter tree first; a trained reward
     model's top-level ``label_norm`` (which an untrained ``init`` tree
     lacks) is carried over unchecked."""
     device = resolve_device(device)
@@ -93,8 +136,11 @@ def _unflatten(flat: dict):
 
 
 def load_checkpoint(ckpt_dir: str, *, step: int | None = None):
-    """Read a ``training/checkpoint.save`` directory -> (nested numpy
-    tree, manifest).  ``step`` defaults to the latest one."""
+    """Read a ``training/checkpoint.save`` directory -> (nested tree,
+    manifest).  Leaves are numpy arrays, except those the manifest names
+    ``bfloat16``: numpy has no such type, so they come back as CPU
+    ``torch.bfloat16`` tensors with the saved bits.  ``step`` defaults
+    to the latest one."""
     if step is None:
         steps = [int(d.split("_")[1]) for d in os.listdir(ckpt_dir)
                  if d.startswith("step_") and ".tmp" not in d]
@@ -104,7 +150,12 @@ def load_checkpoint(ckpt_dir: str, *, step: int | None = None):
     path = os.path.join(ckpt_dir, f"step_{step:010d}")
     with open(os.path.join(path, "manifest.json")) as f:
         manifest = json.load(f)
+    flat = {}
     with np.load(os.path.join(path, "arrays.npz")) as data:
-        flat = {e["key"]: np.asarray(data[e["name"]])
-                for e in manifest["leaves"]}
+        for e in manifest["leaves"]:
+            arr = np.asarray(data[e["name"]])
+            if e["dtype"] == "bfloat16" and arr.dtype.kind == "V" \
+                    and arr.dtype.itemsize == 2:
+                arr = _bf16_tensor(arr)
+            flat[e["key"]] = arr
     return _unflatten(flat), manifest

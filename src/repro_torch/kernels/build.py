@@ -1,9 +1,9 @@
 """Build the CUDA kernels from ``kernels/csrc`` at first use.
 
-``torch.utils.cpp_extension.load`` compiles the kernels
-``csrc/<name>.cu`` (plain CUDA with a C launcher, no PyTorch headers,
-for ``sm_90a``) and their PyTorch binding ``csrc/bind.cpp`` into one
-extension.  ninja compiles the sources in parallel and rebuilds only
+``torch.utils.cpp_extension.load`` compiles the kernels (``KERNELS``:
+kernel name -> its ``csrc/*.cu`` source, plain CUDA with a C launcher,
+no PyTorch headers, for ``sm_90a``) and their PyTorch binding
+``csrc/bind.cpp`` into one extension.  ninja compiles the sources in parallel and rebuilds only
 when a source or a flag changed.
 
 The build directory defaults to ``build/kernels`` at the repository
@@ -18,7 +18,11 @@ import threading
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-KERNELS = ("cascade_truncate", "target_attention", "embedding_bag")
+KERNELS = {"cascade_truncate": "cascade_truncate.cu",
+           "target_attention": "target_attention.cu",
+           "embedding_bag": "embedding_bag.cu",
+           "dot_interact": "dot_interact.cu",
+           "cin_layer": "cin.cu"}
 CUDA_FLAGS = ["-gencode=arch=compute_90a,code=sm_90a", "-O3"]
 
 _LOCK = threading.Lock()
@@ -48,8 +52,8 @@ def load(*, verbose: bool = False):
                                    f"found (CUDA_HOME={home})")
             out = build_dir()
             out.mkdir(parents=True, exist_ok=True)
-            sources = [CSRC / "bind.cpp"] + [CSRC / f"{n}.cu"
-                                             for n in KERNELS]
+            sources = [CSRC / "bind.cpp"] + [CSRC / f
+                                             for f in KERNELS.values()]
             _EXT = cpp_extension.load(
                 name="repro_torch_kernels",
                 sources=[str(s) for s in sources],

@@ -8,6 +8,7 @@
 // only this file is compiled against PyTorch.
 
 #include <ATen/cuda/CUDAContext.h>
+#include <c10/cuda/CUDAException.h>
 #include <c10/cuda/CUDAGuard.h>
 #include <cuda_runtime.h>
 #include <torch/extension.h>
@@ -28,6 +29,11 @@ int target_attention_launch(const float* q, long long q_bstride,
 int embedding_bag_launch(const float* table, const int* ids,
                          const float* weights, float* out, int B, int D,
                          int L, void* stream);
+int dot_interact_launch(const void* feats, void* out, int B, int F, int D,
+                        int bf16, void* stream);
+int cin_layer_launch(const float* w, const float* x_prev, const float* x0,
+                     float* out, int B, int Hp, int m, int D, int Ho,
+                     void* stream);
 }
 
 namespace {
@@ -41,10 +47,12 @@ void same_device(const char* what, const torch::Tensor& first,
                 first.device(), " and ", t->device());
 }
 
+// err is the launcher's cudaGetLastError() right after its launch.
 void check_launch(int err, const char* what) {
   TORCH_CHECK(err == 0, what, " kernel launch failed: ",
               cudaGetErrorString(static_cast<cudaError_t>(err)), " (", err,
               ")");
+  C10_CUDA_KERNEL_LAUNCH_CHECK();
 }
 
 void* stream() { return at::cuda::getCurrentCUDAStream().stream(); }
@@ -138,6 +146,7 @@ torch::Tensor target_attention(torch::Tensor q, const torch::Tensor& keys,
               cudaGetErrorString(static_cast<cudaError_t>(err)),
               " (shared memory ",
               target_attention_smem_bytes(ti, di, h1i, h2i), " bytes)");
+  C10_CUDA_KERNEL_LAUNCH_CHECK();
   return out;
 }
 
@@ -176,6 +185,58 @@ torch::Tensor embedding_bag(const torch::Tensor& table,
   return out;
 }
 
+// (B, F, D) f32 or bf16 -> (B, F(F-1)/2) strictly-lower-triangle dots in
+// the same type (bf16 goes to the kernel as raw 16-bit words).
+torch::Tensor dot_interact(const torch::Tensor& feats) {
+  same_device("dot_interact", feats, {});
+  TORCH_CHECK(feats.dim() == 3, "want feats (B, F, D)");
+  const auto dt = feats.scalar_type();
+  TORCH_CHECK(dt == torch::kFloat32 || dt == torch::kBFloat16,
+              "feats must be f32 or bf16");
+  const c10::cuda::CUDAGuard guard(feats.device());
+  const auto x = feats.contiguous();
+  const int b = as_int(x.size(0), "B"), f = as_int(x.size(1), "F");
+  const int d = as_int(x.size(2), "D");
+  auto out = torch::empty({b, static_cast<int64_t>(f) * (f - 1) / 2},
+                          x.options());
+  if (out.numel() == 0) return out;
+  check_launch(dot_interact_launch(x.data_ptr(), out.data_ptr(), b, f, d,
+                                   dt == torch::kBFloat16, stream()),
+               "dot_interact");
+  return out;
+}
+
+// w (H_out, Hp*m), x_prev (B, Hp, D), x0 (B, m, D), f32 -> (B, H_out, D).
+torch::Tensor cin_layer(const torch::Tensor& w, const torch::Tensor& x_prev,
+                        const torch::Tensor& x0) {
+  same_device("cin_layer", w, {&x_prev, &x0});
+  TORCH_CHECK(w.dim() == 2 && x_prev.dim() == 3 && x0.dim() == 3,
+              "want w (H_out, Hp*m), x_prev (B, Hp, D), x0 (B, m, D)");
+  const int64_t bsz = x_prev.size(0), hp = x_prev.size(1);
+  const int64_t d = x_prev.size(2), m = x0.size(1), ho = w.size(0);
+  TORCH_CHECK(x0.size(0) == bsz && x0.size(2) == d,
+              "x0 must be (B, m, D) like x_prev");
+  TORCH_CHECK(w.size(1) == hp * m, "w must have Hp*m = ", hp * m,
+              " columns, got ", w.size(1));
+  for (const torch::Tensor* t : {&w, &x_prev, &x0})
+    TORCH_CHECK(t->scalar_type() == torch::kFloat32, "inputs must be f32");
+  const c10::cuda::CUDAGuard guard(w.device());
+  const auto wc = w.contiguous(), xp = x_prev.contiguous();
+  const auto xz = x0.contiguous();
+  auto out = torch::empty({bsz, ho, d}, xp.options());
+  if (out.numel() == 0) return out;
+  if (hp * m == 0) return out.zero_();
+  as_int(hp * m, "Hp*m");
+  as_int(bsz * d, "B*D");
+  check_launch(cin_layer_launch(wc.data_ptr<float>(), xp.data_ptr<float>(),
+                                xz.data_ptr<float>(), out.data_ptr<float>(),
+                                as_int(bsz, "B"), as_int(hp, "Hp"),
+                                as_int(m, "m"), as_int(d, "D"),
+                                as_int(ho, "H_out"), stream()),
+               "cin_layer");
+  return out;
+}
+
 PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
   m.def("cascade_truncate", &cascade_truncate,
         "CompactPlan truncation: (B,) revenue@expose");
@@ -183,4 +244,7 @@ PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
         "DIN target attention, candidate form");
   m.def("embedding_bag", &embedding_bag,
         "(weighted) embedding bag sums");
+  m.def("dot_interact", &dot_interact,
+        "DLRM dot interaction: strictly-lower-triangle pairwise dots");
+  m.def("cin_layer", &cin_layer, "xDeepFM CIN layer");
 }

@@ -18,7 +18,7 @@ from repro_torch.kernels import ref
 from repro_torch.kernels.build import load
 
 LAUNCHES = {"cascade_truncate": 0, "target_attention": 0,
-            "embedding_bag": 0}
+            "embedding_bag": 0, "dot_interact": 0, "cin_layer": 0}
 
 
 def reset_launches() -> None:
@@ -71,4 +71,26 @@ def embedding_bag(table, ids, weights=None):
     out = load().embedding_bag(table, ids, weights)
     if ids.shape[0]:  # launched for B > 0
         LAUNCHES["embedding_bag"] += 1
+    return out
+
+
+def dot_interact(feats):
+    """(B, F, D) f32 or bf16 -> (B, F(F-1)/2) strictly-lower-triangle
+    pairwise dots in the input's dtype; see ``ref.dot_interact_ref``."""
+    if _on_cpu(feats):
+        return ref.dot_interact_ref(feats)
+    out = load().dot_interact(feats)
+    if out.numel():  # launched for B > 0 and F > 1
+        LAUNCHES["dot_interact"] += 1
+    return out
+
+
+def cin_layer(w, x_prev, x0):
+    """w (H_out, Hp*m), x_prev (B, Hp, D), x0 (B, m, D), f32 ->
+    (B, H_out, D); see ``ref.cin_layer_ref``."""
+    if _on_cpu(w, x_prev, x0):
+        return ref.cin_layer_ref(w, x_prev, x0)
+    out = load().cin_layer(w, x_prev, x0)
+    if out.numel() and w.shape[1]:  # launched unless empty or K = 0
+        LAUNCHES["cin_layer"] += 1
     return out

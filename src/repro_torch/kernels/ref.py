@@ -57,3 +57,32 @@ def embedding_bag_ref(table, ids, weights=None):
     if weights is not None:
         rows = rows * weights[..., None]
     return rows.sum(dim=1)
+
+
+def dot_interact_ref(feats):
+    """DLRM dot interaction: feats (B, F, D) -> (B, F(F-1)/2), the
+    strictly lower triangle of each sample's Gram matrix in the order of
+    ``np.tril_indices(F, k=-1)``, summed in f32 and returned in the
+    input's dtype."""
+    f = feats.shape[1]
+    x = feats.float()
+    z = torch.bmm(x, x.mT)  # (B, F, F)
+    iu, ju = torch.tril_indices(f, f, offset=-1, device=feats.device)
+    return z[:, iu, ju].to(feats.dtype)
+
+
+def cin_layer_ref(w, x_prev, x0, *, chunk_elems: int = 1 << 26):
+    """xDeepFM CIN layer: w (H_out, Hp*m), x_prev (B, Hp, D), x0 (B, m, D)
+    -> (B, H_out, D), out[b,o,d] = sum_{h,j} w[o, h*m+j] x_prev[b,h,d]
+    x0[b,j,d].  Z = x_prev (x) x0 is formed for ``chunk_elems`` floats'
+    worth of samples at a time (Z is Hp*m*D floats a sample: 312 KB at
+    the published widths, 82 GB for a 262,144 batch whole)."""
+    b, hp, d = x_prev.shape
+    m = x0.shape[1]
+    step = max(1, chunk_elems // max(1, hp * m * d))
+    outs = [x_prev.new_empty((0, w.shape[0], d))]
+    for s in range(0, b, step):
+        xp, xz = x_prev[s:s + step], x0[s:s + step]
+        z = torch.einsum("bhd,bmd->bhmd", xp, xz).reshape(-1, hp * m, d)
+        outs.append(torch.einsum("oc,bcd->bod", w, z))
+    return torch.cat(outs)

@@ -1,0 +1,74 @@
+"""Run one (architecture x shape) cell of the model zoo on one card.
+
+    python -m repro_torch.launch.cells --arch dlrm-rm2 --shape serve_p99 \\
+        [--preset smoke|full] [--calls 3] [--device cpu] [--seed 0]
+
+builds the cell (``configs.get_arch(arch).make_cell(shape)``), draws its
+weights and inputs from ``--seed`` on the device, calls it ``--calls``
+times and prints, for each call, its synchronised time in ms and the
+checksum (sum) of its logits.  It is the single-card counterpart of the
+JAX package's ``launch/dryrun.py --arch/--shape`` selection: the cell
+runs for real instead of being lowered.
+
+``--preset full`` is the published width (DLRM-RM2's table is 10.0 GB);
+``--preset smoke`` the configs' small widths at the cell's batch.  It
+runs on the card unless ``--device cpu`` is given; without a card it
+stops with an error.
+"""
+from __future__ import annotations
+
+import argparse
+import time
+
+import torch
+
+from repro_torch.configs import ARCH_IDS, get_arch
+from repro_torch.configs.recsys_common import RECSYS_SHAPES
+from repro_torch.device import resolve_device
+
+
+def _sync(device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--arch", required=True, choices=ARCH_IDS)
+    ap.add_argument("--shape", required=True, choices=sorted(RECSYS_SHAPES))
+    ap.add_argument("--preset", default="full", choices=("smoke", "full"))
+    ap.add_argument("--calls", type=int, default=3)
+    ap.add_argument("--device", default=None,
+                    help="cuda (default) or cpu")
+    ap.add_argument("--seed", type=int, default=0)
+    args = ap.parse_args(argv)
+
+    device = resolve_device(args.device)
+    mod = get_arch(args.arch)
+    cfg = mod.smoke_config() if args.preset == "smoke" else mod.full_config()
+    cell = mod.make_cell(args.shape, cfg=cfg)
+    name = (torch.cuda.get_device_name(device) if device.type == "cuda"
+            else "cpu")
+    print(f"cell {cell.arch_id} x {cell.shape_name} ({cell.kind}, preset "
+          f"{args.preset}) on {name}: {cell.meta['model_flops']:.4e} "
+          f"model FLOPs per call")
+    t0 = time.perf_counter()
+    fargs = cell.make_args(args.seed, device)
+    _sync(device)
+    print(f"weights and inputs drawn in "
+          f"{(time.perf_counter() - t0) * 1e3:.1f} ms (seed {args.seed})")
+    for i in range(args.calls):
+        _sync(device)
+        t0 = time.perf_counter()
+        out = cell.fn(*fargs)
+        _sync(device)
+        ms = (time.perf_counter() - t0) * 1e3
+        if not torch.isfinite(out).all():
+            raise RuntimeError(f"call {i}: logits are not finite")
+        print(f"call {i}: {ms:.3f} ms, logits {tuple(out.shape)} checksum "
+              f"{float(out.double().sum()):.6f}")
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -6,6 +6,10 @@ JAX package (``{"w", "b"}``, ``{"layers": [...]}``, ``{"table"}``), so
 ``repro_torch.bridge`` carries trained JAX weights over leaf by leaf.
 Inits draw from an explicit ``torch.Generator`` on the CPU and move the
 result to ``device``, so one seed gives the same weights on any device.
+The exception is a table too large to pass through host memory (DLRM's
+78M x 64 rows): ``normal_table`` draws it on its device in row chunks,
+from a generator on that device (``device_generator``), so the same seed
+gives another table on the CPU than on the card.
 """
 from __future__ import annotations
 
@@ -22,19 +26,40 @@ def _randn(gen, shape):
     return torch.randn(shape, generator=gen, dtype=torch.float32)
 
 
-def lecun_normal(gen, shape, fan_in=None):
+def lecun_normal(gen, shape, dtype=torch.float32, fan_in=None):
     fan_in = fan_in if fan_in is not None else shape[0]
-    return _randn(gen, shape) / math.sqrt(max(1, fan_in))
+    return (_randn(gen, shape) / math.sqrt(max(1, fan_in))).to(dtype)
 
 
-def glorot_uniform(gen, shape):
+def glorot_uniform(gen, shape, dtype=torch.float32):
     limit = math.sqrt(6.0 / (shape[0] + shape[-1]))
     u = torch.rand(shape, generator=gen, dtype=torch.float32)
-    return (2.0 * u - 1.0) * limit
+    return ((2.0 * u - 1.0) * limit).to(dtype)
 
 
-def normal_init(gen, shape, std=0.02):
-    return std * _randn(gen, shape)
+def normal_init(gen, shape, std=0.02, dtype=torch.float32):
+    return (std * _randn(gen, shape)).to(dtype)
+
+
+def device_generator(gen, device) -> torch.Generator:
+    """A generator on ``device``, seeded by one draw from ``gen``."""
+    seed = int(torch.randint(0, 2 ** 62, (), generator=gen))
+    return torch.Generator(device=device).manual_seed(seed)
+
+
+def normal_table(gen, rows: int, dim: int, *, std: float,
+                 dtype=torch.float32, chunk_rows: int = 1 << 22):
+    """(rows, dim) N(0, std^2) table drawn on ``gen``'s device, one chunk
+    of ``chunk_rows`` rows at a time: the f32 draw of one chunk is the
+    only temporary, so a table of many GB never passes through host
+    memory nor through a whole-size f32 copy before its cast."""
+    out = torch.empty((rows, dim), dtype=dtype, device=gen.device)
+    for r0 in range(0, rows, chunk_rows):
+        n = min(chunk_rows, rows - r0)
+        out[r0:r0 + n] = std * torch.randn((n, dim), generator=gen,
+                                           device=gen.device,
+                                           dtype=torch.float32)
+    return out
 
 
 def to_device(tree, device):
@@ -50,10 +75,11 @@ def to_device(tree, device):
 
 
 def dense_init(gen, d_in: int, d_out: int, *, use_bias: bool = True,
-               init: Callable = lecun_normal) -> Params:
-    p = {"w": init(gen, (d_in, d_out))}
+               init: Callable = lecun_normal,
+               dtype=torch.float32) -> Params:
+    p = {"w": init(gen, (d_in, d_out), dtype)}
     if use_bias:
-        p["b"] = torch.zeros(d_out)
+        p["b"] = torch.zeros(d_out, dtype=dtype)
     return p
 
 

@@ -7,7 +7,9 @@ with a card with
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py
 
 Tolerances as on the CPU: truncation exact, target attention 2e-5,
-embedding bag 1e-5.
+embedding bag 1e-5, dot interaction 2e-5 in f32 and 2e-2 in bf16 (the
+bf16 output rounds once from an f32 sum taken in another order), CIN
+1e-4 (f32 sums of up to 7,800 terms in another order).
 """
 import pytest
 import torch
@@ -84,6 +86,40 @@ def test_embedding_bag_kernel(cuda, v, d, b, l, weighted):
     want = ref.embedding_bag_ref(table, ids, w)
     torch.cuda.synchronize()
     torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("b,f,d", [(32, 27, 64), (7, 13, 32), (5, 27, 63),
+                                   (512, 27, 64)])
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-5),
+                                       (torch.bfloat16, 2e-2)])
+def test_dot_interact_kernel(cuda, b, f, d, dtype, tol):
+    gen = _gen()
+    feats = (0.3 * torch.randn(b, f, d, generator=gen)).to(dtype).to(cuda)
+    before = ops.LAUNCHES["dot_interact"]
+    got = ops.dot_interact(feats)
+    assert ops.LAUNCHES["dot_interact"] == before + 1
+    want = ref.dot_interact_ref(feats)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and got.shape == (b, f * (f - 1) // 2)
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol,
+                               atol=tol)
+
+
+@pytest.mark.parametrize("b,hp,m,d,ho", [(8, 39, 39, 10, 200),
+                                         (20, 200, 39, 10, 200),
+                                         (5, 8, 12, 4, 16),
+                                         (3, 7, 5, 1, 41)])
+def test_cin_kernel(cuda, b, hp, m, d, ho):
+    gen = _gen()
+    w = (0.05 * torch.randn(ho, hp * m, generator=gen)).to(cuda)
+    xp = torch.randn(b, hp, d, generator=gen).to(cuda)
+    x0 = torch.randn(b, m, d, generator=gen).to(cuda)
+    before = ops.LAUNCHES["cin_layer"]
+    got = ops.cin_layer(w, xp, x0)
+    assert ops.LAUNCHES["cin_layer"] == before + 1
+    want = ref.cin_layer_ref(w, xp, x0)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
 
 
 def test_small_serve_card_matches_cpu(cuda):

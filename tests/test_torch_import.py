@@ -107,8 +107,8 @@ def test_kernel_build_compiles_every_source_for_sm90a(monkeypatch,
     assert "-gencode=arch=compute_90a,code=sm_90a" in \
         seen["extra_cuda_cflags"]
     assert sorted(os.path.basename(s) for s in seen["sources"]) == [
-        "bind.cpp", "cascade_truncate.cu", "embedding_bag.cu",
-        "target_attention.cu"]
+        "bind.cpp", "cascade_truncate.cu", "cin.cu", "dot_interact.cu",
+        "embedding_bag.cu", "target_attention.cu"]
     assert all(os.path.exists(s) for s in seen["sources"])
     assert seen["build_directory"] == str(tmp_path / "b")
 
