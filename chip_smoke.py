@@ -5,16 +5,18 @@
 
 In order, it
   1. prints the card's name and power limit (nvidia-smi);
-  2. builds the five CUDA kernels and their PyTorch binding from
+  2. builds the six CUDA kernels and their PyTorch binding from
      ``src/repro_torch/kernels/csrc`` with ``torch.utils.cpp_extension``
      (ninja compiles the sources in parallel);
   3. holds every kernel against its plain-torch version on the card, at
      small shapes and at its path's full widths (truncation exact,
-     target attention 2e-5, embedding bag 1e-5, dot interaction 2e-5 in
-     f32 and 2e-2 in bf16, CIN 1e-4) and times both, with the least time
-     the card could take (``bound_ms``) and the time of the PyTorch
-     call(s) that compute the same function (for dot interaction and
-     CIN a composition of calls: bmm and a gather, two einsums);
+     target attention 2e-5, embedding bag 1e-5, dot interaction and
+     flash attention 2e-5 in f32 and 2e-2 in bf16, CIN 1e-4) and times
+     both, with the least time the card could take (``bound_ms``) and
+     the time of the PyTorch call(s) that compute the same function
+     (for dot interaction and CIN a composition of calls: bmm and a
+     gather, two einsums; for flash attention SDPA on the softcap-free
+     global layer at T = 32,768, where gemma2's softcap has no call);
   4. serves full-width ``GeneratedSource`` windows through
      ``repro_torch.launch.serve`` (100k-user world, 4000-item corpus,
      paper chains, stage and reward models at full width, random
@@ -41,7 +43,15 @@ In order, it
      and holds the two runs' decisions and prices against each other;
      runs smoke_config DLRM and xDeepFM from one seed on both and holds
      their logits against each other;
-  8. prints the ``kernels`` JSON line, the card line and, last, the
+  8. serves gemma2-2b at ``full_config()`` in bf16: prefill of one
+     32,760-token sequence and 8 greedy decode steps; holds the first
+     step against a prefill of those 32,761 tokens in f32; then the
+     prefill_32k (B = 4) x 1 and decode_32k (B = 8, cache length
+     32,767) x 8 cells after one warm call each, with the counters reset
+     before and read after each (flash_attention 26 times a prefill
+     forward, never in decode); then gemma2 smoke_config on the card
+     against the CPU;
+  9. prints the ``kernels`` JSON line, the card line and, last, the
      ``{"ok": true, ...}`` line.
 
 Any failed check raises and the script exits non-zero without the last
@@ -354,6 +364,115 @@ def check_cin(dev):
     return rows[(4096, 200)]
 
 
+def attention_pairs(t: int, s: int, causal: bool, window: int) -> int:
+    """(query, key) pairs the mask admits, positions counted from 0."""
+    import torch
+    q = torch.arange(t, dtype=torch.int64)
+    hi = torch.clamp(q + 1, max=s) if causal else torch.full_like(q, s)
+    lo = torch.clamp(q - window + 1, min=0) if window > 0 else \
+        torch.zeros_like(q)
+    return int(torch.clamp(hi - lo, min=0).sum())
+
+
+def flash_bound(b, t, s, h, hk, dh, esize, window, causal=True):
+    """Each of q, k, v read once and the output written once; 4 dh flops
+    per admitted (query, key) pair and head, at the inputs' type's peak."""
+    nbytes = esize * (2.0 * b * t * h * dh + 2.0 * b * s * hk * dh)
+    ops_n = 4.0 * dh * b * h * attention_pairs(t, s, causal, window)
+    return bound(nbytes, ops_n, PEAK_BF16_S if esize == 2 else PEAK_F32_S)
+
+
+def check_flash(dev):
+    """Small shapes and mask variants; then gemma2-2b's heads (H = 8,
+    Hkv = 4, dh = 256, scale 1/16, softcap 50) at T = S = 8,192 for a
+    local (window 4,096) and a global layer in f32 and bf16, against the
+    plain version and timed; then the kernel alone at the path's
+    T = S = 32,768 in bf16 (the plain version's f32 logits would be 34
+    GB), and the softcap-free global layer against
+    ``F.scaled_dot_product_attention``, the one PyTorch call that
+    computes that variant.  The kernel line reports the 8,192 global
+    layer in bf16."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import ops, ref
+
+    gen = torch.Generator(device=dev).manual_seed(13)
+    tols = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+
+    def qkv(b, t, s, h, hk, d, dt):
+        return [torch.randn(*shape, generator=gen, device=dev).to(dt)
+                for shape in ((b, t, h, d), (b, s, hk, d), (b, s, hk, d))]
+
+    for shape in ((1, 128, 128, 2, 2, 64), (2, 256, 256, 4, 2, 64),
+                  (1, 200, 264, 4, 1, 32), (2, 64, 512, 8, 4, 128)):
+        for dt, tol in tols.items():
+            x = qkv(*shape, dt)
+            close(ops.flash_attention(*x).float(),
+                  ref.flash_attention_ref(*x).float(), tol)
+    x = qkv(2, 192, 192, 4, 2, 64, torch.float32)
+    for window, softcap, causal in ((64, None, True), (-1, 50.0, True),
+                                    (32, 30.0, True), (-1, None, False)):
+        kw = dict(window=window, softcap=softcap, causal=causal)
+        close(ops.flash_attention(*x, **kw),
+              ref.flash_attention_ref(*x, **kw), 2e-5)
+    layers = {"local": dict(window=4096, softcap=50.0, scale=1 / 16),
+              "global": dict(window=-1, softcap=50.0, scale=1 / 16)}
+    rows = {}
+    for dt, tol in tols.items():
+        dname = "bf16" if dt == torch.bfloat16 else "f32"
+        x = qkv(1, 8192, 8192, 8, 4, 256, dt)
+        for name, kw in layers.items():
+            err = close(ops.flash_attention(*x, **kw).float(),
+                        ref.flash_attention_ref(*x, **kw).float(), tol)
+            ms = cuda_ms(lambda: ops.flash_attention(*x, **kw), reps=5,
+                         warm=1)
+            plain_ms = cuda_ms(lambda: ref.flash_attention_ref(*x, **kw),
+                               reps=2, warm=1)
+            b_ms, by = flash_bound(1, 8192, 8192, 8, 4, 256,
+                                   x[0].element_size(), kw["window"])
+            rows[(8192, name, dname)] = {
+                "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                "bound_ms": b_ms, "bound_by": by, "library_ms": None,
+                "shape": f"B=1 T=S=8192 H=8 Hkv=4 dh=256 {name} {dname}"}
+        del x
+        torch.cuda.empty_cache()
+    x = qkv(1, 32768, 32768, 8, 4, 256, torch.bfloat16)
+    for name, kw in layers.items():
+        ms = cuda_ms(lambda: ops.flash_attention(*x, **kw), reps=2, warm=1)
+        b_ms, by = flash_bound(1, 32768, 32768, 8, 4, 256, 2, kw["window"])
+        rows[(32768, name, "bf16")] = {
+            "ms": ms, "bound_ms": b_ms, "bound_by": by,
+            "shape": f"B=1 T=S=32768 H=8 Hkv=4 dh=256 {name} bf16"}
+    nocap = dict(window=-1, scale=1 / 16)
+    qt, kt, vt = (y.transpose(1, 2) for y in x)
+
+    def sdpa():
+        return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                              enable_gqa=True, scale=1 / 16)
+
+    ms = cuda_ms(lambda: ops.flash_attention(*x, **nocap), reps=2, warm=1)
+    lib_ms = cuda_ms(sdpa, reps=5, warm=2)
+    diff = float((ops.flash_attention(*x, **nocap).float()
+                  - sdpa().transpose(1, 2).float()).abs().max())
+    rows[(32768, "global-nocap", "bf16")] = {
+        "ms": ms, "library_ms": lib_ms, "bound_ms": rows[
+            (32768, "global", "bf16")]["bound_ms"],
+        "shape": "B=1 T=S=32768 H=8 Hkv=4 dh=256 global, no softcap, bf16"}
+    log(f"flash_attention vs scaled_dot_product_attention at 32k, no "
+        f"softcap: max abs diff {diff:.3e} (bf16 rounding of P in SDPA)")
+    del x, qt, kt, vt
+    torch.cuda.empty_cache()
+    for r in rows.values():
+        log(f"flash_attention [{r['shape']}]: {r['ms']:.3f} ms, bound "
+            f"{r['bound_ms']:.3f} ms, plain {r.get('plain_ms')}, SDPA "
+            f"{r.get('library_ms')}, max abs err {r.get('max_abs_err')}")
+    line = dict(rows[(8192, "global", "bf16")])
+    line["at_32k"] = {k[1]: {"ms": r["ms"], "bound_ms": r["bound_ms"],
+                             "library_ms": r.get("library_ms")}
+                      for k, r in rows.items() if k[0] == 32768}
+    return line
+
+
 # -- phase 4: the serving path at full width --------------------------------
 
 
@@ -500,6 +619,35 @@ def profile_window(stack) -> None:
                                     row_limit=15), flush=True)
 
 
+def profile_call(label: str, fn, rows: int = 8):
+    """``fn()`` once under torch.profiler: its wall time, the device's
+    busy time and idle share, and the operators and kernels that took the
+    most device time.  Returns fn's result."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    events = prof.key_averages()
+    busy_ms = sum(e.self_device_time_total for e in events
+                  if e.device_type == DeviceType.CUDA
+                  and not e.is_user_annotation) / 1e3
+    log(f"profiled {label}: wall {wall_ms:.3f} ms, device busy "
+        f"{busy_ms:.3f} ms (idle share {max(0.0, 1 - busy_ms / wall_ms):.4f})")
+    top = sorted((e for e in events if e.self_device_time_total > 0),
+                 key=lambda e: -e.self_device_time_total)[:rows]
+    for e in top:
+        log(f"  {e.key[:90]}: {e.self_device_time_total / 1e3:.3f} ms "
+            f"device, {e.count} calls")
+    return out
+
+
 # -- phase 6: the zoo's serving cells at full width -------------------------
 
 ZOO = {"dlrm-rm2": "dot_interact", "xdeepfm": "cin_layer"}
@@ -642,6 +790,186 @@ def small_parity(seed: int):
         f"{rev[0]:.0f} vs {rev[1]:.0f}")
 
 
+# -- phase 8: gemma2-2b at full width ---------------------------------------
+
+LM_LAYERS = 26  # flash_attention launches per prefill forward
+LM_SERVE_T, LM_SERVE_MAX, LM_DECODE_STEPS = 32760, 32768, 8
+LM_STEP_TOL = 2e-3  # f32 decode step vs f32 prefill(T + 1)
+
+
+def lm_launch_check(what: str, got: dict, flash: int) -> None:
+    want = {k: 0 for k in got}
+    want["flash_attention"] = flash
+    if got != want:
+        raise AssertionError(f"{what}: launches {got}, want {want}")
+
+
+def serve_lm(seed: int) -> int:
+    """gemma2-2b at full_config(): prefill B = 1, T = 32,760 into a
+    32,768-position cache in bf16, then 8 greedy decode steps, timed.
+    The first step must equal the last-token logits of a prefill of
+    those T + 1 tokens: held in f32 (the same weights, not cast) within
+    LM_STEP_TOL, where the two paths differ only in f32 summation order
+    (the flash kernel against the plain attention of decode, cuBLAS at
+    M = 32,761 against M = 1, through 26 layers); in bf16 the difference
+    is only reported, since decode's plain attention rounds its logits
+    to bf16 and prefill's kernel keeps them in f32.  Returns the path's
+    flash_attention launches (26 a prefill, 0 a step)."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from repro_torch.configs import gemma2_2b
+    from repro_torch.kernels import ops
+    from repro_torch.models import lm
+
+    cfg = gemma2_2b.full_config()
+    params32 = lm.init(torch.Generator().manual_seed(seed), cfg, "cuda")
+    params = lm.cast_params(params32, cfg.compute_dtype)
+    toks = torch.from_numpy(np.random.default_rng(seed).integers(
+        0, cfg.vocab, (1, LM_SERVE_T))).cuda()
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    logits, cache = lm.prefill(params, cfg, toks, max_len=LM_SERVE_MAX)
+    torch.cuda.synchronize()
+    prefill_ms = (time.perf_counter() - t0) * 1e3
+    lm_launch_check("prefill", dict(ops.LAUNCHES), LM_LAYERS)
+    nxt = logits.argmax(-1)
+    first, steps = None, []
+    for i in range(LM_DECODE_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step, cache = lm.decode_step(params, cfg, nxt, cache)
+        torch.cuda.synchronize()
+        steps.append((time.perf_counter() - t0) * 1e3)
+        if not torch.isfinite(step).all():
+            raise AssertionError(f"decode step {i}: logits not finite")
+        if first is None:
+            first, first_tok = step, nxt
+        nxt = step.argmax(-1)
+    lm_launch_check("decode", dict(ops.LAUNCHES), LM_LAYERS)
+    if cache["length"] != LM_SERVE_T + LM_DECODE_STEPS:
+        raise AssertionError(f"cache length {cache['length']}")
+    del cache
+    torch.cuda.empty_cache()
+    longer = torch.cat([toks, first_tok[:, None]], 1)
+    want, _ = profile_call(
+        f"gemma2-2b bf16 prefill of {LM_SERVE_T + 1} tokens (B=1)",
+        lambda: lm.prefill(params, cfg, longer, max_len=LM_SERVE_MAX))
+    bf16_diff = float((first.float() - want.float()).abs().max())
+    log(f"gemma2-2b serve path (B=1, bf16): prefill T={LM_SERVE_T} "
+        f"{prefill_ms:.1f} ms; {LM_DECODE_STEPS} greedy steps "
+        f"{', '.join(f'{t:.2f}' for t in steps)} ms; step 1 vs "
+        f"prefill(T+1) in bf16: max abs diff {bf16_diff:.4e} (logits max "
+        f"abs {float(want.abs().max()):.3f}; reported, not held)")
+    del params, want
+    torch.cuda.empty_cache()
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    _, cache = lm.prefill(params32, cfg32, toks, max_len=LM_SERVE_MAX)
+    got, cache = lm.decode_step(params32, cfg32, first_tok, cache)
+    del cache
+    torch.cuda.empty_cache()
+    want, _ = lm.prefill(params32, cfg32, longer, max_len=LM_SERVE_MAX)
+    lm_launch_check("serve path", dict(ops.LAUNCHES), 4 * LM_LAYERS)
+    err = close(got, want, LM_STEP_TOL)
+    log(f"gemma2-2b serve path in f32: decode step 1 vs prefill(T+1) max "
+        f"abs err {err:.4e} (tol {LM_STEP_TOL}, logits max abs "
+        f"{float(want.abs().max()):.3f})")
+    return 4 * LM_LAYERS
+
+
+LM_CALLS = {"prefill_32k": 1, "decode_32k": 8}
+
+
+def serve_lm_cells(seed: int) -> int:
+    """gemma2-2b's prefill_32k (B = 4) and decode_32k (B = 8, a cache of
+    32,768 positions at length 32,767) cells through
+    ``configs.get_arch(...).make_cell(...)``: one warm call and
+    ``LM_CALLS[shape]`` timed calls, launch counts reset before and read
+    after each cell.  Returns the cells' flash_attention launches."""
+    import gc
+
+    import torch
+    from repro_torch import configs
+    from repro_torch.kernels import ops
+
+    mod = configs.get_arch("gemma2-2b")
+    cfg = mod.full_config()
+    launched = 0
+    for shape, calls in LM_CALLS.items():
+        cell = mod.make_cell(shape, cfg=cfg)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        args = cell.make_args(seed, "cuda")
+        torch.cuda.synchronize()
+        setup_s = time.perf_counter() - t0
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launches()
+        out = cell.fn(*args)  # warm call
+        times = []
+        for _ in range(calls):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = cell.fn(*args)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        got = dict(ops.LAUNCHES)
+        per_call = LM_LAYERS if cell.kind == "prefill" else 0
+        lm_launch_check(f"gemma2-2b x {shape}", got, (1 + calls) * per_call)
+        if cell.kind == "decode":
+            profile_call(f"gemma2-2b x {shape}, one step",
+                         lambda: cell.fn(*args))
+        launched += got["flash_attention"]
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        b = cell.meta["batch"]
+        if out.shape != (b, cfg.padded_vocab) or \
+                not torch.isfinite(out).all():
+            raise AssertionError(f"gemma2-2b x {shape}: logits "
+                                 f"{tuple(out.shape)} not finite")
+        tflop = cell.meta["model_flops"] / 1e12
+        log(f"gemma2-2b x {shape} (B={b}, S={cell.meta['seq']}): set-up "
+            f"{setup_s:.2f} s; calls {', '.join(f'{t:.3f}' for t in times)}"
+            f" ms; {tflop / (min(times) * 1e-3):.2f} model TFLOP/s at the "
+            f"fastest; peak memory {peak_gb:.2f} GB; launches "
+            f"{got['flash_attention']} flash_attention; logits sum "
+            f"{float(out.double().sum()):.6f}")
+        del args, out, cell
+        gc.collect()
+        torch.cuda.empty_cache()
+    return launched
+
+
+def lm_parity(seed: int) -> None:
+    """gemma2-2b smoke_config (f32) from one seed on the CPU and, the same
+    weights moved, on the card: forward logits, prefill logits and cache
+    and two decode steps within 1e-5."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import gemma2_2b
+    from repro_torch.models import layers as L
+    from repro_torch.models import lm
+
+    cfg = gemma2_2b.smoke_config()
+    params = lm.init(torch.Generator().manual_seed(seed), cfg, "cpu")
+    on_card = L.to_device(params, "cuda")
+    toks = torch.from_numpy(np.random.default_rng(seed).integers(
+        0, cfg.vocab, (2, 24)))
+    err = close(lm.forward(on_card, cfg, toks.cuda()),
+                lm.forward(params, cfg, toks).cuda(), 1e-5)
+    want, c_cpu = lm.prefill(params, cfg, toks, max_len=32)
+    got, c_card = lm.prefill(on_card, cfg, toks.cuda(), max_len=32)
+    err = max(err, close(got, want.cuda(), 1e-5),
+              close(c_card["k"], c_cpu["k"].cuda(), 1e-5))
+    for _ in range(2):
+        nxt = want.argmax(-1)
+        want, c_cpu = lm.decode_step(params, cfg, nxt, c_cpu)
+        got, c_card = lm.decode_step(on_card, cfg, nxt.cuda(), c_card)
+        err = max(err, close(got, want.cuda(), 1e-5))
+    log(f"gemma2-2b smoke_config card vs cpu (forward, prefill, cache, 2 "
+        f"decode steps): max abs err {err:.3e} (tol 1e-5)")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--windows", type=int, default=3)
@@ -670,6 +998,10 @@ def main(argv=None) -> int:
         f"(torch.utils.cpp_extension, into {build.build_dir()})")
 
     dev = torch.device("cuda")
+    # full f32 in every f32 product and convolution (PyTorch's defaults
+    # for matmul; cuDNN would otherwise take TF32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     gen = torch.Generator().manual_seed(args.seed)
     wcfg = serve.world_config(512, seed=args.seed)
     # the main path's history bags: a real slab of the full-width world
@@ -687,6 +1019,7 @@ def main(argv=None) -> int:
                                              wcfg.n_items, 32),
         "dot_interact": check_dot_interact(dev),
         "cin_layer": check_cin(dev),
+        "flash_attention": check_flash(dev),
     }
     for name, r in results.items():
         log(f"{name} [{r['shape']}]: max_abs_err {r['max_abs_err']:.3e}, "
@@ -701,18 +1034,26 @@ def main(argv=None) -> int:
     zoo_launches = serve_zoo(args.seed)
     small_parity(args.seed)
     zoo_parity(args.seed)
+    lm_launches = serve_lm(args.seed)
+    torch.cuda.empty_cache()
+    lm_launches += serve_lm_cells(args.seed)
+    lm_parity(args.seed)
 
     window_path = f"serving window ({n_windows} windows)"
     paths = {k: window_path for k in launches}
     paths.update({k: f"{arch} cells ({', '.join(ZOO_CALLS)})"
                   for arch, k in ZOO.items()})
+    paths["flash_attention"] = (f"gemma2-2b serve path and cells "
+                                f"({', '.join(LM_CALLS)})")
     launches.update(zoo_launches)
+    launches["flash_attention"] = lm_launches
     tpu = "src/repro/kernels/{}"
     replaces = {"cascade_truncate": tpu.format("cascade_truncate.py:34"),
                 "target_attention": tpu.format("target_attention.py:46"),
                 "embedding_bag": tpu.format("embedding_bag.py:24"),
                 "dot_interact": tpu.format("dot_interact.py:34"),
-                "cin_layer": tpu.format("cin.py:34")}
+                "cin_layer": tpu.format("cin.py:34"),
+                "flash_attention": tpu.format("flash_attention.py:94")}
     line = {"kernels": [
         {"name": name, "route": "cuda",
          "source": f"src/repro_torch/kernels/csrc/{build.KERNELS[name]}",
@@ -720,7 +1061,8 @@ def main(argv=None) -> int:
          "path": paths[name], "max_abs_err": r["max_abs_err"],
          "ms": r["ms"], "plain_ms": r["plain_ms"],
          "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
-         "library_ms": r["library_ms"], "shape": r["shape"]}
+         "library_ms": r["library_ms"], "shape": r["shape"],
+         **({"at_32k": r["at_32k"]} if "at_32k" in r else {})}
         for name, r in results.items()]}
     print(json.dumps(line), flush=True)
     print(card, flush=True)

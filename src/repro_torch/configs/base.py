@@ -3,7 +3,7 @@
 Every ported architecture module exposes the surface of the JAX
 package's configs::
 
-    ARCH_ID: str;  FAMILY: "recsys";  SHAPES: tuple[str, ...]
+    ARCH_ID: str;  FAMILY: "recsys" | "lm";  SHAPES: tuple[str, ...]
     SKIPPED_SHAPES: dict[shape, reason]   (shapes not ported yet)
     full_config() / smoke_config()        model config objects
     make_cell(shape, cfg=None) -> Cell    (cfg defaults to full_config())
@@ -29,12 +29,14 @@ ARCH_IDS = (
 _MODULES = {
     "dlrm-rm2": "repro_torch.configs.dlrm_rm2",
     "xdeepfm": "repro_torch.configs.xdeepfm_arch",
+    "gemma2-2b": "repro_torch.configs.gemma2_2b",
 }
 
-_LM = "the LM slice: models/lm.py with flash_attention (ROADMAP queue B6)"
+_MOE = "the MoE FFN (ROADMAP queue A item 16: _moe_ref, then EP)"
+_LM_CFG = "its config (ROADMAP queue A item 17: the dense LM configs)"
 _WAITING = {
-    "granite-moe-1b-a400m": _LM, "olmoe-1b-7b": _LM, "glm4-9b": _LM,
-    "gemma2-2b": _LM, "minicpm-2b": _LM,
+    "granite-moe-1b-a400m": _MOE, "olmoe-1b-7b": _MOE, "glm4-9b": _LM_CFG,
+    "minicpm-2b": _LM_CFG,
     "schnet": "the model zoo (ROADMAP queue A item 13: models/gnn)",
     "din": "the model zoo (ROADMAP queue A item 13: configs/din_arch)",
     "bst": "the model zoo (ROADMAP queue A item 13: models/recsys/bst)",
@@ -47,10 +49,82 @@ _WAITING = {
 class Cell:
     arch_id: str
     shape_name: str
-    kind: str  # serve | retrieval
-    fn: Callable  # fn(*make_args(seed, device)) -> (B,) logits
+    kind: str  # serve | retrieval | prefill | decode
+    fn: Callable  # fn(*make_args(seed, device)) -> (B,) or (B, V) logits
     make_args: Callable  # (seed, device) -> tuple of tensors / dicts
     meta: dict = field(default_factory=dict)  # model_flops etc.
+
+
+# the JAX package's LM shapes (repro/configs/base.py); a config module
+# cuts the batch to what one card holds and says so
+LM_SHAPES = {
+    "train_4k": dict(seq=4096, batch=256, kind="train"),
+    "prefill_32k": dict(seq=32768, batch=32, kind="prefill"),
+    "decode_32k": dict(seq=32768, batch=128, kind="decode"),
+    "long_500k": dict(seq=524288, batch=1, kind="decode"),
+}
+
+
+def lm_model_flops(cfg, kind: str, batch: int, seq: int) -> float:
+    """``meta["model_flops"]`` of an LM cell, as the JAX cells count it:
+    2 N per token in prefill; 2 N per sequence plus reading the
+    (K, V) cache's 2 L S Hkv dh values twice in decode."""
+    n = cfg.n_active_params()
+    if kind == "prefill":
+        return 2.0 * n * batch * seq
+    return (2.0 * n * batch
+            + 2.0 * cfg.n_layers * batch * seq * cfg.n_kv_heads
+            * cfg.d_head * 2)
+
+
+def lm_make_cell(arch_id: str, cfg, shape: str, *, batch: int,
+                 seq: int) -> Cell:
+    """A prefill or decode cell of ``cfg`` at ``batch`` sequences of
+    ``seq`` positions.  ``make_args(seed, device)`` draws the weights on
+    the device (``lm.init``) and casts them to the compute dtype once;
+    prefill takes (params, tokens (B, seq)), decode (params, token (B,),
+    cache) with a cache of ``seq`` positions drawn on the device and
+    ``length = seq - 1``, so every call starts from the same state.
+    ``fn`` returns the (B, V) logits."""
+    import numpy as np
+    import torch
+
+    from repro_torch.device import resolve_device
+    from repro_torch.models import layers as L
+    from repro_torch.models import lm
+
+    kind = LM_SHAPES[shape]["kind"]
+
+    def make_args(seed: int, device=None):
+        device = resolve_device(device)
+        gen = torch.Generator().manual_seed(seed)
+        params = lm.init(gen, cfg, device)
+        params = lm.cast_params(params, cfg.compute_dtype)
+        rng = np.random.default_rng(seed)
+        if kind == "prefill":
+            toks = rng.integers(0, cfg.vocab, (batch, seq))
+            return params, torch.from_numpy(toks).to(device)
+        token = torch.from_numpy(rng.integers(0, cfg.vocab, batch)).to(device)
+        cache = lm.init_cache(cfg, batch, seq, device=device)
+        g = L.device_generator(gen, device)
+        for buf in (cache["k"], cache["v"]):
+            for i in range(cfg.n_layers):  # one layer's f32 draw at a time
+                buf[i] = torch.randn(buf.shape[1:], generator=g,
+                                     device=device)
+        cache["length"] = seq - 1
+        return params, token, cache
+
+    if kind == "prefill":
+        def fn(params, tokens):
+            return lm.prefill(params, cfg, tokens, max_len=seq)[0]
+    else:
+        def fn(params, token, cache):
+            return lm.decode_step(params, cfg, token, cache)[0]
+
+    return Cell(arch_id=arch_id, shape_name=shape, kind=kind, fn=fn,
+                make_args=make_args,
+                meta={"model_flops": lm_model_flops(cfg, kind, batch, seq),
+                      "batch": batch, "seq": seq})
 
 
 def get_arch(arch_id: str):

@@ -22,7 +22,8 @@ KERNELS = {"cascade_truncate": "cascade_truncate.cu",
            "target_attention": "target_attention.cu",
            "embedding_bag": "embedding_bag.cu",
            "dot_interact": "dot_interact.cu",
-           "cin_layer": "cin.cu"}
+           "cin_layer": "cin.cu",
+           "flash_attention": "flash_attention.cu"}
 CUDA_FLAGS = ["-gencode=arch=compute_90a,code=sm_90a", "-O3"]
 
 _LOCK = threading.Lock()

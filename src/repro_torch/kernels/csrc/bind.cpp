@@ -13,6 +13,7 @@
 #include <cuda_runtime.h>
 #include <torch/extension.h>
 
+#include <algorithm>
 #include <optional>
 
 extern "C" {
@@ -34,6 +35,11 @@ int dot_interact_launch(const void* feats, void* out, int B, int F, int D,
 int cin_layer_launch(const float* w, const float* x_prev, const float* x0,
                      float* out, int B, int Hp, int m, int D, int Ho,
                      void* stream);
+int flash_attention_launch(const void* q, const void* k, const void* v,
+                           void* o, const long long* strides, int B, int T,
+                           int S, int H, int Hkv, int dh, int causal,
+                           int window, float scale, float softcap, int bf16,
+                           void* stream);
 }
 
 namespace {
@@ -237,6 +243,52 @@ torch::Tensor cin_layer(const torch::Tensor& w, const torch::Tensor& x_prev,
   return out;
 }
 
+// q (B, T, H, dh), k/v (B, S, Hkv, dh), f32 or bf16 -> (B, T, H, dh) in
+// q's dtype.  Read through their strides (only dh must be contiguous);
+// softcap <= 0 means none, window <= 0 global.
+torch::Tensor flash_attention(torch::Tensor q, torch::Tensor k,
+                              torch::Tensor v, bool causal, int64_t window,
+                              double softcap, double scale) {
+  same_device("flash_attention", q, {&k, &v});
+  TORCH_CHECK(q.dim() == 4 && k.dim() == 4 && k.sizes() == v.sizes(),
+              "want q (B, T, H, dh) and k, v (B, S, Hkv, dh)");
+  const int64_t bsz = q.size(0), t = q.size(1), h = q.size(2);
+  const int64_t dh = q.size(3), s = k.size(1), hk = k.size(2);
+  TORCH_CHECK(k.size(0) == bsz && k.size(3) == dh,
+              "k and v must share q's batch and head width");
+  TORCH_CHECK(hk >= 1 && h % hk == 0, "H = ", h,
+              " must be a multiple of Hkv = ", hk);
+  TORCH_CHECK(dh >= 1 && dh <= 256, "the kernel supports 1 <= dh <= 256");
+  TORCH_CHECK(bsz <= 65535 && h <= 65535, "B and H must be <= 65535");
+  const auto dt = q.scalar_type();
+  TORCH_CHECK(dt == torch::kFloat32 || dt == torch::kBFloat16,
+              "q, k and v must be f32 or bf16");
+  TORCH_CHECK(k.scalar_type() == dt && v.scalar_type() == dt,
+              "q, k and v must share one dtype");
+  if (q.stride(3) != 1) q = q.contiguous();
+  if (k.stride(3) != 1) k = k.contiguous();
+  if (v.stride(3) != 1) v = v.contiguous();
+  const c10::cuda::CUDAGuard guard(q.device());
+  auto out = torch::empty({bsz, t, h, dh}, q.options());
+  if (out.numel() == 0) return out;
+  const long long strides[12] = {
+      q.stride(0), q.stride(1), q.stride(2), k.stride(0), k.stride(1),
+      k.stride(2), v.stride(0), v.stride(1), v.stride(2), out.stride(0),
+      out.stride(1), out.stride(2)};
+  check_launch(
+      flash_attention_launch(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                             out.data_ptr(), strides, as_int(bsz, "B"),
+                             as_int(t, "T"), as_int(s, "S"), as_int(h, "H"),
+                             as_int(hk, "Hkv"), as_int(dh, "dh"), causal,
+                             static_cast<int>(std::max<int64_t>(
+                                 -1, std::min<int64_t>(window, INT32_MAX))),
+                             static_cast<float>(scale),
+                             static_cast<float>(softcap),
+                             dt == torch::kBFloat16, stream()),
+      "flash_attention");
+  return out;
+}
+
 PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
   m.def("cascade_truncate", &cascade_truncate,
         "CompactPlan truncation: (B,) revenue@expose");
@@ -247,4 +299,6 @@ PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
   m.def("dot_interact", &dot_interact,
         "DLRM dot interaction: strictly-lower-triangle pairwise dots");
   m.def("cin_layer", &cin_layer, "xDeepFM CIN layer");
+  m.def("flash_attention", &flash_attention,
+        "causal / GQA / sliding-window / softcap flash attention");
 }

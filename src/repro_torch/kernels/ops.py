@@ -14,11 +14,14 @@ main path went through the kernels.
 """
 from __future__ import annotations
 
+import math
+
 from repro_torch.kernels import ref
 from repro_torch.kernels.build import load
 
 LAUNCHES = {"cascade_truncate": 0, "target_attention": 0,
-            "embedding_bag": 0, "dot_interact": 0, "cin_layer": 0}
+            "embedding_bag": 0, "dot_interact": 0, "cin_layer": 0,
+            "flash_attention": 0}
 
 
 def reset_launches() -> None:
@@ -93,4 +96,23 @@ def cin_layer(w, x_prev, x0):
     out = load().cin_layer(w, x_prev, x0)
     if out.numel() and w.shape[1]:  # launched unless empty or K = 0
         LAUNCHES["cin_layer"] += 1
+    return out
+
+
+def flash_attention(q, k, v, *, causal: bool = True, window: int = -1,
+                    softcap: float | None = None,
+                    scale: float | None = None):
+    """q (B, T, H, dh), k/v (B, S, Hkv, dh), f32 or bf16 -> (B, T, H, dh)
+    in q's dtype; GQA, causal (positions from 0), sliding window when
+    ``window > 0``, tanh softcap when ``softcap`` is set, ``scale``
+    defaulting to 1/sqrt(dh); see ``ref.flash_attention_ref``.  Ragged T
+    and S need no padding."""
+    scale = 1.0 / math.sqrt(q.shape[-1]) if scale is None else scale
+    if _on_cpu(q, k, v):
+        return ref.flash_attention_ref(q, k, v, causal=causal, window=window,
+                                       softcap=softcap, scale=scale)
+    out = load().flash_attention(q, k, v, bool(causal), int(window),
+                                 float(softcap or 0.0), float(scale))
+    if out.numel():  # launched for B, T, H > 0
+        LAUNCHES["flash_attention"] += 1
     return out

@@ -2,6 +2,8 @@
 
     python -m repro_torch.launch.cells --arch dlrm-rm2 --shape serve_p99 \\
         [--preset smoke|full] [--calls 3] [--device cpu] [--seed 0]
+    python -m repro_torch.launch.cells --arch gemma2-2b \\
+        --shape prefill_32k|decode_32k [--preset smoke|full] ...
 
 builds the cell (``configs.get_arch(arch).make_cell(shape)``), draws its
 weights and inputs from ``--seed`` on the device, calls it ``--calls``
@@ -10,8 +12,12 @@ checksum (sum) of its logits.  It is the single-card counterpart of the
 JAX package's ``launch/dryrun.py --arch/--shape`` selection: the cell
 runs for real instead of being lowered.
 
-``--preset full`` is the published width (DLRM-RM2's table is 10.0 GB);
-``--preset smoke`` the configs' small widths at the cell's batch.  It
+``--preset full`` is the published width (DLRM-RM2's table is 10.0 GB;
+gemma2-2b's cells hold 5.2 GB of bf16 weights and a 14.0 GB or 27.9 GB
+KV cache); ``--preset smoke`` the configs' small widths, at the cell's
+batch for the recsys archs and at 2 sequences of 64 positions for the
+LM.  A cell's logits are (B,) for the recsys archs and the last token's
+(B, V) for the LM.  It
 runs on the card unless ``--device cpu`` is given; without a card it
 stops with an error.
 """
@@ -23,6 +29,7 @@ import time
 import torch
 
 from repro_torch.configs import ARCH_IDS, get_arch
+from repro_torch.configs.base import LM_SHAPES
 from repro_torch.configs.recsys_common import RECSYS_SHAPES
 from repro_torch.device import resolve_device
 
@@ -35,7 +42,8 @@ def _sync(device) -> None:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--arch", required=True, choices=ARCH_IDS)
-    ap.add_argument("--shape", required=True, choices=sorted(RECSYS_SHAPES))
+    ap.add_argument("--shape", required=True,
+                    choices=sorted({*RECSYS_SHAPES, *LM_SHAPES}))
     ap.add_argument("--preset", default="full", choices=("smoke", "full"))
     ap.add_argument("--calls", type=int, default=3)
     ap.add_argument("--device", default=None,

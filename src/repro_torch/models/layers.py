@@ -141,3 +141,23 @@ def prelu_init(d: int) -> Params:
 
 def prelu_apply(params: Params, x):
     return torch.where(x >= 0, x, params["alpha"] * x)
+
+
+# -- norms -------------------------------------------------------------------
+
+
+def rmsnorm_init(d: int, dtype=torch.float32) -> Params:
+    return {"scale": torch.ones(d, dtype=dtype)}
+
+
+def rmsnorm_apply(params: Params, x, *, eps: float = 1e-6,
+                  zero_centered: bool = False):
+    """RMSNorm over the last axis, computed in f32 and cast back to x's
+    dtype; ``zero_centered`` scales by (1 + scale), as gemma does."""
+    x32 = x.float()
+    var = x32.square().mean(dim=-1, keepdim=True)
+    y = x32 * torch.rsqrt(var + eps)
+    scale = params["scale"].float()
+    if zero_centered:
+        scale = 1.0 + scale
+    return (y * scale).to(x.dtype)

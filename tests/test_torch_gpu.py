@@ -9,7 +9,9 @@ with a card with
 Tolerances as on the CPU: truncation exact, target attention 2e-5,
 embedding bag 1e-5, dot interaction 2e-5 in f32 and 2e-2 in bf16 (the
 bf16 output rounds once from an f32 sum taken in another order), CIN
-1e-4 (f32 sums of up to 7,800 terms in another order).
+1e-4 (f32 sums of up to 7,800 terms in another order), flash attention
+2e-5 in f32 and 2e-2 in bf16 (the plain version rounds the logits to
+bf16 out of its first einsum; the kernel keeps them in f32).
 """
 import pytest
 import torch
@@ -120,6 +122,39 @@ def test_cin_kernel(cuda, b, hp, m, d, ho):
     want = ref.cin_layer_ref(w, xp, x0)
     torch.cuda.synchronize()
     torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("b,t,s,h,hk,d", [
+    (1, 128, 128, 2, 2, 64), (1, 200, 264, 4, 1, 32), (2, 64, 512, 8, 4, 128),
+    (2, 100, 100, 8, 4, 256), (1, 77, 77, 4, 2, 16)])
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-5),
+                                       (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("kw", [
+    dict(causal=True), dict(causal=True, window=24, softcap=50.0),
+    dict(causal=False), dict(causal=False, window=16, softcap=30.0)],
+    ids=["causal", "window-softcap", "full", "noncausal-window"])
+def test_flash_attention_kernel(cuda, b, t, s, h, hk, d, dtype, tol, kw):
+    gen = _gen()
+    q, k, v = (torch.randn(*shape, generator=gen).to(dtype).to(cuda)
+               for shape in ((b, t, h, d), (b, s, hk, d), (b, s, hk, d)))
+    before = ops.LAUNCHES["flash_attention"]
+    got = ops.flash_attention(q, k, v, **kw)
+    assert ops.LAUNCHES["flash_attention"] == before + 1
+    want = ref.flash_attention_ref(q, k, v, scale=d ** -0.5, **kw)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and got.shape == q.shape
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+def test_flash_attention_kernel_reads_strided_inputs(cuda):
+    """q, k and v as views of one fused projection (no copies)."""
+    gen = _gen()
+    qkv = torch.randn(2, 50, 16, 32, generator=gen).to(cuda)
+    q, k, v = qkv[:, :, :8], qkv[:, :, 8:12], qkv[:, :, 12:]
+    got = ops.flash_attention(q, k, v, window=20)
+    want = ref.flash_attention_ref(q, k, v, window=20)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, want, rtol=2e-5, atol=2e-5)
 
 
 def test_small_serve_card_matches_cpu(cuda):

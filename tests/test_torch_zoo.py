@@ -270,7 +270,7 @@ def test_registry_names_what_waits():
     assert get_arch("dlrm-rm2") is dlrm_rm2
     assert get_arch("xdeepfm") is xdeepfm_arch
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        get_arch("gemma2-2b")
+        get_arch("glm4-9b")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         get_arch("bst")
     with pytest.raises(KeyError):
