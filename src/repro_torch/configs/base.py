@@ -8,6 +8,9 @@ package's configs::
     full_config() / smoke_config()        model config objects
     make_cell(shape, cfg=None) -> Cell    (cfg defaults to full_config())
     init_smoke(gen, cfg, device) / smoke_batch(rng, cfg, device)
+                                          (recsys; the LM has lm.init and
+                                          no training batch until training
+                                          is ported)
 
 A ``Cell`` is one (architecture x shape) on one card: a function and a
 way to make its arguments.  It is the single-card counterpart of the JAX

@@ -17,9 +17,6 @@ from __future__ import annotations
 
 import math
 
-import numpy as np
-import torch
-
 from repro_torch.configs import base
 from repro_torch.models import lm
 
@@ -75,18 +72,3 @@ def make_cell(shape: str, cfg: lm.LMConfig | None = None) -> base.Cell:
     cfg = cfg or full_config()
     batch, seq = cell_size(shape, cfg)
     return base.lm_make_cell(ARCH_ID, cfg, shape, batch=batch, seq=seq)
-
-
-def init_smoke(gen, cfg, device=None):
-    return lm.init(gen, cfg, device=device)
-
-
-def smoke_batch(rng: np.random.Generator, cfg, device=None, *,
-                batch: int = 2, seq: int = 16) -> dict:
-    """tokens, next-token targets and a mask, as the JAX package's
-    ``lm_smoke_batch`` draws them."""
-    toks = rng.integers(0, cfg.vocab, size=(batch, seq + 1))
-    dev = device or "cpu"
-    return {"tokens": torch.from_numpy(toks[:, :-1]).int().to(dev),
-            "targets": torch.from_numpy(toks[:, 1:]).int().to(dev),
-            "mask": torch.ones((batch, seq), device=dev)}

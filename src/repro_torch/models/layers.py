@@ -146,8 +146,8 @@ def prelu_apply(params: Params, x):
 # -- norms -------------------------------------------------------------------
 
 
-def rmsnorm_init(d: int, dtype=torch.float32) -> Params:
-    return {"scale": torch.ones(d, dtype=dtype)}
+def rmsnorm_init(d: int, dtype=torch.float32, device=None) -> Params:
+    return {"scale": torch.ones(d, dtype=dtype, device=device)}
 
 
 def rmsnorm_apply(params: Params, x, *, eps: float = 1e-6,

@@ -202,7 +202,7 @@ def init(gen: torch.Generator, cfg: LMConfig, device=None) -> dict:
     params = {
         "embed": _normal(g, (cfg.padded_vocab, d), 0.02),
         "layers": lay,
-        "ln_final": {"scale": torch.ones(d, device=device)},
+        "ln_final": L.rmsnorm_init(d, device=device),
     }
     if not cfg.tie_embeddings:
         params["lm_head"] = _normal(g, (cfg.padded_vocab, d), 0.02)
@@ -286,14 +286,30 @@ def _qkv(p, cfg: LMConfig, x, positions):
     return apply_rope(q, positions, cfg), apply_rope(k, positions, cfg), v
 
 
-def _attn_block(p, cfg: LMConfig, x, positions, window: int):
-    """Causal self-attention of x (B,T,d) at positions 0..T-1 through the
-    flash-attention kernel -> (out (B,T,d), (k, v))."""
+def _attn_block(p, cfg: LMConfig, x, positions, window: int, kv=None,
+                pos: int = 0):
+    """Attention of x (B,T,d) -> (out (B,T,d), (k, v)).  Without ``kv``,
+    causal self-attention at positions 0..T-1 through the flash-attention
+    kernel.  With ``kv``, this layer's (k_cache, v_cache), a decode step
+    at position ``pos``: its k and v are written there in place and the
+    plain ``_attention`` reads only the cached positions the mask admits
+    (the JAX package masks the rest, which take weights of exactly 0)."""
     q, k, v = _qkv(p, cfg, x, positions)
-    out = ops.flash_attention(q, k, v, causal=True, window=window,
-                              softcap=cfg.attn_softcap, scale=_scale(cfg))
-    out = out.reshape(*x.shape[:2], cfg.d_q) @ p["wo"].to(x.dtype)
-    return out, (k, v)
+    if kv is None:
+        out = ops.flash_attention(q, k, v, causal=True, window=window,
+                                  softcap=cfg.attn_softcap,
+                                  scale=_scale(cfg))
+        out = out.reshape(*x.shape[:2], cfg.d_q)
+    else:
+        k_cache, v_cache = kv
+        k_cache[:, pos] = k[:, 0]
+        v_cache[:, pos] = v[:, 0]
+        lo = max(0, pos - window + 1) if window > 0 else 0
+        kv_pos = torch.arange(lo, pos + 1, device=x.device)
+        out = _attention(cfg, q, k_cache[:, lo:pos + 1],
+                         v_cache[:, lo:pos + 1],
+                         _attn_mask(positions[0], kv_pos, window))
+    return out @ p["wo"].to(x.dtype), (k, v)
 
 
 # -- FFN --------------------------------------------------------------------
@@ -321,10 +337,11 @@ def _ffn_block(p, cfg: LMConfig, x):
 # -- block + forward --------------------------------------------------------
 
 
-def _block(p, cfg: LMConfig, x, positions, window: int):
+def _block(p, cfg: LMConfig, x, positions, window: int, kv=None,
+           pos: int = 0):
     zc = cfg.zero_centered_norm
     h = L.rmsnorm_apply(p["ln_attn"], x, zero_centered=zc)
-    attn_out, new_kv = _attn_block(p, cfg, h, positions, window)
+    attn_out, new_kv = _attn_block(p, cfg, h, positions, window, kv, pos)
     if cfg.sandwich_norm:
         attn_out = L.rmsnorm_apply(p["ln_attn_post"], attn_out,
                                    zero_centered=zc)
@@ -411,45 +428,20 @@ def decode_step(params, cfg: LMConfig, token, cache: dict):
     """One serve step: token (B,) + cache -> (logits (B, V), cache).
 
     The new token's k and v are written into the cache at ``length``, in
-    place (the returned cache shares the input's tensors).  The JAX
-    package attends to the whole cache with positions past ``length``,
-    and outside the layer's window, masked; those take weights of exactly
-    0, so here attention reads only the positions the mask admits."""
+    place (the returned cache shares the input's tensors)."""
     b = token.shape[0]
     pos = int(cache["length"])
-    k_cache, v_cache = cache["k"], cache["v"]
-    s_max = k_cache.shape[2]
-    if pos >= s_max:
-        raise ValueError(f"cache of {s_max} positions is full")
+    if pos >= cache["k"].shape[2]:
+        raise ValueError(f"cache of {cache['k'].shape[2]} positions is full")
     x = _embed(params, cfg, token[:, None])
     positions = torch.full((b, 1), pos, dtype=torch.int32,
                            device=token.device)
-    zc = cfg.zero_centered_norm
     for i in range(cfg.n_layers):
-        p = _layer(params, i)
-        window = cfg.window_for_layer(i)
-        h = L.rmsnorm_apply(p["ln_attn"], x, zero_centered=zc)
-        q, k, v = _qkv(p, cfg, h, positions)
-        k_cache[i, :, pos] = k[:, 0]
-        v_cache[i, :, pos] = v[:, 0]
-        # positions past pos, or outside the window, would be masked to
-        # weights of exactly 0: attend only to [lo, pos], a view
-        lo = max(0, pos - window + 1) if window > 0 else 0
-        kv_pos = torch.arange(lo, pos + 1, device=token.device)
-        attn = _attention(cfg, q, k_cache[i, :, lo:pos + 1],
-                          v_cache[i, :, lo:pos + 1],
-                          _attn_mask(positions[0], kv_pos, window))
-        attn = attn @ p["wo"].to(h.dtype)
-        if cfg.sandwich_norm:
-            attn = L.rmsnorm_apply(p["ln_attn_post"], attn, zero_centered=zc)
-        x = x + cfg.residual_scale * attn
-        h = L.rmsnorm_apply(p["ln_ffn"], x, zero_centered=zc)
-        f = _ffn_block(p, cfg, h)
-        if cfg.sandwich_norm:
-            f = L.rmsnorm_apply(p["ln_ffn_post"], f, zero_centered=zc)
-        x = x + cfg.residual_scale * f
+        x, _ = _block(_layer(params, i), cfg, x, positions,
+                      cfg.window_for_layer(i),
+                      kv=(cache["k"][i], cache["v"][i]), pos=pos)
     logits = _unembed(params, cfg, _final_norm(params, cfg, x))[:, 0]
-    return logits, {"k": k_cache, "v": v_cache, "length": pos + 1}
+    return logits, {"k": cache["k"], "v": cache["v"], "length": pos + 1}
 
 
 # -- FLOPs ------------------------------------------------------------------

@@ -9,7 +9,7 @@
   gemma2-2b's ``smoke_config`` and of a dense config with QK-norm,
   partial RoPE, minicpm-style residual scale and logit divisor and an
   untied head, on JAX ``lm.init`` weights carried over by the bridge:
-  1e-5 in f32;
+  1e-5 in f32; gemma2's forward, prefill and decode also in bf16, 2e-2;
 * the norm, RoPE, parameter and FLOP counts, the registry, the cells and
   their CLI.
 """
@@ -239,23 +239,56 @@ def test_decode_step_equals_prefill_of_one_more_token(pair):
     torch.testing.assert_close(got, want, **F32_TOL)
 
 
-def test_bf16_forward_matches_jax():
-    """gemma2 smoke widths in bf16 (the cells' compute dtype) on weights
-    cast once: bf16 rounds at other places in the two frameworks."""
+def _bf16_pair():
+    """gemma2 smoke widths in bf16 (the cells' compute dtype), the port's
+    weights cast once from JAX's f32 ``lm.init`` leaves."""
     jcfg = dataclasses.replace(jgemma.smoke_config(), dtype="bfloat16")
     cfg = dataclasses.replace(gemma2_2b.smoke_config(), dtype="bfloat16")
     jp = jlm.init(jax.random.PRNGKey(4), jcfg)
     like = lm.init(torch.Generator().manual_seed(0), cfg)
     tp = lm.cast_params(bridge.from_numpy_tree(_np_tree(jp), like=like,
                                                device="cpu"), torch.bfloat16)
+    return jcfg, cfg, jp, tp
+
+
+BF16_TOL = dict(rtol=2e-2, atol=2e-2)
+
+
+def test_bf16_forward_matches_jax():
+    """bf16 rounds at other places in the two frameworks."""
+    jcfg, cfg, jp, tp = _bf16_pair()
     assert tp["layers"]["ln_attn"]["scale"].dtype == torch.float32
     toks = np.random.default_rng(8).integers(0, cfg.vocab, (2, 20))
     want, _ = jlm.forward(jp, jcfg, jnp.asarray(toks, jnp.int32))
     got = lm.forward(tp, cfg, torch.from_numpy(toks))
     assert got.dtype == torch.bfloat16
     np.testing.assert_allclose(got.float().numpy(),
-                               np.asarray(want, np.float32), rtol=2e-2,
-                               atol=2e-2)
+                               np.asarray(want, np.float32), **BF16_TOL)
+
+
+def test_bf16_prefill_and_decode_match_jax():
+    """The cells' path in bf16: prefill 20 tokens into a 32-position
+    cache (window 8 bites), then 4 decode steps on JAX's greedy tokens;
+    logits and cache within the bf16 tolerance."""
+    jcfg, cfg, jp, tp = _bf16_pair()
+    toks = np.random.default_rng(9).integers(0, cfg.vocab, (2, 20)) \
+        .astype(np.int32)
+    jl, jc = jlm.prefill(jp, jcfg, jnp.asarray(toks), max_len=32)
+    tl, tc = lm.prefill(tp, cfg, torch.from_numpy(toks), max_len=32)
+    assert tl.dtype == tc["k"].dtype == torch.bfloat16
+    for step in range(5):
+        np.testing.assert_allclose(tl.float().numpy(),
+                                   np.asarray(jl, np.float32), **BF16_TOL)
+        if step == 4:
+            break
+        nxt = np.asarray(jnp.argmax(jl, -1)).astype(np.int32)
+        jl, jc = jlm.decode_step(jp, jcfg, jnp.asarray(nxt), jc)
+        tl, tc = lm.decode_step(tp, cfg, torch.from_numpy(nxt), tc)
+    assert tc["length"] == int(jc["length"]) == 24
+    for name in ("k", "v"):
+        np.testing.assert_allclose(tc[name].float().numpy(),
+                                   np.asarray(jc[name], np.float32),
+                                   **BF16_TOL)
 
 
 def test_moe_config_builds_but_its_ffn_waits():
