@@ -5,7 +5,7 @@
 
 In order, it
   1. prints the card's name and power limit (nvidia-smi);
-  2. builds the six CUDA kernels and their PyTorch binding from
+  2. builds the seven CUDA kernels and their PyTorch binding from
      ``src/repro_torch/kernels/csrc`` with ``torch.utils.cpp_extension``
      (ninja compiles the sources in parallel);
   3. holds every kernel against its plain-torch version on the card, at
@@ -17,7 +17,9 @@ In order, it
      (for dot interaction and CIN a composition of calls: bmm and a
      gather, two einsums; for flash attention compiled flex_attention
      with gemma2's softcap as its score_mod and the causal or window
-     block mask, and SDPA on the softcap-free global layer);
+     block mask, and SDPA on the softcap-free global layer): flash
+     attention's f32 rows run the CUDA-core kernel and its bf16 rows the
+     tensor-core (wgmma, TMA) kernel;
   4. serves full-width ``GeneratedSource`` windows through
      ``repro_torch.launch.serve`` (100k-user world, 4000-item corpus,
      paper chains, stage and reward models at full width, random
@@ -51,9 +53,11 @@ In order, it
      prefill(T + 1)'s own distance from f32; then the
      prefill_32k (B = 4) x 1 and decode_32k (B = 8, cache length
      32,767) x 8 cells after one warm call each, with the counters reset
-     before and read after each (flash_attention 26 times a prefill
-     forward, never in decode); then gemma2 smoke_config on the card
-     against the CPU;
+     before and read after each (the wgmma flash kernel 26 times a bf16
+     prefill forward, never in decode; the CUDA-core one only in the
+     identity check's two f32 prefills); the profiled prefill prints the
+     wgmma kernel's share of device busy; then gemma2 smoke_config on the
+     card against the CPU;
   9. prints the ``kernels`` JSON line, the card line and, last, the
      ``{"ok": true, ...}`` line.
 
@@ -429,38 +433,55 @@ def check_flash(dev):
     """Small shapes and mask variants; then gemma2-2b's heads (H = 8,
     Hkv = 4, dh = 256, scale 1/16, softcap 50) at T = S = 8,192 for a
     local (window 4,096) and a global layer in f32 and bf16, against the
-    plain version and timed; then the kernel alone at the path's
-    T = S = 32,768 in bf16 (the plain version's f32 logits would be 34
-    GB).  Each of these rows is timed beside compiled ``flex_attention``
-    (softcap score_mod, causal or window block mask), whose output is
-    held to the kernel's within the dtype's tolerance; the softcap-free
-    global layer at 32,768 is also timed beside
-    ``F.scaled_dot_product_attention``.  The kernel line reports the
-    8,192 global layer in bf16."""
+    plain version and timed; then the bf16 kernel alone at the path's
+    T = S = 32,768 (the plain version's f32 logits would be 34 GB).  f32
+    runs the CUDA-core kernel and bf16 the tensor-core one; every call
+    is held to have launched its dtype's kernel.  Each 8,192 and 32,768
+    row is timed beside compiled ``flex_attention`` (softcap score_mod,
+    causal or window block mask), whose output is held to the kernel's
+    within the dtype's tolerance; the softcap-free global layer at
+    32,768 is also timed beside ``F.scaled_dot_product_attention``.
+    Returns the kernel lines: ``flash_attention`` reports the 8,192
+    global layer in f32, ``flash_attention_wgmma`` the same in bf16
+    with its 32,768 rows."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import ops, ref
 
     gen = torch.Generator(device=dev).manual_seed(13)
     tols = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+    kernel_of = {torch.float32: "flash_attention",
+                 torch.bfloat16: "flash_attention_wgmma"}
     flex = flex_library(dev)
 
     def qkv(b, t, s, h, hk, d, dt):
         return [torch.randn(*shape, generator=gen, device=dev).to(dt)
                 for shape in ((b, t, h, d), (b, s, hk, d), (b, s, hk, d))]
 
+    def run(x, **kw):
+        """ops.flash_attention, held to have launched x's kernel once."""
+        name = kernel_of[x[0].dtype]
+        before = dict(ops.LAUNCHES)
+        out = ops.flash_attention(*x, **kw)
+        if dict(ops.LAUNCHES) != {**before, name: before[name] + 1}:
+            raise AssertionError(f"flash_attention on {x[0].dtype} did not "
+                                 f"launch {name} alone")
+        return out
+
     for shape in ((1, 128, 128, 2, 2, 64), (2, 256, 256, 4, 2, 64),
-                  (1, 200, 264, 4, 1, 32), (2, 64, 512, 8, 4, 128)):
+                  (1, 200, 264, 4, 1, 32), (2, 64, 512, 8, 4, 128),
+                  (1, 77, 130, 8, 4, 256)):
         for dt, tol in tols.items():
             x = qkv(*shape, dt)
-            close(ops.flash_attention(*x).float(),
-                  ref.flash_attention_ref(*x).float(), tol)
-    x = qkv(2, 192, 192, 4, 2, 64, torch.float32)
-    for window, softcap, causal in ((64, None, True), (-1, 50.0, True),
-                                    (32, 30.0, True), (-1, None, False)):
-        kw = dict(window=window, softcap=softcap, causal=causal)
-        close(ops.flash_attention(*x, **kw),
-              ref.flash_attention_ref(*x, **kw), 2e-5)
+            close(run(x).float(), ref.flash_attention_ref(*x).float(), tol)
+    for dt, tol in tols.items():
+        x = qkv(2, 192, 192, 4, 2, 64, dt)
+        for window, softcap, causal in ((64, None, True), (-1, 50.0, True),
+                                        (32, 30.0, True), (-1, None, False),
+                                        (65, 50.0, False)):
+            kw = dict(window=window, softcap=softcap, causal=causal)
+            close(run(x, **kw).float(),
+                  ref.flash_attention_ref(*x, **kw).float(), tol)
     layers = {"local": dict(window=4096, softcap=50.0, scale=1 / 16),
               "global": dict(window=-1, softcap=50.0, scale=1 / 16)}
     rows = {}
@@ -475,10 +496,11 @@ def check_flash(dev):
         dname = "bf16" if dt == torch.bfloat16 else "f32"
         x = qkv(1, 8192, 8192, 8, 4, 256, dt)
         for name, kw in layers.items():
-            got = ops.flash_attention(*x, **kw)
+            got = run(x, **kw)
             err = close(got.float(), ref.flash_attention_ref(*x, **kw).float(),
                         tol)
-            ms = cuda_ms(lambda: ops.flash_attention(*x, **kw), reps=5,
+            reps = 20 if dt == torch.bfloat16 else 5
+            ms = cuda_ms(lambda: ops.flash_attention(*x, **kw), reps=reps,
                          warm=1)
             plain_ms = cuda_ms(lambda: ref.flash_attention_ref(*x, **kw),
                                reps=2, warm=1)
@@ -494,12 +516,14 @@ def check_flash(dev):
         torch.cuda.empty_cache()
     x = qkv(1, 32768, 32768, 8, 4, 256, torch.bfloat16)
     for name, kw in layers.items():
-        ms = cuda_ms(lambda: ops.flash_attention(*x, **kw), reps=2, warm=1)
+        got = run(x, **kw)
+        ms = cuda_ms(lambda: ops.flash_attention(*x, **kw), reps=10, warm=1)
         b_ms, by = flash_bound(1, 32768, 32768, 8, 4, 256, 2, kw["window"])
         rows[(32768, name, "bf16")] = {
             "ms": ms, "bound_ms": b_ms, "bound_by": by,
-            **library(x, name, ops.flash_attention(*x, **kw), 2e-2),
+            **library(x, name, got, 2e-2),
             "shape": f"B=1 T=S=32768 H=8 Hkv=4 dh=256 {name} bf16"}
+        del got
     nocap = dict(window=-1, scale=1 / 16)
     qt, kt, vt = (y.transpose(1, 2) for y in x)
 
@@ -507,13 +531,14 @@ def check_flash(dev):
         return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
                                               enable_gqa=True, scale=1 / 16)
 
-    ms = cuda_ms(lambda: ops.flash_attention(*x, **nocap), reps=2, warm=1)
-    lib_ms = cuda_ms(sdpa, reps=5, warm=2)
-    diff = float((ops.flash_attention(*x, **nocap).float()
+    ms = cuda_ms(lambda: ops.flash_attention(*x, **nocap), reps=10, warm=1)
+    lib_ms = cuda_ms(sdpa, reps=10, warm=2)
+    diff = float((run(x, **nocap).float()
                   - sdpa().transpose(1, 2).float()).abs().max())
+    b_ms, by = flash_bound(1, 32768, 32768, 8, 4, 256, 2, -1)
     rows[(32768, "global-nocap", "bf16")] = {
         "ms": ms, "library_ms": lib_ms, "library_max_abs_diff": diff,
-        "bound_ms": rows[(32768, "global", "bf16")]["bound_ms"],
+        "bound_ms": b_ms, "bound_by": by,
         "shape": "B=1 T=S=32768 H=8 Hkv=4 dh=256 global, no softcap, bf16"}
     del x, qt, kt, vt
     torch.cuda.empty_cache()
@@ -524,11 +549,12 @@ def check_flash(dev):
             f"{r['library_ms']:.3f} ms (max abs diff "
             f"{r['library_max_abs_diff']:.3e}), max abs err "
             f"{r.get('max_abs_err')}")
-    line = dict(rows[(8192, "global", "bf16")])
-    line["at_32k"] = {k[1]: {"ms": r["ms"], "bound_ms": r["bound_ms"],
-                             "library_ms": r["library_ms"]}
-                      for k, r in rows.items() if k[0] == 32768}
-    return line
+    wgmma = dict(rows[(8192, "global", "bf16")])
+    wgmma["at_32k"] = {k[1]: {"ms": r["ms"], "bound_ms": r["bound_ms"],
+                              "library_ms": r["library_ms"]}
+                       for k, r in rows.items() if k[0] == 32768}
+    return {"flash_attention": rows[(8192, "global", "f32")],
+            "flash_attention_wgmma": wgmma}
 
 
 # -- phase 4: the serving path at full width --------------------------------
@@ -677,10 +703,11 @@ def profile_window(stack) -> None:
                                     row_limit=15), flush=True)
 
 
-def profile_call(label: str, fn, rows: int = 8):
+def profile_call(label: str, fn, rows: int = 8, kernel: str | None = None):
     """``fn()`` once under torch.profiler: its wall time, the device's
     busy time and idle share, and the operators and kernels that took the
-    most device time.  Returns fn's result."""
+    most device time; with ``kernel``, the device time and busy share of
+    the CUDA kernels whose name contains it.  Returns fn's result."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -703,6 +730,13 @@ def profile_call(label: str, fn, rows: int = 8):
     for e in top:
         log(f"  {e.key[:90]}: {e.self_device_time_total / 1e3:.3f} ms "
             f"device, {e.count} calls")
+    if kernel is not None:
+        mine = [e for e in events if kernel in e.key
+                and e.device_type == DeviceType.CUDA]
+        k_ms = sum(e.self_device_time_total for e in mine) / 1e3
+        log(f"  {kernel}: {k_ms:.3f} ms device in "
+            f"{sum(e.count for e in mine)} calls, "
+            f"{k_ms / busy_ms:.4f} of device busy")
     return out
 
 
@@ -850,25 +884,28 @@ def small_parity(seed: int):
 
 # -- phase 8: gemma2-2b at full width ---------------------------------------
 
-LM_LAYERS = 26  # flash_attention launches per prefill forward
+LM_LAYERS = 26  # flash launches per prefill forward
 LM_SERVE_T, LM_SERVE_MAX, LM_DECODE_STEPS = 32760, 32768, 8
 LM_STEP_TOL = 2e-3  # f32 decode step vs f32 prefill(T + 1)
+BF16_FLASH, F32_FLASH = "flash_attention_wgmma", "flash_attention"
 
 
-def lm_launch_check(what: str, got: dict, flash: int) -> None:
+def lm_launch_check(what: str, got: dict, bf16: int, f32: int = 0) -> None:
+    """The counts since the last reset: ``bf16`` launches of the wgmma
+    kernel, ``f32`` of the CUDA-core one and none of any other."""
     want = {k: 0 for k in got}
-    want["flash_attention"] = flash
+    want[BF16_FLASH], want[F32_FLASH] = bf16, f32
     if got != want:
         raise AssertionError(f"{what}: launches {got}, want {want}")
 
 
-def serve_lm(seed: int) -> int:
+def serve_lm(seed: int) -> tuple[int, int]:
     """gemma2-2b at full_config(): prefill B = 1, T = 32,760 into a
     32,768-position cache in bf16, then 8 greedy decode steps, timed.
-    Returns the path's flash_attention launches: 26 in the prefill, none
-    in the steps.
+    Its launches: 26 of the wgmma kernel in the prefill, none in the
+    steps.
 
-    Then, outside that count, the first step is checked against the
+    Then, counted apart, the first step is checked against the
     last-token logits of a prefill of those T + 1 tokens.  It is held in
     f32 (the same weights, not cast) within LM_STEP_TOL, where the two
     paths differ only in f32 summation order (the flash kernel against
@@ -876,7 +913,11 @@ def serve_lm(seed: int) -> int:
     through 26 layers).  In bf16 the gap is printed beside two witnesses
     of bf16 rounding at this width, bf16 against f32 prefill(T + 1) and
     the bf16 against the f32 step, and is held to be no larger than the
-    first: the two bf16 paths may differ only by bf16 rounding."""
+    first: the two bf16 paths may differ only by bf16 rounding.  The
+    identity check launches the wgmma kernel 26 times (the bf16
+    prefill(T + 1)) and the CUDA-core kernel 52 times (the two f32
+    prefills).  Returns the wgmma kernel's launches on the served path
+    and the CUDA-core kernel's in the f32 prefills."""
     import dataclasses
 
     import numpy as np
@@ -896,7 +937,7 @@ def serve_lm(seed: int) -> int:
     logits, cache = lm.prefill(params, cfg, toks, max_len=LM_SERVE_MAX)
     torch.cuda.synchronize()
     prefill_ms = (time.perf_counter() - t0) * 1e3
-    lm_launch_check("prefill", dict(ops.LAUNCHES), LM_LAYERS)
+    lm_launch_check("prefill", dict(ops.LAUNCHES), bf16=LM_LAYERS)
     nxt = logits.argmax(-1)
     first, steps = None, []
     for i in range(LM_DECODE_STEPS):
@@ -910,8 +951,8 @@ def serve_lm(seed: int) -> int:
         if first is None:
             first, first_tok = step, nxt
         nxt = step.argmax(-1)
-    lm_launch_check("decode", dict(ops.LAUNCHES), LM_LAYERS)
-    path_launches = ops.LAUNCHES["flash_attention"]
+    lm_launch_check("decode", dict(ops.LAUNCHES), bf16=LM_LAYERS)
+    path_launches = ops.LAUNCHES[BF16_FLASH]
     if cache["length"] != LM_SERVE_T + LM_DECODE_STEPS:
         raise AssertionError(f"cache length {cache['length']}")
     log(f"gemma2-2b serve path (B=1, bf16): prefill T={LM_SERVE_T} "
@@ -925,7 +966,8 @@ def serve_lm(seed: int) -> int:
     longer = torch.cat([toks, first_tok[:, None]], 1)
     want16, _ = profile_call(
         f"gemma2-2b bf16 prefill of {LM_SERVE_T + 1} tokens (B=1)",
-        lambda: lm.prefill(params, cfg, longer, max_len=LM_SERVE_MAX))
+        lambda: lm.prefill(params, cfg, longer, max_len=LM_SERVE_MAX),
+        kernel="flash_wgmma_kernel")
     del params
     torch.cuda.empty_cache()
     cfg32 = dataclasses.replace(cfg, dtype="float32")
@@ -934,7 +976,9 @@ def serve_lm(seed: int) -> int:
     del cache
     torch.cuda.empty_cache()
     want, _ = lm.prefill(params32, cfg32, longer, max_len=LM_SERVE_MAX)
-    lm_launch_check("identity checks", dict(ops.LAUNCHES), 3 * LM_LAYERS)
+    lm_launch_check("identity checks", dict(ops.LAUNCHES), bf16=LM_LAYERS,
+                    f32=2 * LM_LAYERS)
+    f32_launches = ops.LAUNCHES[F32_FLASH]
     err = close(got, want, LM_STEP_TOL)
 
     def gap(a, b):
@@ -951,7 +995,7 @@ def serve_lm(seed: int) -> int:
         raise AssertionError(f"bf16 step 1 differs from bf16 prefill(T+1) "
                              f"by {bf16_gap}, more than bf16 prefill(T+1) "
                              f"differs from f32 ({rounding})")
-    return path_launches
+    return path_launches, f32_launches
 
 
 LM_CALLS = {"prefill_32k": 1, "decode_32k": 8}
@@ -962,7 +1006,8 @@ def serve_lm_cells(seed: int) -> int:
     32,768 positions at length 32,767) cells through
     ``configs.get_arch(...).make_cell(...)``: one warm call and
     ``LM_CALLS[shape]`` timed calls, launch counts reset before and read
-    after each cell.  Returns the cells' flash_attention launches."""
+    after each cell.  Returns the cells' wgmma kernel launches (all of
+    them bf16)."""
     import gc
 
     import torch
@@ -991,11 +1036,12 @@ def serve_lm_cells(seed: int) -> int:
             times.append((time.perf_counter() - t0) * 1e3)
         got = dict(ops.LAUNCHES)
         per_call = LM_LAYERS if cell.kind == "prefill" else 0
-        lm_launch_check(f"gemma2-2b x {shape}", got, (1 + calls) * per_call)
+        lm_launch_check(f"gemma2-2b x {shape}", got,
+                        bf16=(1 + calls) * per_call)
         if cell.kind == "decode":
             profile_call(f"gemma2-2b x {shape}, one step",
                          lambda: cell.fn(*args))
-        launched += got["flash_attention"]
+        launched += got[BF16_FLASH]
         peak_gb = torch.cuda.max_memory_allocated() / 1e9
         b = cell.meta["batch"]
         if out.shape != (b, cfg.padded_vocab) or \
@@ -1007,7 +1053,7 @@ def serve_lm_cells(seed: int) -> int:
             f"{setup_s:.2f} s; calls {', '.join(f'{t:.3f}' for t in times)}"
             f" ms; {tflop / (min(times) * 1e-3):.2f} model TFLOP/s at the "
             f"fastest; peak memory {peak_gb:.2f} GB; launches "
-            f"{got['flash_attention']} flash_attention; logits sum "
+            f"{got[BF16_FLASH]} {BF16_FLASH}; logits sum "
             f"{float(out.double().sum()):.6f}")
         del args, out, cell
         gc.collect()
@@ -1094,7 +1140,7 @@ def main(argv=None) -> int:
                                              wcfg.n_items, 32),
         "dot_interact": check_dot_interact(dev),
         "cin_layer": check_cin(dev),
-        "flash_attention": check_flash(dev),
+        **check_flash(dev),
     }
     for name, r in results.items():
         log(f"{name} [{r['shape']}]: max_abs_err {r['max_abs_err']:.3e}, "
@@ -1109,7 +1155,7 @@ def main(argv=None) -> int:
     zoo_launches = serve_zoo(args.seed)
     small_parity(args.seed)
     zoo_parity(args.seed)
-    lm_launches = serve_lm(args.seed)
+    lm_launches, f32_launches = serve_lm(args.seed)
     torch.cuda.empty_cache()
     lm_launches += serve_lm_cells(args.seed)
     lm_parity(args.seed)
@@ -1118,17 +1164,21 @@ def main(argv=None) -> int:
     paths = {k: window_path for k in launches}
     paths.update({k: f"{arch} cells ({', '.join(ZOO_CALLS)})"
                   for arch, k in ZOO.items()})
-    paths["flash_attention"] = (f"gemma2-2b serve path and cells "
-                                f"({', '.join(LM_CALLS)})")
+    paths[BF16_FLASH] = (f"gemma2-2b bf16 serve path and cells "
+                         f"({', '.join(LM_CALLS)})")
+    paths[F32_FLASH] = ("gemma2-2b f32 prefill(T) and prefill(T + 1) of "
+                        "the serve path's identity check")
     launches.update(zoo_launches)
-    launches["flash_attention"] = lm_launches
+    launches[BF16_FLASH] = lm_launches
+    launches[F32_FLASH] = f32_launches
     tpu = "src/repro/kernels/{}"
     replaces = {"cascade_truncate": tpu.format("cascade_truncate.py:34"),
                 "target_attention": tpu.format("target_attention.py:46"),
                 "embedding_bag": tpu.format("embedding_bag.py:24"),
                 "dot_interact": tpu.format("dot_interact.py:34"),
                 "cin_layer": tpu.format("cin.py:34"),
-                "flash_attention": tpu.format("flash_attention.py:94")}
+                "flash_attention": tpu.format("flash_attention.py:94"),
+                "flash_attention_wgmma": tpu.format("flash_attention.py:94")}
     line = {"kernels": [
         {"name": name, "route": "cuda",
          "source": f"src/repro_torch/kernels/csrc/{build.KERNELS[name]}",

@@ -23,7 +23,8 @@ KERNELS = {"cascade_truncate": "cascade_truncate.cu",
            "embedding_bag": "embedding_bag.cu",
            "dot_interact": "dot_interact.cu",
            "cin_layer": "cin.cu",
-           "flash_attention": "flash_attention.cu"}
+           "flash_attention": "flash_attention.cu",
+           "flash_attention_wgmma": "flash_attention_wgmma.cu"}
 CUDA_FLAGS = ["-gencode=arch=compute_90a,code=sm_90a", "-O3"]
 
 _LOCK = threading.Lock()

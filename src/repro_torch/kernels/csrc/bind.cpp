@@ -14,7 +14,9 @@
 #include <torch/extension.h>
 
 #include <algorithm>
+#include <cstdint>
 #include <optional>
+#include <string>
 
 extern "C" {
 int cascade_truncate_launch(const int* p, const float* ck, const int* groups,
@@ -38,11 +40,23 @@ int cin_layer_launch(const float* w, const float* x_prev, const float* x0,
 int flash_attention_launch(const void* q, const void* k, const void* v,
                            void* o, const long long* strides, int B, int T,
                            int S, int H, int Hkv, int dh, int causal,
-                           int window, float scale, float softcap, int bf16,
+                           int window, float scale, float softcap,
                            void* stream);
+int flash_attention_wgmma_launch(const void* q, const void* k, const void* v,
+                                 void* o, const long long* strides, int B,
+                                 int T, int S, int H, int Hkv, int dh,
+                                 int causal, int window, float scale,
+                                 float softcap, void* stream);
 }
 
 namespace {
+
+// Numbers enter error messages as strings: on some hosts the extension's
+// own instance of the ostream number formatting (an inline template from
+// the compiler's headers) crashes against the libstdc++ loaded at run
+// time, so a failed check that streamed an integer segfaulted instead of
+// raising.  std::to_string formats without a stream.
+std::string num(long long v) { return std::to_string(v); }
 
 void same_device(const char* what, const torch::Tensor& first,
                  std::initializer_list<const torch::Tensor*> rest) {
@@ -56,15 +70,16 @@ void same_device(const char* what, const torch::Tensor& first,
 // err is the launcher's cudaGetLastError() right after its launch.
 void check_launch(int err, const char* what) {
   TORCH_CHECK(err == 0, what, " kernel launch failed: ",
-              cudaGetErrorString(static_cast<cudaError_t>(err)), " (", err,
-              ")");
+              cudaGetErrorString(static_cast<cudaError_t>(err)), " (",
+              num(err), ")");
   C10_CUDA_KERNEL_LAUNCH_CHECK();
 }
 
 void* stream() { return at::cuda::getCurrentCUDAStream().stream(); }
 
 int as_int(int64_t v, const char* what) {
-  TORCH_CHECK(v >= 0 && v <= INT32_MAX, what, " does not fit an int: ", v);
+  TORCH_CHECK(v >= 0 && v <= INT32_MAX, what, " does not fit an int: ",
+              num(v));
   return static_cast<int>(v);
 }
 
@@ -151,7 +166,8 @@ torch::Tensor target_attention(torch::Tensor q, const torch::Tensor& keys,
   TORCH_CHECK(err == 0, "target_attention kernel launch failed: ",
               cudaGetErrorString(static_cast<cudaError_t>(err)),
               " (shared memory ",
-              target_attention_smem_bytes(ti, di, h1i, h2i), " bytes)");
+              num(target_attention_smem_bytes(ti, di, h1i, h2i)),
+              " bytes)");
   C10_CUDA_KERNEL_LAUNCH_CHECK();
   return out;
 }
@@ -222,8 +238,8 @@ torch::Tensor cin_layer(const torch::Tensor& w, const torch::Tensor& x_prev,
   const int64_t d = x_prev.size(2), m = x0.size(1), ho = w.size(0);
   TORCH_CHECK(x0.size(0) == bsz && x0.size(2) == d,
               "x0 must be (B, m, D) like x_prev");
-  TORCH_CHECK(w.size(1) == hp * m, "w must have Hp*m = ", hp * m,
-              " columns, got ", w.size(1));
+  TORCH_CHECK(w.size(1) == hp * m, "w must have Hp*m = ", num(hp * m),
+              " columns, got ", num(w.size(1)));
   for (const torch::Tensor* t : {&w, &x_prev, &x0})
     TORCH_CHECK(t->scalar_type() == torch::kFloat32, "inputs must be f32");
   const c10::cuda::CUDAGuard guard(w.device());
@@ -243,49 +259,115 @@ torch::Tensor cin_layer(const torch::Tensor& w, const torch::Tensor& x_prev,
   return out;
 }
 
-// q (B, T, H, dh), k/v (B, S, Hkv, dh), f32 or bf16 -> (B, T, H, dh) in
-// q's dtype.  Read through their strides (only dh must be contiguous);
+namespace {
+
+// The checks both flash kernels share: q (B, T, H, dh), k and v (B, S,
+// Hkv, dh) of dtype dt on one device, dh contiguous (copied where not).
+struct Attention {
+  torch::Tensor q, k, v;
+  int64_t b, t, h, dh, s, hk;
+};
+
+Attention attention_args(const char* what, torch::Tensor q, torch::Tensor k,
+                         torch::Tensor v, at::ScalarType dt) {
+  same_device(what, q, {&k, &v});
+  TORCH_CHECK(q.dim() == 4 && k.dim() == 4 && k.sizes() == v.sizes(), what,
+              ": want q (B, T, H, dh) and k, v (B, S, Hkv, dh)");
+  Attention a{q, k, v, q.size(0), q.size(1), q.size(2),
+              q.size(3), k.size(1), k.size(2)};
+  TORCH_CHECK(k.size(0) == a.b && k.size(3) == a.dh, what,
+              ": k and v must share q's batch and head width");
+  TORCH_CHECK(a.hk >= 1 && a.h % a.hk == 0, what, ": H = ", num(a.h),
+              " must be a multiple of Hkv = ", num(a.hk));
+  TORCH_CHECK(a.b <= 65535 && a.h <= 65535, what,
+              ": B and H must be <= 65535");
+  TORCH_CHECK(q.scalar_type() == dt && k.scalar_type() == dt &&
+                  v.scalar_type() == dt,
+              what, ": q, k and v must all be ", dt);
+  if (q.stride(3) != 1) a.q = q.contiguous();
+  if (k.stride(3) != 1) a.k = k.contiguous();
+  if (v.stride(3) != 1) a.v = v.contiguous();
+  return a;
+}
+
+// (b, t, h) strides of q, (b, s, h) of k and of v, (b, t, h) of out.
+void attention_strides(const Attention& a, const torch::Tensor& out,
+                       long long* st) {
+  const torch::Tensor* ts[4] = {&a.q, &a.k, &a.v, &out};
+  for (int i = 0; i < 4; ++i)
+    for (int d = 0; d < 3; ++d) st[3 * i + d] = ts[i]->stride(d);
+}
+
+int clamp_window(int64_t window) {
+  return static_cast<int>(
+      std::max<int64_t>(-1, std::min<int64_t>(window, INT32_MAX)));
+}
+
+}  // namespace
+
+// q (B, T, H, dh), k/v (B, S, Hkv, dh), f32 -> (B, T, H, dh) f32, on the
+// CUDA cores.  Read through their strides (only dh must be contiguous);
 // softcap <= 0 means none, window <= 0 global.
 torch::Tensor flash_attention(torch::Tensor q, torch::Tensor k,
                               torch::Tensor v, bool causal, int64_t window,
                               double softcap, double scale) {
-  same_device("flash_attention", q, {&k, &v});
-  TORCH_CHECK(q.dim() == 4 && k.dim() == 4 && k.sizes() == v.sizes(),
-              "want q (B, T, H, dh) and k, v (B, S, Hkv, dh)");
-  const int64_t bsz = q.size(0), t = q.size(1), h = q.size(2);
-  const int64_t dh = q.size(3), s = k.size(1), hk = k.size(2);
-  TORCH_CHECK(k.size(0) == bsz && k.size(3) == dh,
-              "k and v must share q's batch and head width");
-  TORCH_CHECK(hk >= 1 && h % hk == 0, "H = ", h,
-              " must be a multiple of Hkv = ", hk);
-  TORCH_CHECK(dh >= 1 && dh <= 256, "the kernel supports 1 <= dh <= 256");
-  TORCH_CHECK(bsz <= 65535 && h <= 65535, "B and H must be <= 65535");
-  const auto dt = q.scalar_type();
-  TORCH_CHECK(dt == torch::kFloat32 || dt == torch::kBFloat16,
-              "q, k and v must be f32 or bf16");
-  TORCH_CHECK(k.scalar_type() == dt && v.scalar_type() == dt,
-              "q, k and v must share one dtype");
-  if (q.stride(3) != 1) q = q.contiguous();
-  if (k.stride(3) != 1) k = k.contiguous();
-  if (v.stride(3) != 1) v = v.contiguous();
+  const Attention a =
+      attention_args("flash_attention", q, k, v, torch::kFloat32);
+  TORCH_CHECK(a.dh >= 1 && a.dh <= 256,
+              "flash_attention: the kernel supports 1 <= dh <= 256");
   const c10::cuda::CUDAGuard guard(q.device());
-  auto out = torch::empty({bsz, t, h, dh}, q.options());
+  auto out = torch::empty({a.b, a.t, a.h, a.dh}, q.options());
   if (out.numel() == 0) return out;
-  const long long strides[12] = {
-      q.stride(0), q.stride(1), q.stride(2), k.stride(0), k.stride(1),
-      k.stride(2), v.stride(0), v.stride(1), v.stride(2), out.stride(0),
-      out.stride(1), out.stride(2)};
+  long long strides[12];
+  attention_strides(a, out, strides);
   check_launch(
-      flash_attention_launch(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                             out.data_ptr(), strides, as_int(bsz, "B"),
-                             as_int(t, "T"), as_int(s, "S"), as_int(h, "H"),
-                             as_int(hk, "Hkv"), as_int(dh, "dh"), causal,
-                             static_cast<int>(std::max<int64_t>(
-                                 -1, std::min<int64_t>(window, INT32_MAX))),
+      flash_attention_launch(a.q.data_ptr(), a.k.data_ptr(), a.v.data_ptr(),
+                             out.data_ptr(), strides, as_int(a.b, "B"),
+                             as_int(a.t, "T"), as_int(a.s, "S"),
+                             as_int(a.h, "H"), as_int(a.hk, "Hkv"),
+                             as_int(a.dh, "dh"), causal, clamp_window(window),
                              static_cast<float>(scale),
-                             static_cast<float>(softcap),
-                             dt == torch::kBFloat16, stream()),
+                             static_cast<float>(softcap), stream()),
       "flash_attention");
+  return out;
+}
+
+// The same function in bf16, on the tensor cores with TMA loads.  TMA
+// reads q, k and v through their strides, so it needs base pointers
+// aligned to 16 bytes, strides (of dimensions longer than 1) that are
+// multiples of 16 bytes, and dh a multiple of 8 up to 256.
+torch::Tensor flash_attention_wgmma(torch::Tensor q, torch::Tensor k,
+                                    torch::Tensor v, bool causal,
+                                    int64_t window, double softcap,
+                                    double scale) {
+  const char* what = "flash_attention_wgmma";
+  const Attention a = attention_args(what, q, k, v, torch::kBFloat16);
+  TORCH_CHECK(a.dh >= 8 && a.dh <= 256 && a.dh % 8 == 0, what,
+              ": TMA needs dh a multiple of 8 in [8, 256], got ", num(a.dh));
+  for (const torch::Tensor* x : {&a.q, &a.k, &a.v}) {
+    TORCH_CHECK(reinterpret_cast<uintptr_t>(x->data_ptr()) % 16 == 0, what,
+                ": TMA needs base pointers aligned to 16 bytes");
+    for (int d = 0; d < 3; ++d)
+      TORCH_CHECK(x->size(d) == 1 || x->stride(d) % 8 == 0, what,
+                  ": TMA needs strides that are multiples of 16 bytes, got "
+                  "stride ", num(x->stride(d)), " of dim ", num(d));
+  }
+  const c10::cuda::CUDAGuard guard(q.device());
+  auto out = torch::empty({a.b, a.t, a.h, a.dh}, q.options());
+  if (out.numel() == 0) return out;
+  long long strides[12];
+  attention_strides(a, out, strides);
+  const int err = flash_attention_wgmma_launch(
+      a.q.data_ptr(), a.k.data_ptr(), a.v.data_ptr(), out.data_ptr(),
+      strides, as_int(a.b, "B"), as_int(a.t, "T"), as_int(a.s, "S"),
+      as_int(a.h, "H"), as_int(a.hk, "Hkv"), as_int(a.dh, "dh"), causal,
+      clamp_window(window), static_cast<float>(scale),
+      static_cast<float>(softcap), stream());
+  TORCH_CHECK(err != -1, what,
+              ": libcuda offers no cuTensorMapEncodeTiled");
+  TORCH_CHECK(err > -1000, what, ": cuTensorMapEncodeTiled refused a map "
+              "(CUresult ", num(-err - 1000), ")");
+  check_launch(err, what);
   return out;
 }
 
@@ -300,5 +382,7 @@ PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
         "DLRM dot interaction: strictly-lower-triangle pairwise dots");
   m.def("cin_layer", &cin_layer, "xDeepFM CIN layer");
   m.def("flash_attention", &flash_attention,
-        "causal / GQA / sliding-window / softcap flash attention");
+        "causal / GQA / sliding-window / softcap flash attention, f32");
+  m.def("flash_attention_wgmma", &flash_attention_wgmma,
+        "the same in bf16 on the tensor cores (wgmma, TMA)");
 }

@@ -1,8 +1,8 @@
-// Flash attention: q (B, T, H, dh), k/v (B, S, Hkv, dh) -> (B, T, H, dh)
-// in q's dtype (f32 or bf16), with GQA (kv head h / (H / Hkv)), a scale,
-// an optional tanh softcap c * tanh(s / c), the mask k_pos < S, causal
-// (k_pos <= q_pos, both counted from 0) and a sliding window
-// (q_pos - k_pos < window when window > 0).  All arithmetic is f32.
+// Flash attention in f32: q (B, T, H, dh), k/v (B, S, Hkv, dh) -> (B, T,
+// H, dh) f32, with GQA (kv head h / (H / Hkv)), a scale, an optional tanh
+// softcap c * tanh(s / c), the mask k_pos < S, causal (k_pos <= q_pos,
+// both counted from 0) and a sliding window (q_pos - k_pos < window when
+// window > 0).  bf16 calls run flash_attention_wgmma.cu instead.
 //
 // Replaces the Pallas kernel src/repro/kernels/flash_attention.py
 // (flash_attention), the self-attention of models/lm.py.  Its grid runs
@@ -15,8 +15,8 @@
 // Bound: operations.  A (query, key) pair costs 4 * dh flops (QK^T and
 // PV) against 2 * dh values of k and v that every q tile of the head
 // shares, so at T = S = 32k, dh = 256 the work is some 2,000 flops a
-// byte, far above the card's ~20 f32 flops a byte.  This first design
-// runs on the CUDA cores in f32 (no tensor cores): every thread holds a
+// byte, far above the card's ~20 f32 flops a byte.  It runs on the CUDA
+// cores in full f32 (TF32 would miss the 2e-5 gate): every thread holds a
 // 4 x 4 tile of the scores (rows ty + 16 i, keys tx + 16 j) and a 4 x 4NC
 // tile of the output (rows ty + 16 i, columns 64 c + 4 tx .. + 3), and
 // reads shared memory in 16-byte vectors, so a warp issues about three
@@ -29,9 +29,7 @@
 // tiles start in reverse order so the longest causal walks go first.
 // Ragged T and S are masked in the kernel; callers do not pad.
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <stdint.h>
 
 namespace {
 
@@ -42,10 +40,10 @@ constexpr int kPS = kBK + 4;    // row stride of the P tile (floats)
 constexpr float kNegInf = -1e30f;
 
 struct Params {
-  const void* q;
-  const void* k;
-  const void* v;
-  void* o;
+  const float* q;
+  const float* k;
+  const float* v;
+  float* o;
   long long q_sb, q_st, q_sh;  // element strides of (B, T, H); dh is 1
   long long k_sb, k_ss, k_sh;
   long long v_sb, v_ss, v_sh;
@@ -54,27 +52,9 @@ struct Params {
   float scale, softcap;  // softcap <= 0: none
 };
 
-template <bool kBf16>
-__device__ __forceinline__ float load_one(const void* p, long long i) {
-  if constexpr (kBf16)
-    return __uint_as_float(
-        static_cast<uint32_t>(static_cast<const uint16_t*>(p)[i]) << 16);
-  else
-    return static_cast<const float*>(p)[i];
-}
-
-template <bool kBf16>
-__device__ __forceinline__ void store_one(void* p, long long i, float v) {
-  if constexpr (kBf16)
-    static_cast<__nv_bfloat16*>(p)[i] = __float2bfloat16(v);  // nearest even
-  else
-    static_cast<float*>(p)[i] = v;
-}
-
-// Rows [r0, r0 + 64) of one head into dst (64, ds) as f32, zero past the
-// last row n and past dh (up to the padded width dh_pad).
-template <bool kBf16>
-__device__ __forceinline__ void stage(float* dst, int ds, const void* src,
+// Rows [r0, r0 + 64) of one head into dst (64, ds), zero past the last
+// row n and past dh (up to the padded width dh_pad).
+__device__ __forceinline__ void stage(float* dst, int ds, const float* src,
                                       long long base, long long row_stride,
                                       int r0, int n, int dh, int dh_pad) {
   for (int idx = threadIdx.x; idx < kBQ * dh_pad; idx += kThreads) {
@@ -82,7 +62,7 @@ __device__ __forceinline__ void stage(float* dst, int ds, const void* src,
     const int row = r0 + r;
     float x = 0.f;
     if (row < n && d < dh)
-      x = load_one<kBf16>(src, base + row * row_stride + d);
+      x = src[base + row * row_stride + d];
     dst[r * ds + d] = x;
   }
 }
@@ -106,7 +86,7 @@ __device__ __forceinline__ float comp(const float4& v, int e) {
 }
 
 // NC: 64-column chunks of the output a thread row covers (dh <= 64 NC).
-template <bool kBf16, int NC>
+template <int NC>
 __global__ void __launch_bounds__(kThreads, 1)
     flash_attention_kernel(const Params p) {
   extern __shared__ float4 smem4[];
@@ -122,7 +102,7 @@ __global__ void __launch_bounds__(kThreads, 1)
   const int q0 = qt * kBQ;
   const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
 
-  stage<kBf16>(q_s, ds, p.q, b * p.q_sb + h * p.q_sh, p.q_st, q0, p.T, dh,
+  stage(q_s, ds, p.q, b * p.q_sb + h * p.q_sh, p.q_st, q0, p.T, dh,
                dh_pad);
 
   // the kv tiles any row of this q tile can see
@@ -147,7 +127,7 @@ __global__ void __launch_bounds__(kThreads, 1)
 
   for (int k0 = k_begin; k0 < k_end; k0 += kBK) {
     __syncthreads();  // the last tile's V reads (or Q's staging) are done
-    stage<kBf16>(kv_s, ds, p.k, k_base, p.k_ss, k0, p.S, dh, dh_pad);
+    stage(kv_s, ds, p.k, k_base, p.k_ss, k0, p.S, dh, dh_pad);
     __syncthreads();
 
     float s[4][4];
@@ -211,7 +191,7 @@ __global__ void __launch_bounds__(kThreads, 1)
       for (int c = 0; c < 4 * NC; ++c) acc[i][c] *= alpha;
     }
     __syncthreads();  // P written, K no longer read
-    stage<kBf16>(kv_s, ds, p.v, v_base, p.v_ss, k0, p.S, dh, dh_pad);
+    stage(kv_s, ds, p.v, v_base, p.v_ss, k0, p.S, dh, dh_pad);
     __syncthreads();
 
     for (int j = 0; j < kBK; j += 4) {
@@ -254,41 +234,29 @@ __global__ void __launch_bounds__(kThreads, 1)
       for (int e = 0; e < 4; ++e) {
         const int col = 64 * c + 4 * tx + e;
         if (col < dh)
-          store_one<kBf16>(p.o, base + col, acc[i][4 * c + e] / denom);
+          p.o[base + col] = acc[i][4 * c + e] / denom;
       }
   }
 }
 
-template <bool kBf16, int NC>
+template <int NC>
 int launch(const Params& p, int B, int H, cudaStream_t stream) {
   const int dh_pad = (p.dh + 3) & ~3;
   const size_t smem =
       (static_cast<size_t>(kBQ + kBK) * (dh_pad + 4) +
        static_cast<size_t>(kBQ) * kPS) * sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(
-      flash_attention_kernel<kBf16, NC>,
+      flash_attention_kernel<NC>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid(p.n_qt, H, B);
-  flash_attention_kernel<kBf16, NC><<<grid, kThreads, smem, stream>>>(p);
+  flash_attention_kernel<NC><<<grid, kThreads, smem, stream>>>(p);
   return static_cast<int>(cudaGetLastError());
-}
-
-template <bool kBf16>
-int launch_dh(const Params& p, int B, int H, cudaStream_t stream) {
-  switch (((p.dh + 3) / 4 * 4 + 63) / 64) {
-    case 1: return launch<kBf16, 1>(p, B, H, stream);
-    case 2: return launch<kBf16, 2>(p, B, H, stream);
-    case 3: return launch<kBf16, 3>(p, B, H, stream);
-    case 4: return launch<kBf16, 4>(p, B, H, stream);
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
 }
 
 }  // namespace
 
-// q, k, v, o: f32 (bf16 == 0) or raw bf16 bits (bf16 != 0), the last
-// dimension contiguous.  strides: 12 element strides, (b, t, h) of q,
+// q, k, v, o: f32, the last dimension contiguous.  strides: 12 element strides, (b, t, h) of q,
 // (b, s, h) of k, of v and (b, t, h) of o.  softcap <= 0 means none,
 // window <= 0 global.  Requires 1 <= dh <= 256, Hkv | H, B and H <= 65535.
 extern "C" int flash_attention_launch(const void* q, const void* k,
@@ -296,15 +264,14 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
                                       const long long* strides, int B,
                                       int T, int S, int H, int Hkv, int dh,
                                       int causal, int window, float scale,
-                                      float softcap, int bf16,
-                                      void* stream) {
+                                      float softcap, void* stream) {
   if (dh < 1 || dh > 256 || Hkv < 1 || H % Hkv || B > 65535 || H > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
   Params p;
-  p.q = q;
-  p.k = k;
-  p.v = v;
-  p.o = o;
+  p.q = static_cast<const float*>(q);
+  p.k = static_cast<const float*>(k);
+  p.v = static_cast<const float*>(v);
+  p.o = static_cast<float*>(o);
   p.q_sb = strides[0]; p.q_st = strides[1]; p.q_sh = strides[2];
   p.k_sb = strides[3]; p.k_ss = strides[4]; p.k_sh = strides[5];
   p.v_sb = strides[6]; p.v_ss = strides[7]; p.v_sh = strides[8];
@@ -319,5 +286,10 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
   p.scale = scale;
   p.softcap = softcap;
   const auto s = static_cast<cudaStream_t>(stream);
-  return bf16 ? launch_dh<true>(p, B, H, s) : launch_dh<false>(p, B, H, s);
+  switch (((dh + 3) / 4 * 4 + 63) / 64) {
+    case 1: return launch<1>(p, B, H, s);
+    case 2: return launch<2>(p, B, H, s);
+    case 3: return launch<3>(p, B, H, s);
+    default: return launch<4>(p, B, H, s);
+  }
 }

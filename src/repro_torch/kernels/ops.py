@@ -16,12 +16,14 @@ from __future__ import annotations
 
 import math
 
+import torch
+
 from repro_torch.kernels import ref
 from repro_torch.kernels.build import load
 
 LAUNCHES = {"cascade_truncate": 0, "target_attention": 0,
             "embedding_bag": 0, "dot_interact": 0, "cin_layer": 0,
-            "flash_attention": 0}
+            "flash_attention": 0, "flash_attention_wgmma": 0}
 
 
 def reset_launches() -> None:
@@ -99,6 +101,38 @@ def cin_layer(w, x_prev, x0):
     return out
 
 
+def flash_kernel(q, k, v) -> str:
+    """The kernel a CUDA call of ``flash_attention`` launches, by dtype:
+    ``"flash_attention_wgmma"`` (tensor cores, TMA loads) for bf16,
+    ``"flash_attention"`` (CUDA cores, full f32) otherwise.  Reads only
+    dtypes, shapes, strides and base addresses, so it runs on any device.
+
+    TMA reads the tensors through their strides, so a bf16 call needs dh a
+    multiple of 8 in [8, 256], base addresses aligned to 16 bytes and the
+    other strides (of dimensions longer than 1) multiples of 16 bytes; one
+    that breaks a rule raises ValueError naming it.  A tensor whose dh is
+    not contiguous is copied first, and then meets the rules."""
+    if q.dtype != torch.bfloat16:
+        return "flash_attention"
+    dh = q.shape[-1]
+    if dh % 8 or not 8 <= dh <= 256:
+        raise ValueError(f"bf16 flash attention loads by TMA, which needs dh "
+                         f"a multiple of 8 in [8, 256], got {dh}")
+    for name, x in (("q", q), ("k", k), ("v", v)):
+        if x.stride(-1) != 1:
+            continue  # copied to a contiguous tensor
+        if x.data_ptr() % 16:
+            raise ValueError(f"bf16 flash attention loads by TMA, which needs "
+                             f"base addresses aligned to 16 bytes; {name}'s "
+                             f"is not")
+        if any(x.shape[d] > 1 and (x.stride(d) * x.element_size()) % 16
+               for d in range(x.dim() - 1)):
+            raise ValueError(f"bf16 flash attention loads by TMA, which needs "
+                             f"strides that are multiples of 16 bytes; {name} "
+                             f"has strides {tuple(x.stride())} (elements)")
+    return "flash_attention_wgmma"
+
+
 def flash_attention(q, k, v, *, causal: bool = True, window: int = -1,
                     softcap: float | None = None,
                     scale: float | None = None):
@@ -106,13 +140,15 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = -1,
     in q's dtype; GQA, causal (positions from 0), sliding window when
     ``window > 0``, tanh softcap when ``softcap`` is set, ``scale``
     defaulting to 1/sqrt(dh); see ``ref.flash_attention_ref``.  Ragged T
-    and S need no padding."""
+    and S need no padding.  On the card bf16 runs the tensor-core kernel
+    and f32 the CUDA-core one (``flash_kernel``)."""
     scale = 1.0 / math.sqrt(q.shape[-1]) if scale is None else scale
     if _on_cpu(q, k, v):
         return ref.flash_attention_ref(q, k, v, causal=causal, window=window,
                                        softcap=softcap, scale=scale)
-    out = load().flash_attention(q, k, v, bool(causal), int(window),
-                                 float(softcap or 0.0), float(scale))
+    name = flash_kernel(q, k, v)
+    out = getattr(load(), name)(q, k, v, bool(causal), int(window),
+                                float(softcap or 0.0), float(scale))
     if out.numel():  # launched for B, T, H > 0
-        LAUNCHES["flash_attention"] += 1
+        LAUNCHES[name] += 1
     return out

@@ -10,8 +10,13 @@ Tolerances as on the CPU: truncation exact, target attention 2e-5,
 embedding bag 1e-5, dot interaction 2e-5 in f32 and 2e-2 in bf16 (the
 bf16 output rounds once from an f32 sum taken in another order), CIN
 1e-4 (f32 sums of up to 7,800 terms in another order), flash attention
-2e-5 in f32 and 2e-2 in bf16 (the plain version rounds the logits to
-bf16 out of its first einsum; the kernel keeps them in f32).
+2e-5 in f32 (the CUDA-core kernel, full f32) and 2e-2 in bf16 (the
+tensor-core kernel).  In bf16 both round P to bf16 before PV, the plain
+version after normalising it and the kernel before (it divides by the
+row sum at the end); the plain version also rounds the logits to bf16
+out of its first einsum, which the kernel keeps in f32, and the kernel's
+softcap takes the hardware tanh (relative error about 2^-11) and its
+softmax the hardware exp2; the output rounds once in both.
 """
 import pytest
 import torch
@@ -124,37 +129,86 @@ def test_cin_kernel(cuda, b, hp, m, d, ho):
     torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
 
 
-@pytest.mark.parametrize("b,t,s,h,hk,d", [
-    (1, 128, 128, 2, 2, 64), (1, 200, 264, 4, 1, 32), (2, 64, 512, 8, 4, 128),
-    (2, 100, 100, 8, 4, 256), (1, 77, 77, 4, 2, 16)])
-@pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-5),
-                                       (torch.bfloat16, 2e-2)])
-@pytest.mark.parametrize("kw", [
-    dict(causal=True), dict(causal=True, window=24, softcap=50.0),
-    dict(causal=False), dict(causal=False, window=16, softcap=30.0)],
-    ids=["causal", "window-softcap", "full", "noncausal-window"])
-def test_flash_attention_kernel(cuda, b, t, s, h, hk, d, dtype, tol, kw):
+def _flash_case(cuda, b, t, s, h, hk, d, dtype, tol, kw):
     gen = _gen()
     q, k, v = (torch.randn(*shape, generator=gen).to(dtype).to(cuda)
                for shape in ((b, t, h, d), (b, s, hk, d), (b, s, hk, d)))
-    before = ops.LAUNCHES["flash_attention"]
+    name = ops.flash_kernel(q, k, v)
+    assert name == ("flash_attention_wgmma" if dtype == torch.bfloat16
+                    else "flash_attention")
+    before = dict(ops.LAUNCHES)
     got = ops.flash_attention(q, k, v, **kw)
-    assert ops.LAUNCHES["flash_attention"] == before + 1
+    after = dict(ops.LAUNCHES)
+    assert after == {**before, name: before[name] + 1}  # this kernel only
     want = ref.flash_attention_ref(q, k, v, scale=d ** -0.5, **kw)
     torch.cuda.synchronize()
     assert got.dtype == dtype and got.shape == q.shape
     torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
 
 
-def test_flash_attention_kernel_reads_strided_inputs(cuda):
+FLASH_DTYPES = pytest.mark.parametrize("dtype,tol", [
+    (torch.float32, 2e-5), (torch.bfloat16, 2e-2)])
+
+
+@pytest.mark.parametrize("b,t,s,h,hk,d", [
+    (1, 128, 128, 2, 2, 64), (1, 200, 264, 4, 1, 32), (2, 64, 512, 8, 4, 128),
+    (2, 100, 100, 8, 4, 256), (1, 77, 77, 4, 2, 16)])
+@FLASH_DTYPES
+@pytest.mark.parametrize("kw", [
+    dict(causal=True), dict(causal=True, window=24, softcap=50.0),
+    dict(causal=False), dict(causal=False, window=16, softcap=30.0)],
+    ids=["causal", "window-softcap", "full", "noncausal-window"])
+def test_flash_attention_kernel(cuda, b, t, s, h, hk, d, dtype, tol, kw):
+    _flash_case(cuda, b, t, s, h, hk, d, dtype, tol, kw)
+
+
+@pytest.mark.parametrize("b,t,s,h,hk,d,kw", [
+    (1, 77, 77, 2, 1, 64, dict(causal=True)),  # T, S off every tile
+    (2, 200, 264, 4, 2, 128, dict(causal=True, softcap=50.0)),
+    (1, 130, 130, 8, 4, 256, dict(causal=True, window=65)),
+    (1, 100, 300, 4, 4, 64, dict(causal=False)),  # T < S
+    (1, 64, 520, 4, 2, 256, dict(causal=False, window=129, softcap=30.0)),
+    (1, 300, 300, 4, 4, 256, dict(causal=True, window=65)),  # group 1
+    (1, 300, 300, 8, 4, 128, dict(causal=True, window=129)),  # group 2
+    (2, 260, 260, 8, 2, 64, dict(causal=True, window=129, softcap=50.0)),
+], ids=["ragged-77", "ragged-200-264", "window65-130", "t-lt-s",
+        "window129-cross", "window65-group1", "window129-group2",
+        "window129-group4"])
+@FLASH_DTYPES
+def test_flash_attention_kernel_edges(cuda, b, t, s, h, hk, d, kw, dtype,
+                                      tol):
+    """Ragged T and S, T < S, windows that cross a tile edge, GQA groups
+    1, 2 and 4."""
+    _flash_case(cuda, b, t, s, h, hk, d, dtype, tol, kw)
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-5),
+                                       (torch.bfloat16, 2e-2)])
+def test_flash_attention_kernel_reads_strided_inputs(cuda, dtype, tol):
     """q, k and v as views of one fused projection (no copies)."""
     gen = _gen()
-    qkv = torch.randn(2, 50, 16, 32, generator=gen).to(cuda)
+    qkv = torch.randn(2, 50, 16, 32, generator=gen).to(dtype).to(cuda)
     q, k, v = qkv[:, :, :8], qkv[:, :, 8:12], qkv[:, :, 12:]
+    name = ops.flash_kernel(q, k, v)
+    before = ops.LAUNCHES[name]
     got = ops.flash_attention(q, k, v, window=20)
+    assert ops.LAUNCHES[name] == before + 1
     want = ref.flash_attention_ref(q, k, v, window=20)
     torch.cuda.synchronize()
-    torch.testing.assert_close(got, want, rtol=2e-5, atol=2e-5)
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+def test_flash_attention_wgmma_refuses_what_tma_cannot_read(cuda):
+    """A bf16 call that breaks a TMA rule raises; it never runs the
+    CUDA-core kernel instead."""
+    x = torch.randn(1, 8, 2, 72, device=cuda).to(torch.bfloat16)
+    odd = x[..., :68]  # head stride 144 bytes, dh 68
+    before = dict(ops.LAUNCHES)
+    with pytest.raises(ValueError, match="multiple of 8"):
+        ops.flash_attention(odd, odd, odd)
+    with pytest.raises(RuntimeError, match="multiple of 8"):
+        ops.load().flash_attention_wgmma(odd, odd, odd, True, -1, 0.0, 1.0)
+    assert ops.LAUNCHES == before
 
 
 def test_small_serve_card_matches_cpu(cuda):

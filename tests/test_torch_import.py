@@ -108,7 +108,8 @@ def test_kernel_build_compiles_every_source_for_sm90a(monkeypatch,
         seen["extra_cuda_cflags"]
     assert sorted(os.path.basename(s) for s in seen["sources"]) == [
         "bind.cpp", "cascade_truncate.cu", "cin.cu", "dot_interact.cu",
-        "embedding_bag.cu", "flash_attention.cu", "target_attention.cu"]
+        "embedding_bag.cu", "flash_attention.cu", "flash_attention_wgmma.cu",
+        "target_attention.cu"]
     assert all(os.path.exists(s) for s in seen["sources"])
     assert seen["build_directory"] == str(tmp_path / "b")
 
