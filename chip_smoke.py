@@ -19,7 +19,11 @@ In order, it
      with gemma2's softcap as its score_mod and the causal or window
      block mask, and SDPA on the softcap-free global layer): flash
      attention's f32 rows run the CUDA-core kernel and its bf16 rows the
-     tensor-core (wgmma, TMA) kernel;
+     tensor-core (wgmma, TMA) kernel; CIN (wgmma, TMA) and target
+     attention (mma.sync) compute their products in f32 as 3xTF32 on the
+     tensor cores, so their bound counts those flops at 495/3 TFLOP/s
+     and the rest at the f32 peak (``bound_f32_ms`` has all at the f32
+     peak, the bound before); CIN logs B = 512 beside B = 4,096;
   4. serves full-width ``GeneratedSource`` windows through
      ``repro_torch.launch.serve`` (100k-user world, 4000-item corpus,
      paper chains, stage and reward models at full width, random
@@ -81,6 +85,7 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 PEAK_BYTES_S = 3.35e12  # H100 SXM HBM3
 PEAK_F32_S = 67e12  # H100 SXM f32 outside the tensor cores
 PEAK_BF16_S = 989e12  # H100 SXM bf16 tensor cores, dense
+PEAK_TF32_S = 495e12  # H100 SXM TF32 tensor cores, dense
 
 
 def log(msg: str) -> None:
@@ -111,11 +116,15 @@ def cuda_ms(fn, *, reps: int, warm: int = 2) -> float:
     return start.elapsed_time(end) / reps
 
 
-def bound(nbytes: float, ops: float,
-          peak_ops: float = PEAK_F32_S) -> tuple[float, str]:
-    """The least time (ms) for moving ``nbytes`` and doing ``ops`` at the
-    peak rate of the inputs' type, and which of the two bounds it."""
-    t_b, t_o = nbytes / PEAK_BYTES_S, ops / peak_ops
+def bound(nbytes: float, ops: float, peak_ops: float = PEAK_F32_S,
+          tf32x3_ops: float = 0.0) -> tuple[float, str]:
+    """The least time (ms) for moving ``nbytes``, doing ``ops`` at the
+    peak rate of the inputs' type and ``tf32x3_ops`` product flops as
+    3xTF32 on the tensor cores (three TF32 passes each, 495/3 TFLOP/s),
+    and which bounds it: the largest of the three terms, since the
+    memory, the CUDA cores and the tensor cores work side by side."""
+    t_b = nbytes / PEAK_BYTES_S
+    t_o = max(ops / peak_ops, 3.0 * tf32x3_ops / PEAK_TF32_S)
     return max(t_b, t_o) * 1e3, ("bytes" if t_b >= t_o else "operations")
 
 
@@ -225,17 +234,20 @@ def check_target_attention(gen, dev, hist_mask):
     # The first term is needed once per distinct candidate, the second
     # once per unmasked (user, step); only (q*k) Wp, the sum of the
     # terms, W2, W3 and the pooling are needed per unmasked (candidate,
-    # step).
+    # step).  The kernel runs the two products, (q*k) Wp and . W2, in
+    # 3xTF32 on the tensor cores, the rest in f32 on the CUDA cores.
     user_steps = float((hist_mask != 0).sum())
     steps = user_steps * n  # unmasked (b, n, t)
     cands = n if full[0].stride(0) == 0 else b * n
-    per_step = d + 2 * d * h1 + 2 * h1 + 2 * h1 * h2 + 2 * h2 + 2 * d
-    ops_n = steps * per_step + (cands + user_steps) * 2 * d * h1
+    products = steps * (2 * d * h1 + 2 * h1 * h2)
+    rest = (steps * (d + 2 * h1 + 2 * h2 + 2 * d)
+            + (cands + user_steps) * 2 * d * h1)
     nbytes = 4 * (n * d + b * t * d + b * t + 4 * d * h1 + h1 * h2
                   + h1 + 2 * h2 + 1 + b * n * d)
-    b_ms, by = bound(nbytes, ops_n)
+    b_ms, by = bound(nbytes, rest, tf32x3_ops=products)
     return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": b_ms, "bound_by": by, "library_ms": None,
+            "bound_f32_ms": bound(nbytes, products + rest)[0],
             "shape": f"B={b} N={n} T={t} d={d} h1={h1} h2={h2}"}
 
 
@@ -358,16 +370,20 @@ def check_cin(dev):
             lib_ms = cuda_ms(two_einsums, reps=2, warm=1)
             nbytes = 4 * (ho * k + b * hp * d + (b * m * d if hp != m else 0)
                           + b * ho * d)
-            b_ms, by = bound(nbytes, 2.0 * b * ho * k * d + b * k * d)
+            # the product in 3xTF32 on the tensor cores, z in f32
+            products, z = 2.0 * b * ho * k * d, float(b * k * d)
+            b_ms, by = bound(nbytes, z, tf32x3_ops=products)
             rows[(b, hp)] = {
                 "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                 "bound_ms": b_ms, "bound_by": by, "library_ms": lib_ms,
+                "bound_f32_ms": bound(nbytes, products + z)[0],
                 "shape": f"B={b} Hp={hp} m={m} D={d} H_out={ho}"}
     for row in rows.values():
         log(f"cin_layer [{row['shape']}]: max_abs_err "
             f"{row['max_abs_err']:.3e}, {row['ms']:.4f} ms (plain "
             f"{row['plain_ms']:.4f}, two einsums {row['library_ms']:.4f}, "
-            f"bound {row['bound_ms']:.4f} by {row['bound_by']})")
+            f"bound {row['bound_ms']:.4f} by {row['bound_by']}, all in f32 "
+            f"{row['bound_f32_ms']:.4f})")
     return rows[(4096, 200)]
 
 
@@ -1187,7 +1203,7 @@ def main(argv=None) -> int:
          "ms": r["ms"], "plain_ms": r["plain_ms"],
          "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
          "library_ms": r["library_ms"], "shape": r["shape"],
-         **({"at_32k": r["at_32k"]} if "at_32k" in r else {})}
+         **{k: r[k] for k in ("at_32k", "bound_f32_ms") if k in r}}
         for name, r in results.items()]}
     print(json.dumps(line), flush=True)
     print(card, flush=True)

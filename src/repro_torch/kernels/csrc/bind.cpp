@@ -34,9 +34,11 @@ int embedding_bag_launch(const float* table, const int* ids,
                          int L, void* stream);
 int dot_interact_launch(const void* feats, void* out, int B, int F, int D,
                         int bf16, void* stream);
+int cin_layer_plan(int B, int Hp, int m, int D, int Ho, long long* kp,
+                   int* parts);
 int cin_layer_launch(const float* w, const float* x_prev, const float* x0,
-                     float* out, int B, int Hp, int m, int D, int Ho,
-                     void* stream);
+                     float* out, float* w_split, float* parts_ws, int B,
+                     int Hp, int m, int D, int Ho, void* stream);
 int flash_attention_launch(const void* q, const void* k, const void* v,
                            void* o, const long long* strides, int B, int T,
                            int S, int H, int Hkv, int dh, int causal,
@@ -143,7 +145,9 @@ torch::Tensor target_attention(torch::Tensor q, const torch::Tensor& keys,
                   b2.numel() == h2 && w3.numel() == h2 && b3.numel() == 1,
               "attention MLP weights must be (4d, h1), (h1, h2), (h2, 1) "
               "with matching biases");
-  TORCH_CHECK(h2 <= 64, "the kernel supports a second hidden layer <= 64");
+  TORCH_CHECK(d <= 64 && h1 <= 128 && h2 <= 64,
+              "the kernel supports d <= 64, h1 <= 128 and h2 <= 64, got d = ",
+              num(d), ", h1 = ", num(h1), ", h2 = ", num(h2));
   for (const torch::Tensor* x : std::initializer_list<const torch::Tensor*>{
            &q, &keys, &mask, &w1, &b1, &w2, &b2, &w3, &b3})
     TORCH_CHECK(x->scalar_type() == torch::kFloat32, "inputs must be f32");
@@ -229,6 +233,9 @@ torch::Tensor dot_interact(const torch::Tensor& feats) {
 }
 
 // w (H_out, Hp*m), x_prev (B, Hp, D), x0 (B, m, D), f32 -> (B, H_out, D).
+// Allocates the kernel's scratch: w split into its TF32 hi and lo halves
+// (K padded to a multiple of 32) and, when the plan cuts K into P > 1
+// parts, P partial outputs.
 torch::Tensor cin_layer(const torch::Tensor& w, const torch::Tensor& x_prev,
                         const torch::Tensor& x0) {
   same_device("cin_layer", w, {&x_prev, &x0});
@@ -250,11 +257,22 @@ torch::Tensor cin_layer(const torch::Tensor& w, const torch::Tensor& x_prev,
   if (hp * m == 0) return out.zero_();
   as_int(hp * m, "Hp*m");
   as_int(bsz * d, "B*D");
+  const int bi = as_int(bsz, "B"), hpi = as_int(hp, "Hp");
+  const int mi = as_int(m, "m"), di = as_int(d, "D");
+  const int hoi = as_int(ho, "H_out");
+  long long kp = 0;
+  int parts = 0;
+  check_launch(cin_layer_plan(bi, hpi, mi, di, hoi, &kp, &parts),
+               "cin_layer (plan)");
+  auto w_split = torch::empty({2 * ho * kp}, xp.options());
+  torch::Tensor parts_ws;
+  if (parts > 1) parts_ws = torch::empty({parts * bsz * ho * d}, xp.options());
   check_launch(cin_layer_launch(wc.data_ptr<float>(), xp.data_ptr<float>(),
                                 xz.data_ptr<float>(), out.data_ptr<float>(),
-                                as_int(bsz, "B"), as_int(hp, "Hp"),
-                                as_int(m, "m"), as_int(d, "D"),
-                                as_int(ho, "H_out"), stream()),
+                                w_split.data_ptr<float>(),
+                                parts > 1 ? parts_ws.data_ptr<float>()
+                                          : nullptr,
+                                bi, hpi, mi, di, hoi, stream()),
                "cin_layer");
   return out;
 }

@@ -96,6 +96,8 @@ def cin_layer(w, x_prev, x0):
     if _on_cpu(w, x_prev, x0):
         return ref.cin_layer_ref(w, x_prev, x0)
     out = load().cin_layer(w, x_prev, x0)
+    # one count a call: the binding launches w's TF32 split, the product
+    # and, when it cuts K into parts, their sum in a fixed order
     if out.numel() and w.shape[1]:  # launched unless empty or K = 0
         LAUNCHES["cin_layer"] += 1
     return out

@@ -9,7 +9,9 @@ with a card with
 Tolerances as on the CPU: truncation exact, target attention 2e-5,
 embedding bag 1e-5, dot interaction 2e-5 in f32 and 2e-2 in bf16 (the
 bf16 output rounds once from an f32 sum taken in another order), CIN
-1e-4 (f32 sums of up to 7,800 terms in another order), flash attention
+1e-4 (f32 sums of up to 7,800 terms in another order; CIN and target
+attention take their products as 3xTF32 on the tensor cores, whose
+arithmetic tests/test_torch_tf32x3.py emulates on the CPU), flash attention
 2e-5 in f32 (the CUDA-core kernel, full f32) and 2e-2 in bf16 (the
 tensor-core kernel).  In bf16 both round P to bf16 before PV, the plain
 version after normalising it and the kernel before (it divides by the
@@ -78,6 +80,35 @@ def test_target_attention_kernel(cuda, b, n, t, d, h1, h2, shared):
     torch.testing.assert_close(got, want, rtol=2e-5, atol=2e-5)
 
 
+@pytest.mark.parametrize("b,n,t,d,h1,h2,shared", [
+    (3, 257, 100, 36, 80, 40, True),   # N past two blocks of 128
+    (5, 33, 20, 36, 44, 40, False),    # h1 not a multiple of 16
+    (2, 19, 12, 20, 100, 24, False)])  # over DIN's tiles: the wide ones
+def test_target_attention_kernel_ragged_and_masked(cuda, b, n, t, d, h1, h2,
+                                                   shared):
+    """Ragged shapes, and user 0 with every step masked: its pooled keys
+    are exactly 0."""
+    gen = _gen()
+
+    def r(*s, scale=1.0):
+        return (scale * torch.randn(*s, generator=gen)).to(cuda)
+    q = r(n, d, scale=0.3)[None].expand(b, n, d) if shared \
+        else r(b, n, d, scale=0.3)
+    keys = r(b, t, d, scale=0.3)
+    mask = (torch.rand(b, t, generator=gen) > 0.3).float().to(cuda)
+    mask[0] = 0.0
+    ws = []
+    for di, do in ((4 * d, h1), (h1, h2), (h2, 1)):
+        ws += [r(di, do, scale=di ** -0.5), r(do, scale=0.1)]
+    before = ops.LAUNCHES["target_attention"]
+    got = ops.target_attention(q, keys, mask, *ws)
+    assert ops.LAUNCHES["target_attention"] == before + 1
+    want = ref.target_attention_ref(q, keys, mask, *ws)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, want, rtol=2e-5, atol=2e-5)
+    assert not got[0].any()
+
+
 @pytest.mark.parametrize("v,d,b,l", [(50, 20, 7, 9), (4000, 32, 512, 100),
                                      (100, 1000, 3, 5)])
 @pytest.mark.parametrize("weighted", [False, True])
@@ -127,6 +158,53 @@ def test_cin_kernel(cuda, b, hp, m, d, ho):
     want = ref.cin_layer_ref(w, xp, x0)
     torch.cuda.synchronize()
     torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+
+
+def _cin_inputs(b, hp, m, d, ho, cuda):
+    gen = _gen()
+    k = hp * m
+    w = ((2.0 / (ho + k)) ** 0.5 * torch.randn(ho, k, generator=gen))
+    xp = torch.randn(b, hp, d, generator=gen)
+    x0 = torch.randn(b, m, d, generator=gen)
+    return w.to(cuda), xp.to(cuda), x0.to(cuda)
+
+
+@pytest.mark.parametrize("b,hp,m,d,ho", [
+    (512, 200, 39, 10, 200),  # serve_p99's layer 2: K cut into parts
+    (512, 39, 39, 10, 200),   # and its layer 1 (K = 1,521, a ragged tail)
+    (300, 39, 39, 1, 37),     # D = 1, H_out not a multiple of 8
+    (9, 6, 3, 2, 9),          # m < 4: a k8 step spans several h
+    (40, 5, 40, 3, 300)])     # H_out over three N tiles
+def test_cin_kernel_split_k_and_ragged_shapes(cuda, b, hp, m, d, ho):
+    args = _cin_inputs(b, hp, m, d, ho, cuda)
+    before = ops.LAUNCHES["cin_layer"]
+    got = ops.cin_layer(*args)
+    assert ops.LAUNCHES["cin_layer"] == before + 1
+    want = ref.cin_layer_ref(*args)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+
+
+def test_cin_kernel_stages_x_prev_in_chunks(cuda):
+    """One row tile per SM leaves K whole (P = 1), so at Hp = 200 the
+    consumers stage x_prev in two chunks of h."""
+    n_sm = torch.cuda.get_device_properties(cuda).multi_processor_count
+    args = _cin_inputs(n_sm * 128 // 10, 200, 39, 10, 200, cuda)
+    got = ops.cin_layer(*args)
+    want = ref.cin_layer_ref(*args)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("b,hp", [(512, 200), (4096, 39)])
+def test_cin_kernel_is_bitwise_repeatable(cuda, b, hp):
+    """K's parts are added in a fixed order, without atomics: two runs
+    give the same bits."""
+    args = _cin_inputs(b, hp, 39, 10, 200, cuda)
+    first = ops.cin_layer(*args)
+    second = ops.cin_layer(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
 
 
 def _flash_case(cuda, b, t, s, h, hk, d, dtype, tol, kw):
