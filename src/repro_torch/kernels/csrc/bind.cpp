@@ -15,8 +15,10 @@
 
 #include <algorithm>
 #include <cstdint>
+#include <exception>
 #include <optional>
 #include <string>
+#include <vector>
 
 extern "C" {
 int cascade_truncate_launch(const int* p, const float* ck, const int* groups,
@@ -34,11 +36,10 @@ int embedding_bag_launch(const float* table, const int* ids,
                          int L, void* stream);
 int dot_interact_launch(const void* feats, void* out, int B, int F, int D,
                         int bf16, void* stream);
-int cin_layer_plan(int B, int Hp, int m, int D, int Ho, long long* kp,
-                   int* parts);
 int cin_layer_launch(const float* w, const float* x_prev, const float* x0,
-                     float* out, float* w_split, float* parts_ws, int B,
-                     int Hp, int m, int D, int Ho, void* stream);
+                     float* out, int B, int Hp, int m, int D, int Ho,
+                     float* (*alloc)(long long, void*), void* alloc_ctx,
+                     void* stream);
 int flash_attention_launch(const void* q, const void* k, const void* v,
                            void* o, const long long* strides, int B, int T,
                            int S, int H, int Hkv, int dh, int causal,
@@ -232,10 +233,30 @@ torch::Tensor dot_interact(const torch::Tensor& feats) {
   return out;
 }
 
+// The scratch a launcher asks for: f32 tensors like `like`, held until
+// the binding returns (the caching allocator keeps them for the stream's
+// work).  An allocation's exception is kept and raised after the launcher
+// returns, since it must not unwind through the launcher's C frames.
+struct Scratch {
+  at::TensorOptions like;
+  std::vector<torch::Tensor> held;
+  std::exception_ptr error;
+};
+
+float* scratch_floats(long long n, void* ctx) {
+  auto* s = static_cast<Scratch*>(ctx);
+  try {
+    s->held.push_back(torch::empty({n}, s->like));
+    return s->held.back().data_ptr<float>();
+  } catch (...) {
+    s->error = std::current_exception();
+    return nullptr;
+  }
+}
+
 // w (H_out, Hp*m), x_prev (B, Hp, D), x0 (B, m, D), f32 -> (B, H_out, D).
-// Allocates the kernel's scratch: w split into its TF32 hi and lo halves
-// (K padded to a multiple of 32) and, when the plan cuts K into P > 1
-// parts, P partial outputs.
+// The kernel's scratch (w's TF32 halves and, when its plan cuts K into
+// parts, the partial outputs) comes from scratch_floats.
 torch::Tensor cin_layer(const torch::Tensor& w, const torch::Tensor& x_prev,
                         const torch::Tensor& x0) {
   same_device("cin_layer", w, {&x_prev, &x0});
@@ -260,20 +281,13 @@ torch::Tensor cin_layer(const torch::Tensor& w, const torch::Tensor& x_prev,
   const int bi = as_int(bsz, "B"), hpi = as_int(hp, "Hp");
   const int mi = as_int(m, "m"), di = as_int(d, "D");
   const int hoi = as_int(ho, "H_out");
-  long long kp = 0;
-  int parts = 0;
-  check_launch(cin_layer_plan(bi, hpi, mi, di, hoi, &kp, &parts),
-               "cin_layer (plan)");
-  auto w_split = torch::empty({2 * ho * kp}, xp.options());
-  torch::Tensor parts_ws;
-  if (parts > 1) parts_ws = torch::empty({parts * bsz * ho * d}, xp.options());
-  check_launch(cin_layer_launch(wc.data_ptr<float>(), xp.data_ptr<float>(),
-                                xz.data_ptr<float>(), out.data_ptr<float>(),
-                                w_split.data_ptr<float>(),
-                                parts > 1 ? parts_ws.data_ptr<float>()
-                                          : nullptr,
-                                bi, hpi, mi, di, hoi, stream()),
-               "cin_layer");
+  Scratch scratch{xp.options(), {}, nullptr};
+  const int err = cin_layer_launch(
+      wc.data_ptr<float>(), xp.data_ptr<float>(), xz.data_ptr<float>(),
+      out.data_ptr<float>(), bi, hpi, mi, di, hoi, scratch_floats, &scratch,
+      stream());
+  if (scratch.error) std::rethrow_exception(scratch.error);
+  check_launch(err, "cin_layer");
   return out;
 }
 

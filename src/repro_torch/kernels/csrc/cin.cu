@@ -21,8 +21,12 @@
 // Why three passes: TF32 keeps 10 of f32's 23 mantissa bits, and one
 // TF32 pass misses the 1e-4 gate at K = 7,800; splitting each operand
 // into hi = tf32(x) and lo = tf32(x - hi) and summing a_lo*b_hi +
-// a_hi*b_lo + a_hi*b_hi (the small terms first) meets it
-// (tests/test_torch_tf32x3.py shows both on the CPU).
+// a_hi*b_lo + a_hi*b_hi (the small terms first) meets it.
+// tests/test_torch_tf32x3.py shows both on the CPU, for one pass whose
+// sums round to nearest; the tensor cores' accumulation does not (see
+// Promotion below), and the card test
+// test_cin_kernel_stages_x_prev_in_chunks (K = 7,800 in one part) is
+// what shows that the promotion interval holds the gate.
 //
 // Design (sm_90a, 384 threads: two consumer warpgroups, one producer):
 // - A pre-pass (split_w_kernel) rounds w once a call into w_hi and w_lo,
@@ -544,40 +548,38 @@ int grid_for(long long n) {
 
 }  // namespace
 
-// The scratch a call needs: *kp (K padded to a multiple of 32; w_split
-// holds 2 * Ho * kp floats) and *parts (P; when P > 1, parts_ws holds
-// P * B * Ho * D floats).  Returns 0 or a cudaError_t.
-extern "C" int cin_layer_plan(int B, int Hp, int m, int D, int Ho,
-                              long long* kp, int* parts) {
-  Plan pl;
-  const int err = make_plan(B, Hp, m, D, Ho, &pl);
-  if (err != 0) return err;
-  *kp = static_cast<long long>(pl.p.n_kb) * kKB;
-  *parts = pl.parts;
-  return 0;
-}
-
-// All pointers f32 and contiguous; w_split and parts_ws sized by
-// cin_layer_plan (parts_ws may be null when P = 1).  Requires B, Hp, m,
-// D, Ho > 0, B * D / 128 < 2^31 and x0's m rows with one chunk of x_prev
-// to fit shared memory (m up to about 220).  Launches split_w_kernel,
-// the main kernel and, when P > 1, reduce_parts_kernel.  Returns 0, a
-// cudaError_t, or -1 when libcuda has no cuTensorMapEncodeTiled and
-// -(1000 + r) when it refuses a map with CUresult r.
+// All pointers f32 and contiguous.  The scratch comes from the caller:
+// alloc(n, alloc_ctx) returns n floats on the current device that stay
+// valid until the launches on `stream` have run, or null on failure.
+// It is asked for w split into its TF32 halves (2 * Ho * Kp floats, K
+// padded to Kp, a multiple of 32) and, when the plan cuts K into P > 1
+// parts, for P partial outputs (P * B * Ho * D floats).  Requires B, Hp,
+// m, D, Ho > 0, B * D / 128 < 2^31 and x0's m rows with one chunk of
+// x_prev to fit shared memory (m up to about 220).  Launches
+// split_w_kernel, the main kernel and, when P > 1, reduce_parts_kernel.
+// Returns 0, a cudaError_t, or -1 when libcuda has no
+// cuTensorMapEncodeTiled and -(1000 + r) when it refuses a map with
+// CUresult r.
 extern "C" int cin_layer_launch(const float* w, const float* x_prev,
-                                const float* x0, float* out, float* w_split,
-                                float* parts_ws, int B, int Hp, int m, int D,
-                                int Ho, void* stream) {
+                                const float* x0, float* out, int B, int Hp,
+                                int m, int D, int Ho,
+                                float* (*alloc)(long long, void*),
+                                void* alloc_ctx, void* stream) {
   Plan pl;
   int err = make_plan(B, Hp, m, D, Ho, &pl);
   if (err != 0) return err;
-  if ((pl.p.n_rows + kRows - 1) / kRows > 0x7fffffffLL ||
-      (pl.parts > 1 && parts_ws == nullptr))
+  if ((pl.p.n_rows + kRows - 1) / kRows > 0x7fffffffLL)
     return static_cast<int>(cudaErrorInvalidValue);
   const EncodeTiled encode = encode_tiled();
   if (encode == nullptr) return -1;
   const auto s = static_cast<cudaStream_t>(stream);
   const long long kp = static_cast<long long>(pl.p.n_kb) * kKB;
+  const long long n_out = pl.p.n_rows * Ho;
+  float* const w_split = alloc(2LL * Ho * kp, alloc_ctx);
+  float* const parts_ws =
+      pl.parts > 1 ? alloc(pl.parts * n_out, alloc_ctx) : nullptr;
+  if (w_split == nullptr || (pl.parts > 1 && parts_ws == nullptr))
+    return static_cast<int>(cudaErrorMemoryAllocation);
   float* w_hi = w_split;
   float* w_lo = w_split + static_cast<long long>(Ho) * kp;
   split_w_kernel<<<grid_for(Ho * kp), 256, 0, s>>>(w, w_hi, w_lo, Ho,
@@ -589,7 +591,6 @@ extern "C" int cin_layer_launch(const float* w, const float* x_prev,
   CUresult r = make_map(encode, &thi, w_hi, Ho, kp);
   if (r == CUDA_SUCCESS) r = make_map(encode, &tlo, w_lo, Ho, kp);
   if (r != CUDA_SUCCESS) return -(1000 + static_cast<int>(r));
-  const long long n_out = pl.p.n_rows * Ho;
   pl.p.xp = x_prev;
   pl.p.x0 = x0;
   pl.p.dst = pl.parts > 1 ? parts_ws : out;

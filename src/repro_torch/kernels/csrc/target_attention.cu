@@ -31,7 +31,9 @@
 // Why three passes: one TF32 pass (10 mantissa bits) misses the 2e-5
 // gate; with each operand split into hi = tf32(x) and lo = tf32(x - hi)
 // and a_lo*b_hi + a_hi*b_lo + a_hi*b_hi summed, the split form meets it
-// (tests/test_torch_tf32x3.py shows both on the CPU).
+// (tests/test_torch_tf32x3.py shows both on the CPU, with sums that round
+// to nearest; the card tests of tests/test_torch_gpu.py hold the kernel
+// itself to the gate).
 //
 // Design (256 threads, 8 warps of 16 candidates, mma.sync m16n8k8 tf32):
 // - Wp and W2 are split into hi and lo once a block and stored in

@@ -15,6 +15,13 @@ are exact in f32; the sums are f32) and held, at the cards' gates (CIN
 interpret mode and against the port's plain versions.  One case per
 kernel shows that a single TF32 pass misses its gate: the reason for
 three.  The emulation lives here only; nothing on the main path uses it.
+
+The emulation models one pass whose sums round to nearest.  The tensor
+cores accumulate with less than that, which is why CIN's kernel promotes
+each short wgmma chain into an f32 sum; that the promotion interval
+holds the gate is shown on the card, by ``test_torch_gpu.py``'s
+``test_cin_kernel_stages_x_prev_in_chunks`` (K = 7,800 in one part), not
+here.
 """
 import jax.numpy as jnp
 import numpy as np
