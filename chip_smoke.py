@@ -18,13 +18,14 @@ In order, it
      gather, two einsums; for flash attention compiled flex_attention
      with gemma2's softcap as its score_mod and the causal or window
      block mask, and SDPA on the softcap-free global layer): flash
-     attention's f32 rows run the CUDA-core kernel and its bf16 rows the
-     tensor-core (wgmma, TMA) kernel; CIN (wgmma, TMA) and target
-     attention (mma.sync) compute their products in f32 as 3xTF32 on the
-     tensor cores, so their bound counts those flops at 495/3 TFLOP/s
-     and the rest at the f32 peak (their log lines give the bound with
-     all flops at the f32 peak, the bound before, beside it); CIN logs
-     B = 512 beside B = 4,096;
+     attention's f32 rows run the 3xTF32 kernel (mma.sync) and its bf16
+     rows the wgmma/TMA kernel; CIN (wgmma, TMA), target attention,
+     f32 flash attention and f32 dot interaction (mma.sync) compute
+     their products in f32 as 3xTF32 on the tensor cores, so their bound
+     counts those flops at 495/3 TFLOP/s and the rest at the f32 peak
+     (the log lines of CIN, target attention and flash attention give
+     the bound with all flops at the f32 peak beside it); bf16 dot
+     interaction runs bf16 mma.sync; CIN logs B = 512 beside B = 4,096;
   4. serves full-width ``GeneratedSource`` windows through
      ``repro_torch.launch.serve`` (100k-user world, 4000-item corpus,
      paper chains, stage and reward models at full width, random
@@ -46,7 +47,8 @@ In order, it
      (dot_interact once per DLRM forward, cin_layer three times per
      xDeepFM forward); checks finite logits, prints each call's ms and
      the peak memory, and holds retrieval_forward against forward on
-     the broadcast batch;
+     the broadcast batch; profiles one more DLRM serve_bulk call (device
+     busy, idle share, dot_interact's share of busy), outside the count;
   7. serves a small world on the card and on the CPU from the same seed
      and holds the two runs' decisions and prices against each other;
      runs smoke_config DLRM and xDeepFM from one seed on both and holds
@@ -59,10 +61,10 @@ In order, it
      prefill_32k (B = 4) x 1 and decode_32k (B = 8, cache length
      32,767) x 8 cells after one warm call each, with the counters reset
      before and read after each (the wgmma flash kernel 26 times a bf16
-     prefill forward, never in decode; the CUDA-core one only in the
-     identity check's two f32 prefills); the profiled prefill prints the
-     wgmma kernel's share of device busy; then gemma2 smoke_config on the
-     card against the CPU;
+     prefill forward, never in decode; the f32 one only in the identity
+     check's two f32 prefills, whose wall times it prints); the profiled
+     prefill prints the wgmma kernel's share of device busy; then gemma2
+     smoke_config on the card against the CPU;
   9. prints the ``kernels`` JSON line, the card line and, last, the
      ``{"ok": true, ...}`` line.
 
@@ -318,10 +320,12 @@ def check_dot_interact(dev):
                              reps=max(2, reps // 4))
             esize = x.element_size()
             p = 27 * 26 // 2
-            b_ms, by = bound(b * 27 * 64 * esize + b * p * esize,
-                             2.0 * b * p * 64,
-                             PEAK_BF16_S if dt == torch.bfloat16
-                             else PEAK_F32_S)
+            nbytes = b * 27 * 64 * esize + b * p * esize
+            flops = 2.0 * b * p * 64
+            # bf16 products on the bf16 tensor cores, f32 ones as 3xTF32
+            b_ms, by = (bound(nbytes, flops, PEAK_BF16_S)
+                        if dt == torch.bfloat16
+                        else bound(nbytes, 0.0, tf32x3_ops=flops))
             name = "bf16" if dt == torch.bfloat16 else "f32"
             rows[(b, name)] = {
                 "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
@@ -401,12 +405,19 @@ def attention_pairs(t: int, s: int, causal: bool, window: int) -> int:
     return int(torch.clamp(hi - lo, min=0).sum())
 
 
-def flash_bound(b, t, s, h, hk, dh, esize, window, causal=True):
+def flash_bound(b, t, s, h, hk, dh, esize, window, causal=True,
+                all_f32=False):
     """Each of q, k, v read once and the output written once; 4 dh flops
-    per admitted (query, key) pair and head, at the inputs' type's peak."""
+    per admitted (query, key) pair and head, on the tensor cores: bf16 at
+    its peak, f32 as 3xTF32 (``all_f32``: at the CUDA cores' f32 peak
+    instead, which the log prints beside it)."""
     nbytes = esize * (2.0 * b * t * h * dh + 2.0 * b * s * hk * dh)
     ops_n = 4.0 * dh * b * h * attention_pairs(t, s, causal, window)
-    return bound(nbytes, ops_n, PEAK_BF16_S if esize == 2 else PEAK_F32_S)
+    if esize == 2:
+        return bound(nbytes, ops_n, PEAK_BF16_S)
+    if all_f32:
+        return bound(nbytes, ops_n)
+    return bound(nbytes, 0.0, tf32x3_ops=ops_n)
 
 
 def flex_library(dev):
@@ -531,6 +542,10 @@ def check_flash(dev):
                 "bound_ms": b_ms, "bound_by": by,
                 **library(x, name, got, tol),
                 "shape": f"B=1 T=S=8192 H=8 Hkv=4 dh=256 {name} {dname}"}
+            if dt == torch.float32:
+                rows[(8192, name, dname)]["bound_all_f32_ms"] = flash_bound(
+                    1, 8192, 8192, 8, 4, 256, 4, kw["window"],
+                    all_f32=True)[0]
             del got
         del x
         torch.cuda.empty_cache()
@@ -564,9 +579,11 @@ def check_flash(dev):
     torch.cuda.empty_cache()
     for r in rows.values():
         lib = "SDPA" if "no softcap" in r["shape"] else "flex_attention"
+        all_f32 = (f", all in f32 {r['bound_all_f32_ms']:.3f} ms"
+                   if "bound_all_f32_ms" in r else "")
         log(f"flash_attention [{r['shape']}]: {r['ms']:.3f} ms, bound "
-            f"{r['bound_ms']:.3f} ms, plain {r.get('plain_ms')}, {lib} "
-            f"{r['library_ms']:.3f} ms (max abs diff "
+            f"{r['bound_ms']:.3f} ms{all_f32}, plain {r.get('plain_ms')}, "
+            f"{lib} {r['library_ms']:.3f} ms (max abs diff "
             f"{r['library_max_abs_diff']:.3e}), max abs err "
             f"{r.get('max_abs_err')}")
     wgmma = dict(rows[(8192, "global", "bf16")])
@@ -836,6 +853,10 @@ def serve_zoo(seed: int) -> dict:
                 f"the fastest; peak memory {peak_gb:.2f} GB; launches "
                 f"{got[kernel]} {kernel}; logits sum "
                 f"{float(out.double().sum()):.6f}")
+            if arch == "dlrm-rm2" and shape == "serve_bulk":
+                profile_call(f"{arch} x {shape}, one call (outside the "
+                             f"count)", lambda: cell.fn(*args),
+                             kernel="dot_interact_kernel")
             if cell.kind == "retrieval":
                 err = retrieval_matches_forward(mod, cfg, *args)
                 log(f"{arch} retrieval_forward == forward on the broadcast "
@@ -912,7 +933,7 @@ BF16_FLASH, F32_FLASH = "flash_attention_wgmma", "flash_attention"
 
 def lm_launch_check(what: str, got: dict, bf16: int, f32: int = 0) -> None:
     """The counts since the last reset: ``bf16`` launches of the wgmma
-    kernel, ``f32`` of the CUDA-core one and none of any other."""
+    kernel, ``f32`` of the f32 (3xTF32) one and none of any other."""
     want = {k: 0 for k in got}
     want[BF16_FLASH], want[F32_FLASH] = bf16, f32
     if got != want:
@@ -935,9 +956,9 @@ def serve_lm(seed: int) -> tuple[int, int]:
     the bf16 against the f32 step, and is held to be no larger than the
     first: the two bf16 paths may differ only by bf16 rounding.  The
     identity check launches the wgmma kernel 26 times (the bf16
-    prefill(T + 1)) and the CUDA-core kernel 52 times (the two f32
-    prefills).  Returns the wgmma kernel's launches on the served path
-    and the CUDA-core kernel's in the f32 prefills."""
+    prefill(T + 1)) and the f32 kernel 52 times (the two f32 prefills,
+    whose wall times it prints).  Returns the wgmma kernel's launches on
+    the served path and the f32 kernel's in the f32 prefills."""
     import dataclasses
 
     import numpy as np
@@ -991,11 +1012,21 @@ def serve_lm(seed: int) -> tuple[int, int]:
     del params
     torch.cuda.empty_cache()
     cfg32 = dataclasses.replace(cfg, dtype="float32")
-    _, cache = lm.prefill(params32, cfg32, toks, max_len=LM_SERVE_MAX)
+
+    def timed_prefill(x):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = lm.prefill(params32, cfg32, x, max_len=LM_SERVE_MAX)
+        torch.cuda.synchronize()
+        return out, (time.perf_counter() - t0) * 1e3
+
+    (_, cache), ms_t = timed_prefill(toks)
     got, cache = lm.decode_step(params32, cfg32, first_tok, cache)
     del cache
     torch.cuda.empty_cache()
-    want, _ = lm.prefill(params32, cfg32, longer, max_len=LM_SERVE_MAX)
+    (want, _), ms_t1 = timed_prefill(longer)
+    log(f"gemma2-2b f32 identity prefills (B=1): T={LM_SERVE_T} "
+        f"{ms_t:.1f} ms, T={LM_SERVE_T + 1} {ms_t1:.1f} ms")
     lm_launch_check("identity checks", dict(ops.LAUNCHES), bf16=LM_LAYERS,
                     f32=2 * LM_LAYERS)
     f32_launches = ops.LAUNCHES[F32_FLASH]

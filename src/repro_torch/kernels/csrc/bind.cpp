@@ -337,9 +337,11 @@ int clamp_window(int64_t window) {
 
 }  // namespace
 
-// q (B, T, H, dh), k/v (B, S, Hkv, dh), f32 -> (B, T, H, dh) f32, on the
-// CUDA cores.  Read through their strides (only dh must be contiguous);
-// softcap <= 0 means none, window <= 0 global.
+// q (B, T, H, dh), k/v (B, S, Hkv, dh), f32 -> (B, T, H, dh) f32, the
+// products as 3xTF32 on the tensor cores (mma.sync).  Read through their
+// strides (only dh must be contiguous; cp.async copies 4 bytes at a time
+// where 16 do not fit the strides); softcap <= 0 means none, window <= 0
+// global.
 torch::Tensor flash_attention(torch::Tensor q, torch::Tensor k,
                               torch::Tensor v, bool causal, int64_t window,
                               double softcap, double scale) {
@@ -414,7 +416,8 @@ PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
         "DLRM dot interaction: strictly-lower-triangle pairwise dots");
   m.def("cin_layer", &cin_layer, "xDeepFM CIN layer");
   m.def("flash_attention", &flash_attention,
-        "causal / GQA / sliding-window / softcap flash attention, f32");
+        "causal / GQA / sliding-window / softcap flash attention, f32 "
+        "(3xTF32 on the tensor cores)");
   m.def("flash_attention_wgmma", &flash_attention_wgmma,
         "the same in bf16 on the tensor cores (wgmma, TMA)");
 }

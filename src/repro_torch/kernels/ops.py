@@ -105,9 +105,11 @@ def cin_layer(w, x_prev, x0):
 
 def flash_kernel(q, k, v) -> str:
     """The kernel a CUDA call of ``flash_attention`` launches, by dtype:
-    ``"flash_attention_wgmma"`` (tensor cores, TMA loads) for bf16,
-    ``"flash_attention"`` (CUDA cores, full f32) otherwise.  Reads only
-    dtypes, shapes, strides and base addresses, so it runs on any device.
+    ``"flash_attention_wgmma"`` (bf16 wgmma, TMA loads) for bf16,
+    ``"flash_attention"`` (f32 products as 3xTF32 on mma.sync, cp.async
+    loads, any dh in [1, 256] and any strides with dh contiguous)
+    otherwise.  Reads only dtypes, shapes, strides and base addresses, so
+    it runs on any device.
 
     TMA reads the tensors through their strides, so a bf16 call needs dh a
     multiple of 8 in [8, 256], base addresses aligned to 16 bytes and the
@@ -142,8 +144,9 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = -1,
     in q's dtype; GQA, causal (positions from 0), sliding window when
     ``window > 0``, tanh softcap when ``softcap`` is set, ``scale``
     defaulting to 1/sqrt(dh); see ``ref.flash_attention_ref``.  Ragged T
-    and S need no padding.  On the card bf16 runs the tensor-core kernel
-    and f32 the CUDA-core one (``flash_kernel``)."""
+    and S need no padding.  On the card both dtypes run on the tensor
+    cores: bf16 on the wgmma kernel, f32 on the 3xTF32 one
+    (``flash_kernel``)."""
     scale = 1.0 / math.sqrt(q.shape[-1]) if scale is None else scale
     if _on_cpu(q, k, v):
         return ref.flash_attention_ref(q, k, v, causal=causal, window=window,

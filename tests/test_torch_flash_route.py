@@ -1,12 +1,12 @@
 """Which flash-attention kernel a call on the card runs, on the CPU.
 
 ``ops.flash_kernel`` reads only dtypes, shapes, strides and base
-addresses, so its choice is tested here: bf16 goes to the tensor-core
-kernel (``flash_attention_wgmma``, TMA loads), f32 to the CUDA-core one
-(``flash_attention``), and a bf16 call that TMA cannot read raises with
-the rule it breaks instead of running the other kernel.  On CPU tensors
-the wrapper runs the plain version whatever the dtype, and counts no
-launch.
+addresses, so its choice is tested here: bf16 goes to the wgmma kernel
+(``flash_attention_wgmma``, TMA loads), f32 to the 3xTF32 one
+(``flash_attention``, mma.sync, cp.async loads), and a bf16 call that
+TMA cannot read raises with the rule it breaks instead of running the
+other kernel.  On CPU tensors the wrapper runs the plain version
+whatever the dtype, and counts no launch.
 """
 import pytest
 import torch
@@ -27,7 +27,7 @@ def test_bf16_goes_to_the_wgmma_kernel(dh):
 
 
 @pytest.mark.parametrize("dh", [8, 77, 256])
-def test_f32_goes_to_the_cuda_core_kernel(dh):
+def test_f32_goes_to_the_3xtf32_kernel(dh):
     assert ops.flash_kernel(*_qkv(dh, torch.float32)) == "flash_attention"
 
 

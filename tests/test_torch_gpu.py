@@ -9,11 +9,11 @@ with a card with
 Tolerances as on the CPU: truncation exact, target attention 2e-5,
 embedding bag 1e-5, dot interaction 2e-5 in f32 and 2e-2 in bf16 (the
 bf16 output rounds once from an f32 sum taken in another order), CIN
-1e-4 (f32 sums of up to 7,800 terms in another order; CIN and target
-attention take their products as 3xTF32 on the tensor cores, whose
-arithmetic tests/test_torch_tf32x3.py emulates on the CPU), flash attention
-2e-5 in f32 (the CUDA-core kernel, full f32) and 2e-2 in bf16 (the
-tensor-core kernel).  In bf16 both round P to bf16 before PV, the plain
+1e-4 (f32 sums of up to 7,800 terms in another order), flash attention
+2e-5 in f32 and 2e-2 in bf16 (the wgmma kernel).  CIN, target attention,
+f32 flash attention and f32 dot interaction take their products as
+3xTF32 on the tensor cores, whose arithmetic tests/test_torch_tf32x3.py
+emulates on the CPU.  In bf16 both round P to bf16 before PV, the plain
 version after normalising it and the kernel before (it divides by the
 row sum at the end); the plain version also rounds the logits to bf16
 out of its first einsum, which the kernel keeps in f32, and the kernel's
@@ -127,7 +127,11 @@ def test_embedding_bag_kernel(cuda, v, d, b, l, weighted):
 
 
 @pytest.mark.parametrize("b,f,d", [(32, 27, 64), (7, 13, 32), (5, 27, 63),
-                                   (512, 27, 64)])
+                                   (512, 27, 64),
+                                   # B = 1; a last block part filled;
+                                   # DLRM-RM2's serve_bulk batch
+                                   (1, 27, 64), (1001, 27, 64),
+                                   (262_144, 27, 64)])
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-5),
                                        (torch.bfloat16, 2e-2)])
 def test_dot_interact_kernel(cuda, b, f, d, dtype, tol):
@@ -141,6 +145,16 @@ def test_dot_interact_kernel(cuda, b, f, d, dtype, tol):
     assert got.dtype == dtype and got.shape == (b, f * (f - 1) // 2)
     torch.testing.assert_close(got.float(), want.float(), rtol=tol,
                                atol=tol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_dot_interact_kernel_is_bitwise_repeatable(cuda, dtype):
+    feats = (0.3 * torch.randn(4099, 27, 64, generator=_gen())).to(dtype)
+    feats = feats.to(cuda)
+    first = ops.dot_interact(feats)
+    second = ops.dot_interact(feats)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
 
 
 @pytest.mark.parametrize("b,hp,m,d,ho", [(8, 39, 39, 10, 200),
@@ -276,9 +290,40 @@ def test_flash_attention_kernel_reads_strided_inputs(cuda, dtype, tol):
     torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
 
 
+def test_flash_attention_f32_long_chain(cuda):
+    """gemma2's global layer at T = S = 8,192 (dh = 256, softcap 50) in f32:
+    every row sums up to 8,192 keys through tensor-core chains, so this
+    is the case that shows the kernel's promotion intervals hold 2e-5."""
+    _flash_case(cuda, 1, 8192, 8192, 8, 4, 256, torch.float32, 2e-5,
+                dict(causal=True, softcap=50.0))
+
+
+@pytest.mark.parametrize("d", [1, 13, 16, 77, 200])
+def test_flash_attention_f32_any_head_width(cuda, d):
+    """f32 takes any dh in [1, 256]: widths off the 8-column k step and off
+    the 16-byte copy (4-byte copies with zero fill)."""
+    _flash_case(cuda, 2, 150, 150, 4, 2, d, torch.float32, 2e-5,
+                dict(causal=True, window=70, softcap=30.0))
+
+
+def test_flash_attention_f32_reads_unaligned_strided_inputs(cuda):
+    """Views whose strides and bases break the 16-byte copy: a fused
+    projection of odd width, one element past an aligned base."""
+    gen = _gen()
+    flat = torch.randn(1 + 2 * 90 * 16 * 31, generator=gen).to(cuda)
+    qkv = flat[1:].view(2, 90, 16, 31)
+    q, k, v = qkv[..., :8, :30], qkv[..., 8:12, :30], qkv[..., 12:, :30]
+    before = ops.LAUNCHES["flash_attention"]
+    got = ops.flash_attention(q, k, v, window=33, softcap=50.0)
+    assert ops.LAUNCHES["flash_attention"] == before + 1
+    want = ref.flash_attention_ref(q, k, v, window=33, softcap=50.0)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, want, rtol=2e-5, atol=2e-5)
+
+
 def test_flash_attention_wgmma_refuses_what_tma_cannot_read(cuda):
     """A bf16 call that breaks a TMA rule raises; it never runs the
-    CUDA-core kernel instead."""
+    f32 kernel instead."""
     x = torch.randn(1, 8, 2, 72, device=cuda).to(torch.bfloat16)
     odd = x[..., :68]  # head stride 144 bytes, dh 68
     before = dict(ops.LAUNCHES)

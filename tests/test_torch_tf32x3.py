@@ -1,26 +1,30 @@
-"""The arithmetic of the port's two 3xTF32 kernels, emulated on the CPU.
+"""The arithmetic of the port's 3xTF32 kernels, emulated on the CPU.
 
-``kernels/csrc/cin.cu`` and ``kernels/csrc/target_attention.cu`` compute
-their f32 products on the tensor cores as three TF32 products: each
-operand x is split into hi = tf32(x) and lo = tf32(x - hi), rounded to
-nearest (ties away from zero) at 13 dropped mantissa bits, as
-``cvt.rna.tf32.f32`` does, and a_lo b_hi + a_hi b_lo + a_hi b_hi is
-summed.  Target attention first splits W1's row blocks: feat W1 =
-q (Wq + Wd) + k (Wk - Wd) + (q*k) Wp, with only (q*k) Wp and . W2 on the
-tensor cores.
+``kernels/csrc/cin.cu``, ``target_attention.cu``, ``flash_attention.cu``
+(f32) and ``dot_interact.cu`` (its f32 path) compute their f32 products
+on the tensor cores as three TF32 products: each operand x is split into
+hi = tf32(x) and lo = tf32(x - hi), rounded to nearest (ties away from
+zero) at 13 dropped mantissa bits, as ``cvt.rna.tf32.f32`` does, and
+a_lo b_hi + a_hi b_lo + a_hi b_hi is summed.  Target attention first
+splits W1's row blocks: feat W1 = q (Wq + Wd) + k (Wk - Wd) + (q*k) Wp,
+with only (q*k) Wp and . W2 on the tensor cores.  Flash attention takes
+Q K^T and P V that way, with the softmax in f32 between them; dot
+interaction takes the Gram matrix X X^T.
 
 Here that arithmetic is written in plain torch (products of TF32 values
 are exact in f32; the sums are f32) and held, at the cards' gates (CIN
-1e-4, target attention 2e-5), against the JAX package's Pallas kernels in
-interpret mode and against the port's plain versions.  One case per
-kernel shows that a single TF32 pass misses its gate: the reason for
-three.  The emulation lives here only; nothing on the main path uses it.
+1e-4, target attention, flash attention and dot interaction 2e-5),
+against the JAX package's Pallas kernels in interpret mode and against
+the port's plain versions.  One case per kernel shows that a single TF32
+pass misses its gate: the reason for three.  The emulation lives here
+only; nothing on the main path uses it.
 
 The emulation models one pass whose sums round to nearest.  The tensor
-cores accumulate with less than that, which is why CIN's kernel promotes
-each short wgmma chain into an f32 sum; that the promotion interval
-holds the gate is shown on the card, by ``test_torch_gpu.py``'s
-``test_cin_kernel_stages_x_prev_in_chunks`` (K = 7,800 in one part), not
+cores accumulate with less than that, which is why the kernels promote
+each short tensor-core chain into an f32 sum; that the promotion
+intervals hold the gates is shown on the card, by ``test_torch_gpu.py``'s
+``test_cin_kernel_stages_x_prev_in_chunks`` (K = 7,800 in one part) and
+``test_flash_attention_f32_long_chain`` (T = S = 8,192, dh = 256), not
 here.
 """
 import jax.numpy as jnp
@@ -29,11 +33,14 @@ import pytest
 import torch
 
 from repro.kernels import ops as jops
+from repro.kernels.dot_interact import dot_interact as jax_dot
+from repro.kernels.flash_attention import flash_attention as jax_flash
 from repro.kernels.target_attention import target_attention as jax_ta
 from repro_torch.kernels import ref
 
 CIN_TOL = dict(rtol=1e-4, atol=1e-4)
 TA_TOL = dict(rtol=2e-5, atol=2e-5)
+F32_TOL = dict(rtol=2e-5, atol=2e-5)  # flash attention, dot interaction
 
 
 def tf32(x):
@@ -179,5 +186,96 @@ def test_target_attention_one_tf32_pass_misses_the_gate():
     one = ta_emulated(*args, "1xtf32").numpy()
     plain = ref.target_attention_ref(*args).numpy()
     past = np.abs(one - plain) > TA_TOL["atol"] + TA_TOL["rtol"] * \
+        np.abs(plain)
+    assert past.sum() > 100
+
+
+def flash_emulated(q, k, v, mode, *, causal=True, window=-1, softcap=None,
+                   scale=None):
+    """Q K^T and P V as ``mode`` products, scale, softcap, masks and the
+    softmax in f32, as the kernel orders them."""
+    b, t, h, dh = q.shape
+    s, hk = k.shape[1], k.shape[2]
+    scale = dh ** -0.5 if scale is None else scale
+    qg = q.reshape(b, t, hk, h // hk, dh).permute(0, 2, 3, 1, 4)
+    logits = mm(qg, k.permute(0, 2, 3, 1)[:, :, None], mode) * scale
+    if softcap:
+        logits = softcap * torch.tanh(logits / softcap)
+    q_pos = torch.arange(t)[:, None]
+    k_pos = torch.arange(s)[None, :]
+    mask = torch.ones((t, s), dtype=torch.bool)
+    if causal:
+        mask &= k_pos <= q_pos
+    if window > 0:
+        mask &= (q_pos - k_pos) < window
+    p = torch.softmax(torch.where(mask, logits, torch.tensor(-1e30)), -1)
+    out = mm(p, v.permute(0, 2, 1, 3)[:, :, None], mode)  # (b, hk, g, t, dh)
+    return out.permute(0, 3, 1, 2, 4).reshape(b, t, h, dh)
+
+
+FLASH_CASES = {  # (b, t, s, h, hk, dh), keywords
+    "dh16-softcap": ((1, 96, 96, 4, 2, 16), dict(softcap=50.0)),
+    "dh256-window-softcap": ((1, 80, 80, 4, 2, 256),
+                             dict(window=24, softcap=50.0, scale=1 / 16)),
+    "dh16-noncausal-ragged": ((2, 70, 100, 2, 1, 16),
+                              dict(causal=False, window=40)),
+}
+
+
+def _flash_inputs(shape):
+    rng = np.random.default_rng(sum(shape))
+    b, t, s, h, hk, dh = shape
+    return [rng.normal(size=x).astype(np.float32)
+            for x in ((b, t, h, dh), (b, s, hk, dh), (b, s, hk, dh))]
+
+
+@pytest.mark.parametrize("case", list(FLASH_CASES))
+def test_flash_attention_3xtf32_meets_the_gate(case):
+    shape, kw = FLASH_CASES[case]
+    x = _flash_inputs(shape)
+    got = flash_emulated(*map(_t, x), "3xtf32", **kw).numpy()
+    pallas = np.asarray(jax_flash(*map(jnp.asarray, x), block_q=64,
+                                  block_kv=64, interpret=True, **kw))
+    plain = ref.flash_attention_ref(*map(_t, x), **kw).numpy()
+    np.testing.assert_allclose(got, pallas, **F32_TOL)
+    np.testing.assert_allclose(got, plain, **F32_TOL)
+
+
+def _dot_inputs(b, f, d):
+    rng = np.random.default_rng(f * d)
+    return (0.3 * rng.normal(size=(b, f, d))).astype(np.float32)
+
+
+def dot_emulated(x, mode):
+    """The Gram matrix X X^T as ``mode`` products, its strictly lower
+    triangle in ``np.tril_indices`` order."""
+    f = x.shape[1]
+    z = mm(x, x.mT, mode)
+    iu, ju = np.tril_indices(f, k=-1)
+    return z[:, iu, ju]
+
+
+@pytest.mark.parametrize("b,f,d", [(9, 27, 64), (5, 13, 63)])
+def test_dot_interact_3xtf32_meets_the_gate(b, f, d):
+    x = _dot_inputs(b, f, d)
+    got = dot_emulated(_t(x), "3xtf32").numpy()
+    pallas = np.asarray(jax_dot(jnp.asarray(x), block_b=8, interpret=True))
+    plain = ref.dot_interact_ref(_t(x)).numpy()
+    np.testing.assert_allclose(got, pallas, **F32_TOL)
+    np.testing.assert_allclose(got, plain, **F32_TOL)
+
+
+@pytest.mark.parametrize("kernel", ["flash_attention", "dot_interact"])
+def test_one_tf32_pass_misses_the_f32_gate(kernel):
+    if kernel == "flash_attention":
+        shape, kw = FLASH_CASES["dh256-window-softcap"]
+        x = list(map(_t, _flash_inputs(shape)))
+        one = flash_emulated(*x, "1xtf32", **kw).numpy()
+        plain = ref.flash_attention_ref(*x, **kw).numpy()
+    else:
+        x = _t(_dot_inputs(9, 27, 64))
+        one = dot_emulated(x, "1xtf32").numpy()
+        plain = ref.dot_interact_ref(x).numpy()
+    past = np.abs(one - plain) > F32_TOL["atol"] + F32_TOL["rtol"] * \
         np.abs(plain)
     assert past.sum() > 100
