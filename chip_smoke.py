@@ -26,6 +26,15 @@ In order, it
      (the log lines of CIN, target attention and flash attention give
      the bound with all flops at the f32 peak beside it); bf16 dot
      interaction runs bf16 mma.sync; CIN logs B = 512 beside B = 4,096;
+     the truncation kernel is checked exact also at C = 257 and 260
+     (past the 256 slots it holds in registers, one slot a lane and
+     four) with expose below and above C, the embedding bag at D = 2, 3,
+     8, 64, 1000, 1030 and L = 1, 1,500 and for bitwise repeats; those two kernels, a few microseconds each, are also timed
+     on the device alone (``device_ms``: a CUDA graph of 100 launches,
+     replayed after a warm replay), beside ``F.embedding_bag`` both ways
+     and the launch floor (the same timing of a one-element ``add_``),
+     since eager back-to-back calls time the host's dispatch as much as
+     the kernel;
   4. serves full-width ``GeneratedSource`` windows through
      ``repro_torch.launch.serve`` (100k-user world, 4000-item corpus,
      paper chains, stage and reward models at full width, random
@@ -119,6 +128,45 @@ def cuda_ms(fn, *, reps: int, warm: int = 2) -> float:
     return start.elapsed_time(end) / reps
 
 
+def graph_ms(fn, *, launches: int = 100, replays: int = 10) -> float:
+    """Device time of one ``fn()`` alone: a CUDA graph holding
+    ``launches`` calls, replayed once to warm it, then ``replays`` times
+    between CUDA events, over the calls replayed.  ``cuda_ms`` times
+    back-to-back eager calls, which for a kernel of a few microseconds is
+    the host's dispatch as much as the device.  Capture runs the
+    wrappers' Python, so it adds ``launches`` to a kernel's LAUNCHES
+    count; ``serve_full`` resets the counts before the path it counts."""
+    import torch
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):  # warm-up off the capture, as graphs ask
+        fn()
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(launches):
+            fn()
+    graph.replay()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / (launches * replays)
+
+
+def launch_floor_ms(dev) -> float:
+    """``graph_ms`` of a one-element ``add_``: the least time a graph-
+    replayed launch takes on this card."""
+    import torch
+    x = torch.zeros(1, device=dev)
+    return graph_ms(lambda: x.add_(1.0))
+
+
 def bound(nbytes: float, ops: float, peak_ops: float = PEAK_F32_S,
           tf32x3_ops: float = 0.0) -> tuple[float, str]:
     """The least time (ms) for moving ``nbytes``, doing ``ops`` at the
@@ -167,17 +215,34 @@ def truncation_inputs(g_n, u_n, cap, b_n, n3_choices, gen, dev):
                                 n3.int())]
 
 
+def window_truncation_inputs(gen, dev, layout):
+    """The window's truncation shape: its layout's (G, 512, cap) tables
+    and 512 requests, n3 drawn from the layout's chains."""
+    return truncation_inputs(layout.p_sorted.shape[0], 512, layout.cap, 512,
+                             sorted(set(layout.n3_of_chain.tolist())), gen,
+                             dev)
+
+
 def check_truncation(gen, dev, layout, expose):
     import torch
     from repro_torch.kernels import ops, ref
 
-    small = truncation_inputs(3, 5, 40, 32, [1, 7, 20, 40], gen, dev)
-    close(ops.cascade_truncate(*small, expose=6),
-          ref.cascade_truncate_ref(*small, expose=6), 0.0)
+    # small; then C past the 256 slots the kernel holds in registers,
+    # one slot a lane (257) and four (260), an odd B, with expose below
+    # and above C
+    cases = [(truncation_inputs(3, 5, 40, 32, [1, 7, 20, 40], gen, dev), 6)]
+    for c in (257, 260):
+        for e in (20, 300):
+            cases.append((truncation_inputs(4, 16, c, 33, [0, 1, 100, c],
+                                            gen, dev), e))
+    for args, e in cases:
+        if not torch.equal(ops.cascade_truncate(*args, expose=e),
+                           ref.cascade_truncate_ref(*args, expose=e)):
+            raise AssertionError(f"truncation kernel differs from its "
+                                 f"plain version at C = "
+                                 f"{args[0].shape[2]}, expose {e}")
     g_n, cap = layout.p_sorted.shape[0], layout.cap
-    full = truncation_inputs(g_n, 512, cap, 512,
-                             sorted(set(layout.n3_of_chain.tolist())),
-                             gen, dev)
+    full = window_truncation_inputs(gen, dev, layout)
     got = ops.cascade_truncate(*full, expose=expose)
     want = ref.cascade_truncate_ref(*full, expose=expose)
     if not torch.equal(got, want):
@@ -186,6 +251,7 @@ def check_truncation(gen, dev, layout, expose):
     err = close(got, want, 0.0)
     ms = cuda_ms(lambda: ops.cascade_truncate(*full, expose=expose),
                  reps=200)
+    device_ms = graph_ms(lambda: ops.cascade_truncate(*full, expose=expose))
     plain_ms = cuda_ms(lambda: ref.cascade_truncate_ref(*full,
                                                         expose=expose),
                        reps=50)
@@ -198,8 +264,9 @@ def check_truncation(gen, dev, layout, expose):
     nbytes = float(need.sum()) * 8 + groups.numel() * 16
     ops_n = float(need.sum()) * 4
     b_ms, by = bound(nbytes, ops_n)
-    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": b_ms, "bound_by": by, "library_ms": None,
+    return {"max_abs_err": err, "ms": ms, "device_ms": device_ms,
+            "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": by,
+            "library_ms": None,
             "shape": f"G={g_n} U=512 C={cap} B=512 expose={expose}"}
 
 
@@ -257,33 +324,61 @@ def check_target_attention(gen, dev, hist_mask):
             "shape": shape}
 
 
-def check_embedding_bag(gen, dev, hist_ids, hist_mask, n_items, dim):
+def window_bag_inputs(gen, dev, hist_ids, hist_mask, n_items, dim):
+    """YDNN's mean history bag at the window's shape: a (n_items, dim)
+    table at the models' scale, a real slab's ids and mask / count."""
     import torch
-    import torch.nn.functional as F
-    from repro_torch.kernels import ops, ref
-
-    table_s = torch.randn(50, 20, generator=gen).to(dev)
-    ids_s = torch.randint(0, 50, (7, 9), generator=gen).to(dev)
-    w_s = torch.rand(7, 9, generator=gen).to(dev)
-    for w in (w_s, None):
-        close(ops.embedding_bag(table_s, ids_s, w),
-              ref.embedding_bag_ref(table_s, ids_s, w), 1e-5)
     table = (0.02 * torch.randn(n_items, dim, generator=gen)).to(dev)
     w = hist_mask / torch.clamp(hist_mask.sum(-1, keepdim=True), min=1.0)
-    args = (table, hist_ids, w)
-    err = close(ops.embedding_bag(*args), ref.embedding_bag_ref(*args),
-                1e-5)
+    return table, hist_ids, w
+
+
+def library_bag(table, ids, w):
+    """``F.embedding_bag``, the PyTorch call computing the same sums."""
+    import torch.nn.functional as F
+    return F.embedding_bag(ids, table, mode="sum", per_sample_weights=w)
+
+
+def check_embedding_bag(gen, dev, hist_ids, hist_mask, n_items, dim):
+    import torch
+    from repro_torch.kernels import ops, ref
+
+    # small; a float at a time (D = 2, 3, 1030), 4-float units (D = 8,
+    # 20, 64, 1000); one id and 1,500 ids (the table at the models' scale
+    # there: a 1,500-term f32 sum of unit-scale rows is beyond 1e-5 in
+    # any order); an odd B
+    for v, d, b, l, scale in ((50, 20, 7, 9, 1.0), (60, 3, 5, 1, 1.0),
+                              (60, 2, 5, 100, 1.0), (60, 8, 5, 100, 1.0),
+                              (100, 64, 7, 100, 1.0),
+                              (60, 3, 3, 1500, 0.02),
+                              (100, 1030, 3, 100, 1.0),
+                              (100, 1030, 2, 1500, 0.02),
+                              (100, 1000, 5, 1500, 0.02)):
+        table_s = (scale * torch.randn(v, d, generator=gen)).to(dev)
+        ids_s = torch.randint(0, v, (b, l), generator=gen).to(dev)
+        w_s = torch.rand(b, l, generator=gen).to(dev)
+        for w in (w_s, None):
+            close(ops.embedding_bag(table_s, ids_s, w),
+                  ref.embedding_bag_ref(table_s, ids_s, w), 1e-5)
+    args = window_bag_inputs(gen, dev, hist_ids, hist_mask, n_items, dim)
+    table, _, w = args
+    got = ops.embedding_bag(*args)
+    err = close(got, ref.embedding_bag_ref(*args), 1e-5)
+    if not torch.equal(got, ops.embedding_bag(*args)):
+        raise AssertionError("embedding bag kernel is not bitwise "
+                             "repeatable")
     ms = cuda_ms(lambda: ops.embedding_bag(*args), reps=200)
+    device_ms = graph_ms(lambda: ops.embedding_bag(*args))
     plain_ms = cuda_ms(lambda: ref.embedding_bag_ref(*args), reps=50)
-    lib_ms = cuda_ms(lambda: F.embedding_bag(hist_ids, table, mode="sum",
-                                             per_sample_weights=w),
-                     reps=200)
+    lib_ms = cuda_ms(lambda: library_bag(*args), reps=200)
+    lib_device_ms = graph_ms(lambda: library_bag(*args))
     nnz = float((w != 0).sum())
     b, bag = hist_ids.shape
     nbytes = nnz * dim * 4 + b * bag * 8 + b * dim * 4
     b_ms, by = bound(nbytes, 2 * nnz * dim)
-    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": b_ms, "bound_by": by, "library_ms": lib_ms,
+    return {"max_abs_err": err, "ms": ms, "device_ms": device_ms,
+            "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": by,
+            "library_ms": lib_ms, "library_device_ms": lib_device_ms,
             "shape": f"V={n_items} D={dim} B={b} L={bag}"}
 
 
@@ -1142,6 +1237,25 @@ def lm_parity(seed: int) -> None:
         f"decode steps): max abs err {err:.3e} (tol 1e-5)")
 
 
+def window_inputs(seed: int, dev):
+    """The window's history slab (512 users of the full-width world), the
+    CompactPlan layout of its chains, and the world's config."""
+    import numpy as np
+    import torch
+    from repro_torch.cascade.engine import build_compact_layout
+    from repro_torch.data.synthetic import StreamingWorld
+    from repro_torch.launch import serve
+
+    wcfg = serve.world_config(512, seed=seed)
+    slab = StreamingWorld.build(wcfg).user_slab(np.arange(512))
+    hist_ids = torch.from_numpy(slab.hist_ids).int().to(dev)
+    hist_mask = torch.from_numpy(slab.hist_mask).to(dev)
+    chains = serve.build_chains(wcfg, serve.FULL_EXPOSE)
+    layout = build_compact_layout(chains, n_items=wcfg.n_items,
+                                  expose=serve.FULL_EXPOSE)
+    return wcfg, hist_ids, hist_mask, layout
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--windows", type=int, default=3)
@@ -1153,10 +1267,6 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
-    import numpy as np
-
-    from repro_torch.cascade.engine import build_compact_layout
-    from repro_torch.data.synthetic import StreamingWorld
     from repro_torch.kernels import build
     from repro_torch.launch import serve
 
@@ -1175,14 +1285,8 @@ def main(argv=None) -> int:
     # flex_attention's f32 rows rely on
     torch.backends.cuda.matmul.allow_tf32 = False
     gen = torch.Generator().manual_seed(args.seed)
-    wcfg = serve.world_config(512, seed=args.seed)
     # the main path's history bags: a real slab of the full-width world
-    slab = StreamingWorld.build(wcfg).user_slab(np.arange(512))
-    hist_ids = torch.from_numpy(slab.hist_ids).int().to(dev)
-    hist_mask = torch.from_numpy(slab.hist_mask).to(dev)
-    chains = serve.build_chains(wcfg, serve.FULL_EXPOSE)
-    layout = build_compact_layout(chains, n_items=wcfg.n_items,
-                                  expose=serve.FULL_EXPOSE)
+    wcfg, hist_ids, hist_mask, layout = window_inputs(args.seed, dev)
     results = {
         "cascade_truncate": check_truncation(gen, dev, layout,
                                              serve.FULL_EXPOSE),
@@ -1198,6 +1302,13 @@ def main(argv=None) -> int:
             f"{r['ms']:.4f} ms (plain {r['plain_ms']:.4f} ms, bound "
             f"{r['bound_ms']:.4f} ms by {r['bound_by']}, library "
             f"{r['library_ms']})")
+    floor_ms = launch_floor_ms(dev)
+    bag = results["embedding_bag"]
+    log(f"graph-replayed device ms: cascade_truncate "
+        f"{results['cascade_truncate']['device_ms']:.5f}, embedding_bag "
+        f"{bag['device_ms']:.5f}, F.embedding_bag "
+        f"{bag['library_device_ms']:.5f} (eager {bag['library_ms']:.5f}); "
+        f"launch floor (one-element add_) {floor_ms:.5f}")
     stack, st, launches = serve_full(args)
     n_windows = len(st.windows)
     profile_window(stack)
@@ -1238,6 +1349,7 @@ def main(argv=None) -> int:
          "ms": r["ms"], "plain_ms": r["plain_ms"],
          "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
          "library_ms": r["library_ms"], "shape": r["shape"],
+         **({"device_ms": r["device_ms"]} if "device_ms" in r else {}),
          **({"at_32k": r["at_32k"]} if "at_32k" in r else {})}
         for name, r in results.items()]}
     print(json.dumps(line), flush=True)

@@ -31,7 +31,7 @@ int target_attention_launch(const float* q, long long q_bstride,
                             const float* b2, const float* w3, const float* b3,
                             float* out, int B, int N, int T, int d, int h1,
                             int h2, void* stream);
-int embedding_bag_launch(const float* table, const int* ids,
+int embedding_bag_launch(const float* table, long long ld, const int* ids,
                          const float* weights, float* out, int B, int D,
                          int L, void* stream);
 int dot_interact_launch(const void* feats, void* out, int B, int F, int D,
@@ -178,7 +178,8 @@ torch::Tensor target_attention(torch::Tensor q, const torch::Tensor& keys,
 }
 
 // (B, L) bags into a (V, D) table -> (B, D) sums, weighted when weights
-// is given.
+// is given.  Any D and L; the table is read through its row stride (a
+// table whose columns are not contiguous is copied first).
 torch::Tensor embedding_bag(const torch::Tensor& table,
                             const torch::Tensor& ids,
                             const std::optional<torch::Tensor>& weights) {
@@ -190,7 +191,6 @@ torch::Tensor embedding_bag(const torch::Tensor& table,
               "want table (V, D), ids (B, L)");
   TORCH_CHECK(table.scalar_type() == torch::kFloat32, "table must be f32");
   const int64_t d = table.size(1);
-  TORCH_CHECK(d <= 1024, "the kernel supports D <= 1024");
   const c10::cuda::CUDAGuard guard(table.device());
   torch::Tensor w;
   if (weights) {
@@ -199,12 +199,13 @@ torch::Tensor embedding_bag(const torch::Tensor& table,
                 "weights must be f32 and shaped like ids");
     w = weights->contiguous();
   }
-  const auto tab = table.contiguous();
+  const auto tab = table.stride(1) == 1 ? table : table.contiguous();
   const auto i = ids.to(torch::kInt32).contiguous();
   const int b = as_int(ids.size(0), "B");
   auto out = torch::empty({b, d}, table.options());
-  if (b == 0) return out;
-  check_launch(embedding_bag_launch(tab.data_ptr<float>(), i.data_ptr<int>(),
+  if (out.numel() == 0) return out;
+  check_launch(embedding_bag_launch(tab.data_ptr<float>(), tab.stride(0),
+                                    i.data_ptr<int>(),
                                     weights ? w.data_ptr<float>() : nullptr,
                                     out.data_ptr<float>(), b, as_int(d, "D"),
                                     as_int(ids.size(1), "L"), stream()),

@@ -74,7 +74,7 @@ def embedding_bag(table, ids, weights=None):
     if _on_cpu(table, ids, weights):
         return ref.embedding_bag_ref(table, ids, weights)
     out = load().embedding_bag(table, ids, weights)
-    if ids.shape[0]:  # launched for B > 0
+    if out.numel():  # launched for B, D > 0
         LAUNCHES["embedding_bag"] += 1
     return out
 

@@ -39,9 +39,7 @@ def _gen():
     return torch.Generator().manual_seed(0)
 
 
-@pytest.mark.parametrize("g_n,u_n,cap,b_n,expose", [
-    (3, 5, 40, 32, 6), (16, 512, 200, 512, 20), (2, 3, 33, 9, 50)])
-def test_cascade_truncate_kernel(cuda, g_n, u_n, cap, b_n, expose):
+def _truncation_args(cuda, g_n, u_n, cap, b_n, n3_low=1):
     gen = _gen()
     perm = torch.argsort(torch.rand(g_n, u_n, cap, generator=gen), dim=-1)
     count = torch.randint(cap // 2, cap + 1, (g_n, u_n, 1), generator=gen)
@@ -49,14 +47,46 @@ def test_cascade_truncate_kernel(cuda, g_n, u_n, cap, b_n, expose):
     ck = (torch.rand(g_n, u_n, cap, generator=gen) < 0.2).float()
     groups = torch.randint(0, g_n, (b_n,), generator=gen).int()
     rows = torch.randint(0, u_n, (b_n,), generator=gen).int()
-    n3 = torch.randint(1, cap + 1, (b_n,), generator=gen).int()
-    args = [x.to(cuda) for x in (p, ck, groups, rows, n3)]
+    n3 = torch.randint(n3_low, cap + 1, (b_n,), generator=gen).int()
+    return [x.to(cuda) for x in (p, ck, groups, rows, n3)]
+
+
+@pytest.mark.parametrize("g_n,u_n,cap,b_n,expose", [
+    (3, 5, 40, 32, 6), (16, 512, 200, 512, 20), (2, 3, 33, 9, 50),
+    # C of one slot, one chunk less one, one, one more; C past the 256
+    # slots held in registers, one slot a lane (257) and four (260, 512);
+    # expose >= C; B odd (the last block's second warp idle)
+    (2, 4, 1, 7, 1), (2, 4, 31, 7, 5), (2, 4, 32, 8, 40), (2, 4, 33, 9, 20),
+    (4, 16, 257, 33, 20), (4, 16, 257, 33, 300), (4, 16, 260, 33, 20),
+    (4, 16, 260, 33, 300), (4, 16, 512, 33, 20), (4, 16, 512, 33, 600)])
+def test_cascade_truncate_kernel(cuda, g_n, u_n, cap, b_n, expose):
+    args = _truncation_args(cuda, g_n, u_n, cap, b_n)
     before = ops.LAUNCHES["cascade_truncate"]
     got = ops.cascade_truncate(*args, expose=expose)
     assert ops.LAUNCHES["cascade_truncate"] == before + 1
     want = ref.cascade_truncate_ref(*args, expose=expose)
     torch.cuda.synchronize()
     assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("cap", [33, 200, 257, 260, 512])
+def test_cascade_truncate_kernel_empty_rows_and_zero_n3(cuda, cap):
+    """Rows of sentinels only, n3 = 0 and expose = 0 give exactly 0."""
+    p, ck, groups, rows, n3 = _truncation_args(cuda, 3, 8, cap, 65,
+                                               n3_low=0)
+    p[0, 0] = cap  # row (0, 0): sentinels only
+    groups[:4] = 0
+    rows[:4] = 0
+    n3[4:8] = 0
+    for expose in (0, 20):
+        got = ops.cascade_truncate(p, ck, groups, rows, n3, expose=expose)
+        want = ref.cascade_truncate_ref(p, ck, groups, rows, n3,
+                                        expose=expose)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want)
+        assert not got[:8].any()
+        if expose == 0:
+            assert not got.any()
 
 
 @pytest.mark.parametrize("b,n,t,d,h1,h2,shared", [
@@ -109,21 +139,105 @@ def test_target_attention_kernel_ragged_and_masked(cuda, b, n, t, d, h1, h2,
     assert not got[0].any()
 
 
-@pytest.mark.parametrize("v,d,b,l", [(50, 20, 7, 9), (4000, 32, 512, 100),
-                                     (100, 1000, 3, 5)])
+@pytest.mark.parametrize("v,d,b,l", [
+    (50, 20, 7, 9), (4000, 32, 512, 100), (100, 1000, 3, 5),
+    # D a float at a time (1, 2, 3, 1030), in 4-float units (4, 8, 20,
+    # 32, 64, 1000): every count of lanes to a row, 1 to 32, both ways;
+    # one id, and 1,500 (47 chunks of 32); B not a multiple of the 4
+    # bags a block
+    (60, 1, 5, 100), (60, 2, 5, 100), (60, 4, 5, 100), (60, 8, 5, 100),
+    (100, 64, 7, 100), (100, 64, 3, 1500),
+    (60, 3, 5, 1), (60, 3, 6, 100), (60, 3, 3, 1500), (60, 20, 9, 1),
+    (60, 20, 2, 1500), (60, 32, 7, 1), (4000, 32, 13, 1500),
+    (100, 1000, 6, 1), (100, 1000, 5, 100), (100, 1000, 2, 1500),
+    (100, 1030, 3, 1), (100, 1030, 3, 100), (100, 1030, 2, 1500)])
 @pytest.mark.parametrize("weighted", [False, True])
 def test_embedding_bag_kernel(cuda, v, d, b, l, weighted):
     gen = _gen()
-    table = torch.randn(v, d, generator=gen).to(cuda)
+    # at L = 1,500 the table is drawn at the models' scale (0.02): at
+    # unit scale a 1,500-term f32 sum is beyond the gate in any order,
+    # the Pallas kernel's own included (test_torch_window_kernels.py)
+    scale = 0.02 if l > 100 else 1.0
+    table = (scale * torch.randn(v, d, generator=gen)).to(cuda)
     ids = torch.randint(0, v, (b, l), generator=gen).to(cuda)
     w = None
     if weighted:
         w = torch.rand(b, l, generator=gen).to(cuda)
         w[:, l // 2:] = 0.0  # padded history is skipped
+    before = ops.LAUNCHES["embedding_bag"]
     got = ops.embedding_bag(table, ids, w)
+    assert ops.LAUNCHES["embedding_bag"] == before + 1
     want = ref.embedding_bag_ref(table, ids, w)
     torch.cuda.synchronize()
     torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("d,offset,stride", [
+    (32, 1, 32),    # base 4 bytes past 16-byte alignment: a float at a time
+    (30, 0, 32),    # a padded view: 7 units of 4, then 2 floats
+    (32, 4, 36),    # aligned base, row stride 36 floats (144 bytes)
+    (32, 1, 36)])   # unaligned base, aligned stride
+def test_embedding_bag_kernel_reads_views(cuda, d, offset, stride):
+    """Tables that are views of a larger buffer: the kernel reads them
+    through their base and row stride, 16 bytes at a time only where
+    both are multiples of 16 bytes."""
+    gen = _gen()
+    v = 300
+    buf = torch.randn(v * stride + offset + 4, generator=gen).to(cuda)
+    table = buf[offset:offset + v * stride].view(v, stride)[:, :d]
+    assert table.stride() == (stride, 1)
+    ids = torch.randint(0, v, (9, 70), generator=gen).to(cuda)
+    w = torch.rand(9, 70, generator=gen).to(cuda)
+    got = ops.embedding_bag(table, ids, w)
+    want = ref.embedding_bag_ref(table.contiguous(), ids, w)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+
+
+def test_embedding_bag_kernel_zero_weights_and_repeats(cuda):
+    """All-zero weights give exactly 0, an empty bag (L = 0) too, and two
+    calls on the same inputs are bitwise equal (a fixed order)."""
+    gen = _gen()
+    table = torch.randn(4000, 32, generator=gen).to(cuda)
+    ids = torch.randint(0, 4000, (513, 100), generator=gen).to(cuda)
+    w = torch.rand(513, 100, generator=gen).to(cuda)
+    w[::3] = 0.0
+    got = ops.embedding_bag(table, ids, w)
+    assert not got[::3].any()
+    assert torch.equal(got, ops.embedding_bag(table, ids, w))
+    empty = ops.embedding_bag(table, ids[:, :0], w[:, :0])
+    torch.cuda.synchronize()
+    assert empty.shape == (513, 32) and not empty.any()
+
+
+def test_window_kernels_replay_in_a_cuda_graph(cuda):
+    """Each wrapper captured in a CUDA graph: the replay writes what the
+    eager call returns."""
+    gen = _gen()
+    targs = _truncation_args(cuda, 16, 512, 200, 512)
+    table = (0.02 * torch.randn(4000, 32, generator=gen)).to(cuda)
+    ids = torch.randint(0, 4000, (512, 100), generator=gen).int().to(cuda)
+    w = torch.rand(512, 100, generator=gen).to(cuda)
+    w[:, 50:] = 0.0
+    calls = {"cascade_truncate":
+             lambda: ops.cascade_truncate(*targs, expose=20),
+             "embedding_bag": lambda: ops.embedding_bag(table, ids, w)}
+    for name, call in calls.items():
+        eager = call()
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            call()
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        before = ops.LAUNCHES[name]
+        with torch.cuda.graph(graph):
+            out = call()
+        assert ops.LAUNCHES[name] == before + 1  # the capture counts
+        out.fill_(float("nan"))
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out, eager), name
 
 
 @pytest.mark.parametrize("b,f,d", [(32, 27, 64), (7, 13, 32), (5, 27, 63),
