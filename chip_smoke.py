@@ -38,16 +38,28 @@ In order, it
   4. serves full-width ``GeneratedSource`` windows through
      ``repro_torch.launch.serve`` (100k-user world, 4000-item corpus,
      paper chains, stage and reward models at full width, random
-     weights from the seed) with the kernel launch counters reset just
-     before and read just after; checks the budget, the price, the
-     revenue, that the window's three kernels launched (and no other),
-     that the device tables served in window 0 equal the NumPy host
-     builder on the same stage scores and that its revenue equals the
-     plain truncation on those tables;
-  5. profiles one more full-width window under ``torch.profiler`` and
-     prints its wall time, the device's busy time and idle share, each
-     phase range's host and device span, and the operators that took the
-     most device time;
+     weights from the seed): the spike scenario over 6 windows (512
+     requests, then 1,536 in windows 2-4: three scoring chunks and a new
+     padding bucket mid-stream), with prefetch=2 (a producer thread on
+     its own stream) through the CUDA graphs (the scoring programs
+     captured when the source is built, each bucket's window program on
+     first sight), the kernel launch counters reset just before and
+     read just after; checks the budget (max(budget, n c_min) + c_max,
+     the guard's bound), the price, the revenue, zero steady-state
+     captures, that the window's three kernels launched exactly the
+     eager counts (one truncation a window, 16 target attention and one
+     bag a chunk) and no other, that the device tables served in window
+     0 equal the NumPy host builder on the same stage scores and that
+     its revenue equals the plain truncation on those tables; then holds
+     the captured windows against ``graphs=False`` bit for bit at a
+     pinned price (both buckets) and the scoring graphs against eager
+     ``score_slab``, and serves two steady-state windows with
+     prefetch=0 under ``torch.cuda.set_sync_debug_mode("error")``;
+  5. profiles one more full-width window (warm, through the graphs)
+     under ``torch.profiler`` and prints its wall time, the device's busy
+     time and idle share, each phase range's host and device span, the
+     operators that took the most device time, each graph's capture time
+     and the memory its pool reserved; then releases the graphs;
   6. serves the model zoo's ``dlrm-rm2`` and ``xdeepfm`` cells at
      ``full_config()`` through ``configs.get_arch(...).make_cell(...)``:
      serve_p99 (B = 512) x 10, serve_bulk (B = 262,144) x 2 and
@@ -84,6 +96,7 @@ beside it, it fails before printing any result.
 from __future__ import annotations
 
 import argparse
+import gc
 import json
 import math
 import os
@@ -134,9 +147,10 @@ def graph_ms(fn, *, launches: int = 100, replays: int = 10) -> float:
     between CUDA events, over the calls replayed.  ``cuda_ms`` times
     back-to-back eager calls, which for a kernel of a few microseconds is
     the host's dispatch as much as the device.  Capture runs the
-    wrappers' Python, so it adds ``launches`` to a kernel's LAUNCHES
-    count; ``serve_full`` resets the counts before the path it counts."""
+    wrappers' Python but launches nothing, so it counts nothing
+    (``ops.recording``); these timing launches stay out of LAUNCHES."""
     import torch
+    from repro_torch.kernels import ops
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):  # warm-up off the capture, as graphs ask
@@ -144,7 +158,7 @@ def graph_ms(fn, *, launches: int = 100, replays: int = 10) -> float:
         fn()
     torch.cuda.current_stream().wait_stream(side)
     graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
+    with ops.recording(), torch.cuda.graph(graph):
         for _ in range(launches):
             fn()
     graph.replay()
@@ -709,8 +723,7 @@ def check_window(stack, chunk, res):
                              f"chunks of {src.chunk}")
     slab = src.world.user_slab(users)
     ub = _user_batch(slab, np.arange(m), stack.device, pad_to=src.chunk)
-    with torch.no_grad():
-        scores = src.score_slab(ub)
+    scores = src.score_slab(ub)
     clicks = src.world.clicks_slab(users, slab, pad_rows=src.chunk)
     p_host, ck_host, _ = _compact_group_tables(
         {k: v[:m].cpu().numpy() for k, v in scores.items()}, src._lay,
@@ -722,21 +735,119 @@ def check_window(stack, chunk, res):
         raise AssertionError("served device tables differ from the host "
                              "builder")
     pipe = stack.pipeline
-    p, ck = pipe._pad_chunk_tables(chunk.tables, res.n_valid,
-                                   len(res.valid))
+    b = len(res.valid)
+    g_n, _, cap = p_host.shape
+    p = torch.full((g_n, b, cap), cap, dtype=torch.int32)
+    ck = torch.zeros((g_n, b, cap))
+    p[:, :m] = torch.from_numpy(p_host.astype(np.int32))
+    ck[:, :m] = torch.from_numpy(ck_host.astype(np.float32))
     dec = res.decisions.long().cpu()
-    rows = torch.arange(len(res.valid)) * torch.from_numpy(
-        res.valid > 0).long()
+    rows = torch.arange(b) * torch.from_numpy(res.valid > 0).long()
     want = ref.cascade_truncate_ref(
-        p.cpu(), ck.cpu(), pipe._g_of.cpu()[dec], rows,
-        pipe._n3_of.cpu()[dec], expose=pipe._expose) * torch.from_numpy(
-            res.valid)
+        p, ck, pipe._g_of.cpu()[dec], rows, pipe._n3_of.cpu()[dec],
+        expose=pipe._expose) * torch.from_numpy(res.valid)
     if not torch.equal(res.revenue.cpu(), want):
         raise AssertionError("served revenue differs from the plain "
                              "truncation on the same tables")
 
 
 WINDOW_KERNELS = ("cascade_truncate", "target_attention", "embedding_bag")
+WINDOW_FIELDS = ("decisions", "revenue", "spend", "downgraded", "flops",
+                 "lam_after")
+
+
+def graph_report(stack) -> None:
+    """Print the captures: each scoring program's per-graph capture ms
+    and the memory its pool reserved, each window bucket's."""
+    src, pipe = stack.source, stack.pipeline
+    rep = {"scoring": {}, "buckets": {}}
+    for i, sp in enumerate(src.programs):
+        progs = {**sp.models, "tables/compact": sp.tables}
+        rep["scoring"][i] = {
+            "capture_ms": {k: round(v.capture_ms, 3)
+                           for k, v in progs.items()},
+            "pool_gb": sum(v.pool_bytes for v in progs.values()) / 1e9}
+    for key, wp in pipe._programs.items():
+        rep["buckets"][str(key)] = {
+            "capture_ms": {"window/main": round(wp.main.capture_ms, 3),
+                           "window/dual": round(wp.dual.capture_ms, 3)},
+            "pool_gb": (wp.main.pool_bytes + wp.dual.pool_bytes) / 1e9}
+    for what, rows in rep.items():
+        for k, v in rows.items():
+            log(f"graphs, {what} {k}: capture ms {v['capture_ms']}, pool "
+                f"{v['pool_gb']:.3f} GB")
+
+
+def check_captured_vs_eager(stack) -> None:
+    """The same chunks through the captured window programs and through
+    ``graphs=False`` (the same programs run eagerly), at a pinned price:
+    decisions, revenue, spend, downgrades, FLOPs and the published price
+    bit for bit, on both warm buckets; and the scoring graphs' stage
+    scores against eager ``score_slab`` on the same batch."""
+    import torch
+    from repro_torch.serving.pipeline import ServingPipeline
+
+    src, pipe = stack.source, stack.pipeline
+    eager = ServingPipeline(src.universe, pipe.reward_params,
+                            pipe.reward_cfg, stack.budget, graphs=False,
+                            device=stack.device)
+    lam = float(pipe.lam)
+    for t, n in ((2000, 512), (2001, 1536)):
+        chunk = src.window(t, n)
+        c0 = pipe.compile_count()
+        got, want = (p.serve_window(chunk.ctx, chunk.rows,
+                                    tables=chunk.tables, lam=lam,
+                                    update_lam=False, ready=chunk.ready)
+                     for p in (pipe, eager))
+        torch.cuda.synchronize()
+        if pipe.compile_count() != c0:
+            raise AssertionError(f"bucket {got.bucket} was not warm")
+        for name in WINDOW_FIELDS:
+            if not torch.equal(getattr(got, name), getattr(want, name)):
+                raise AssertionError(f"captured window ({n} requests) "
+                                     f"differs from eager in {name}")
+    sp = src.programs[0]
+    ub = {k: v for k, v in sp.inputs.items() if k != "clicks"}
+    ref_scores = src.score_slab(ub)
+    torch.cuda.synchronize()
+    for name, prog in sp.models.items():
+        if not torch.equal(prog.out["scores"], ref_scores[name]):
+            err = (prog.out["scores"] - ref_scores[name]).abs().max()
+            raise AssertionError(f"scoring graph {name} differs from eager "
+                                 f"score_slab (max abs err {float(err)})")
+    log(f"captured == eager, bitwise, at pinned lambda {lam:.6e}: windows "
+        f"of 512 and 1,536 requests ({', '.join(WINDOW_FIELDS)}); scoring "
+        f"graphs == eager score_slab for {', '.join(sp.models)}")
+
+
+def check_no_sync(stack) -> None:
+    """Steady-state windows (warm buckets, prefetch=0) served under
+    ``torch.cuda.set_sync_debug_mode("error")``: any host sync inside
+    ``serve_window`` raises."""
+    import torch
+    from repro_torch.serving.stream import run_stream
+
+    pipe = stack.pipeline
+    serve_window = pipe.serve_window
+
+    def checked(*a, **kw):
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            return serve_window(*a, **kw)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+
+    pipe.serve_window = checked
+    try:
+        st = run_stream(pipe, [512, 1536], stack.source, prefetch=0)
+    finally:
+        del pipe.serve_window
+    torch.cuda.synchronize()
+    if any(st.compiles):
+        raise AssertionError(f"steady-state windows captured: "
+                             f"{st.compiles}")
+    log("no host sync inside 2 steady-state windows (512, 1,536 requests) "
+        "under set_sync_debug_mode('error')")
 
 
 def serve_full(args):
@@ -745,15 +856,17 @@ def serve_full(args):
     from repro_torch.launch import serve
     from repro_torch.serving.stream import window_table
 
-    log(f"cut: {args.windows} windows x {args.requests} requests (a "
-        f"serving day has many more); weights random from seed "
-        f"{args.seed} (no trained weights in the repository)")
+    log(f"cut: {args.windows} windows of the spike scenario, "
+        f"{args.requests} requests a normal window (a serving day has many "
+        f"more); weights random from seed {args.seed} (no trained weights "
+        f"in the repository)")
     t0 = time.perf_counter()
     stack = serve.build_stack(users=100_000, requests=args.requests,
-                              windows=args.windows, seed=args.seed,
-                              device="cuda")
-    log(f"stack built in {time.perf_counter() - t0:.1f}s: budget "
-        f"{stack.budget:.4e} FLOPs/window, c_max {stack.c_max:.4e}")
+                              windows=args.windows, scenario="spike",
+                              seed=args.seed, device="cuda")
+    log(f"stack built in {time.perf_counter() - t0:.1f}s (scoring graphs "
+        f"captured): budget {stack.budget:.4e} FLOPs/window, c_max "
+        f"{stack.c_max:.4e}, windows {stack.sizes}")
     served = {}
     produce = stack.source.window
 
@@ -764,41 +877,65 @@ def serve_full(args):
         return chunk
 
     stack.source.window = window
+    misses = stack.source.cache_misses
     torch.cuda.synchronize()
     ops.reset_launches()
-    st = serve.serve(stack, sync=True)
+    st = serve.serve(stack, sync=True, prefetch=2)
     launches = dict(ops.LAUNCHES)
     del stack.source.window
     for line in window_table(st):
         log(line)
-    log(f"main-path launches over {len(st.windows)} windows: {launches}")
+    chunks = stack.source.cache_misses - misses
+    log(f"main-path launches over {len(st.windows)} windows, {chunks} "
+        f"scoring chunks: {launches}; compiles {st.compiles}, steady "
+        f"{st.steady_compiles}")
+    log(f"stream (prefetch 2, synchronised after each window): wall "
+        f"{st.wall_s * 1e3:.3f} ms; serve_window ms (to the device's end) "
+        f"{[round(x, 3) for x in st.submit_ms]}; stall ms "
+        f"{[round(x, 3) for x in st.stall_ms]}; prep ms (producer thread) "
+        f"{[round(x, 3) for x in st.prep_ms]}")
+    c_min = float(stack.source.chains.costs.min())
     for t, r in enumerate(st.windows):
         spend, lam = float(r.spend), float(r.lam_after)
         rev = float(r.revenue_np.sum())
-        if not spend <= r.budget + stack.c_max:
-            raise AssertionError(f"window {t}: spend {spend} over budget "
-                                 f"{r.budget} + c_max")
+        # the guard's bound: the budget, or n * c_min when even the
+        # cheapest chain for all does not fit (the spike windows)
+        cap = max(r.budget, r.n_valid * c_min)
+        if not spend <= cap + stack.c_max:
+            raise AssertionError(f"window {t}: spend {spend} over "
+                                 f"max(budget, n c_min) {cap} + c_max")
         if not math.isfinite(lam):
             raise AssertionError(f"window {t}: lambda {lam} not finite")
         if not rev > 0:
             raise AssertionError(f"window {t}: revenue {rev} not > 0")
         if r.decisions.shape != (len(r.valid),):
             raise AssertionError(f"window {t}: decisions shape")
+    if st.steady_compiles != 0:
+        raise AssertionError(f"steady-state captures: {st.compiles}")
+    n_blocks = -(-stack.source._n_items() // stack.source.item_block)
+    want = {"cascade_truncate": len(st.windows),
+            "target_attention": n_blocks * chunks, "embedding_bag": chunks}
+    expect_chunks = sum(-(-n // stack.source.chunk) for n in stack.sizes)
     for name, cnt in launches.items():
-        if (cnt < 1) == (name in WINDOW_KERNELS):
+        if cnt != want.get(name, 0) or chunks != expect_chunks:
             raise AssertionError(f"kernel {name} launched {cnt} times on "
-                                 f"the serving window path")
+                                 f"the serving window path, eager counts "
+                                 f"{want} over {expect_chunks} chunks")
     launches = {k: launches[k] for k in WINDOW_KERNELS}
     check_window(stack, served[0], st.windows[0])
     log("window 0 as served: device tables == host builder, revenue == "
-        "plain truncation")
+        "plain truncation; launches == the eager counts (1 truncation a "
+        f"window, {n_blocks} target attention and 1 bag a chunk)")
+    check_captured_vs_eager(stack)
+    check_no_sync(stack)
     return stack, st, launches
 
 
 def profile_window(stack) -> None:
-    """One more full-width window (produce + serve) under torch.profiler:
-    device time per kernel, the host and device span of each phase
-    range, and the device's idle share of the window's wall time."""
+    """One more full-width window (produce + serve), warm, through the
+    graphs, under torch.profiler: device time per kernel, the host and
+    device span of each phase range, the device's idle share of the
+    window's wall time, and the graphs' capture times and pools."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -809,12 +946,16 @@ def profile_window(stack) -> None:
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         chunk = stack.source.window(1000, n)
-        stack.pipeline.serve_window(chunk.ctx, chunk.rows,
-                                    tables=chunk.tables, update_lam=False)
+        res = stack.pipeline.serve_window(chunk.ctx, chunk.rows,
+                                          tables=chunk.tables,
+                                          update_lam=False,
+                                          ready=chunk.ready)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
+    if res.compiles:
+        raise AssertionError("the profiled window was not warm")
     # device busy: the table's "Self CUDA time total" - kernels, copies
-    # and sets, not the annotation ranges (one stream, so no overlap)
+    # and sets, not the annotation ranges (streams overlap little here)
     busy_ms = sum(e.self_device_time_total for e in prof.key_averages()
                   if e.device_type == DeviceType.CUDA
                   and not e.is_user_annotation) / 1e3
@@ -825,14 +966,18 @@ def profile_window(stack) -> None:
             spans.setdefault(e.name, {"host": 0.0, "device": 0.0})
             spans[e.name][side] += e.time_range.elapsed_us() / 1e3
     order = sorted(spans.items(), key=lambda kv: -kv[1]["host"])
-    log(f"profiled window: wall {wall_ms:.3f} ms, device busy "
-        f"{busy_ms:.3f} ms (idle share "
+    log(f"profiled window (warm, graphs): wall {wall_ms:.3f} ms, device "
+        f"busy {busy_ms:.3f} ms (idle share "
         f"{max(0.0, 1 - busy_ms / wall_ms):.4f})")
     for k, v in order:
         log(f"  range {k}: host span {v['host']:.3f} ms, device span "
             f"{v['device']:.3f} ms")
     print(prof.key_averages().table(sort_by="self_device_time_total",
                                     row_limit=15), flush=True)
+    graph_report(stack)
+    log(f"device memory reserved {torch.cuda.memory_reserved() / 1e9:.3f} "
+        f"GB, peak allocated {torch.cuda.max_memory_allocated() / 1e9:.3f} "
+        f"GB")
 
 
 def profile_call(label: str, fn, rows: int = 8, kernel: str | None = None):
@@ -1258,7 +1403,7 @@ def window_inputs(seed: int, dev):
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--windows", type=int, default=3)
+    ap.add_argument("--windows", type=int, default=6)
     ap.add_argument("--requests", type=int, default=512)
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
@@ -1313,7 +1458,10 @@ def main(argv=None) -> int:
     n_windows = len(st.windows)
     profile_window(stack)
     del stack, st
+    gc.collect()  # the programs' closures form cycles; free their graphs
     torch.cuda.empty_cache()
+    log(f"graphs released: {torch.cuda.memory_reserved() / 1e9:.3f} GB "
+        f"reserved")
     zoo_launches = serve_zoo(args.seed)
     small_parity(args.seed)
     zoo_parity(args.seed)

@@ -43,22 +43,35 @@ class CascadeModels:
     dien_cfg: dien.DIENConfig
 
 
-def _user_batch(world, users: np.ndarray, device, pad_to: int | None = None
+def _user_batch(world, users: np.ndarray, device, pad_to: int | None = None,
+                *, out: dict | None = None, staging: dict | None = None
                 ) -> dict:
     """Model feature batch for ``users`` of a world, on ``device``; rows
-    past len(users) up to ``pad_to`` are zeros (a fixed chunk shape)."""
+    past len(users) up to ``pad_to`` are zeros (a fixed chunk shape).
+
+    With ``out`` (static device buffers of the padded shape, one per
+    key) and ``staging`` (pinned host buffers of the same shapes), the
+    rows are written into the staging buffers and copied into ``out``
+    with ``non_blocking`` copies on the current stream: the caller keeps
+    the staging buffers untouched until those copies have completed."""
     n = len(users)
     rows = n if pad_to is None else int(pad_to)
-    out = {}
+    fresh = {}
     for key, arr, dt in (
             ("user_fields", world.user_fields[users], np.int64),
             ("hist_ids", world.hist_ids[users], np.int64),
             ("hist_cats", world.item_cat[world.hist_ids[users]], np.int64),
             ("hist_mask", world.hist_mask[users], np.float32)):
-        buf = np.zeros((rows, *arr.shape[1:]), dt)
-        buf[:n] = arr
-        out[key] = torch.from_numpy(buf).to(device)
-    return out
+        if out is None:
+            buf = np.zeros((rows, *arr.shape[1:]), dt)
+            buf[:n] = arr
+            fresh[key] = torch.from_numpy(buf).to(device)
+            continue
+        host = staging[key].numpy()
+        host[:n] = arr
+        host[n:] = 0
+        out[key].copy_(staging[key], non_blocking=True)
+    return fresh if out is None else out
 
 
 def _k3_layout(chains: ActionChainSet, *, n_items: int):
@@ -191,22 +204,39 @@ def _desc_perm_torch(scores, ids):
     return torch.sort(key, dim=-1, stable=True).indices
 
 
-def _compact_group_tables_torch(stage_scores: dict, lay: dict, clicks):
+def compact_index(lay: dict, device) -> dict:
+    """The k3 layout's index vectors for ``_compact_group_tables_torch``
+    as tensors on ``device``: the distinct n2 thresholds, each group's n2
+    position and rank model.  Made once with the layout, so the builder
+    copies nothing from the host (a CUDA graph can capture it)."""
+    gk = lay["group_key"]
+    n2_list = sorted({g[1] for g in gk})
+    n2_pos = {n2: k for k, n2 in enumerate(n2_list)}
+    return {k: torch.as_tensor(np.asarray(v, np.int64), device=device)
+            for k, v in (("n2", n2_list),
+                         ("n2_of_g", [n2_pos[n2] for _, n2, _ in gk]),
+                         ("m_of_g", [mi for mi, _, _ in gk]))}
+
+
+def _compact_group_tables_torch(stage_scores: dict, lay: dict, clicks,
+                                index: dict | None = None):
     """``_compact_group_tables`` on device tensors.
 
     Every step is row (user) independent, so a padded scoring chunk
     compacts at the fixed chunk shape and is sliced to the real rows
-    afterwards.  Scores must be float32.  Returns (p_sorted (G, U, cap)
-    int32, clicks_sorted (G, U, cap) float32), bitwise equal to the
-    host builder."""
+    afterwards.  Scores must be float32.  ``index`` is
+    ``compact_index(lay, device)`` (made here when None).  Returns
+    (p_sorted (G, U, cap) int32, clicks_sorted (G, U, cap) float32),
+    bitwise equal to the host builder."""
     m0, m1, mr = lay["stage_names"]
     u_n, i_n = clicks.shape
     dev = clicks.device
     gk = lay["group_key"]
     n2_list = sorted({g[1] for g in gk})
-    n2_pos = {n2: k for k, n2 in enumerate(n2_list)}
     n2_max = n2_list[-1]
     cap = min(n2_max, max(max(g[2]) for g in gk))
+    if index is None:
+        index = compact_index(lay, dev)
 
     s0 = stage_scores[m0]
     if s0.dtype != torch.float32:
@@ -219,8 +249,7 @@ def _compact_group_tables_torch(stage_scores: dict, lay: dict, clicks):
 
     # per distinct n2 (batched): compact the first-cap stage-1 survivors
     k2 = len(n2_list)
-    n2_arr = torch.as_tensor(n2_list, device=dev)
-    s1 = yperm[None, :, :] < n2_arr[:, None, None]
+    s1 = yperm[None, :, :] < index["n2"][:, None, None]
     s1_i = s1.to(torch.int64)
     q2 = torch.cumsum(s1_i, dim=2) - s1_i  # exclusive survivor count
     slot = torch.where(s1 & (q2 < cap), q2, torch.full_like(q2, cap))
@@ -234,8 +263,7 @@ def _compact_group_tables_torch(stage_scores: dict, lay: dict, clicks):
     lpos_c = torch.clamp(lpos, max=n2_max - 1)
 
     # per group = (rank model, n2): rank-model (-score, id) order
-    n2_of_g = torch.as_tensor([n2_pos[n2] for _, n2, _ in gk], device=dev)
-    m_of_g = torch.as_tensor([mi for mi, _, _ in gk], device=dev)
+    n2_of_g, m_of_g = index["n2_of_g"], index["m_of_g"]
     g_items = torch.gather(l_items[None].expand(k2, u_n, n2_max), 2,
                            lpos_c)[n2_of_g]  # (G, U, cap)
     g_valid = lvalid[n2_of_g]

@@ -46,19 +46,27 @@ def dual_descent(rewards, costs, budget, lam0, *, mask=None,
     have the scale of reward per unit cost, so the step is normalized by
     n * mean(cost)^2 (n = valid requests, floored at 1 so an empty
     window cannot slam the price to 0).  Returns (lam, gaps (L,)) as
-    device tensors."""
+    device tensors.  ``budget`` and ``lam0`` are numbers or device
+    tensors; numbers enter by fill kernels, never by a host copy, so a
+    CUDA graph can capture the whole loop."""
     costs = costs.to(torch.float32)
     rewards = rewards.to(torch.float32)
     dev = rewards.device
     f32 = torch.float32
+
+    def scalar(x):
+        if isinstance(x, torch.Tensor):
+            return x.to(device=dev, dtype=f32)
+        return torch.full((), float(x), dtype=f32, device=dev)
+
     if mask is None:
-        n_eff = torch.tensor(float(rewards.shape[0]), dtype=f32, device=dev)
+        n_eff = scalar(rewards.shape[0])
     else:
         n_eff = torch.sum(mask.to(f32))
     norm = torch.clamp(n_eff, min=1.0) * torch.mean(costs) ** 2 + 1e-30
-    budget = torch.as_tensor(budget, dtype=f32, device=dev)
-    lam = torch.as_tensor(lam0, dtype=f32, device=dev).clone()
-    eta = torch.tensor(step_size, dtype=f32, device=dev)
+    budget = scalar(budget)
+    lam = scalar(lam0).clone()
+    eta = scalar(step_size)
     gaps = []
     for _ in range(max_iters):
         gap = budget - consumption(rewards, costs, lam, mask)

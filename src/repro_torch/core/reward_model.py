@@ -171,26 +171,39 @@ def chain_prefix_plan(chain_model_idx: np.ndarray) -> tuple:
     return tuple(plan)
 
 
+def device_prefix_plan(plan: tuple, device) -> tuple:
+    """``chain_prefix_plan``'s index arrays as int64 tensors on
+    ``device``, made once: ``reward_matrix_grouped`` then copies nothing
+    from the host, so a CUDA graph can capture it."""
+    return tuple(tuple(torch.as_tensor(np.asarray(a, np.int64),
+                                       device=device) for a in triple)
+                 for triple in plan)
+
+
 def reward_matrix_grouped(params: dict, cfg: RewardModelConfig,
                           raw_context, chain_scale_multihot,
                           plan: tuple):
     """(I, J) rewards with per-stage model-prefix deduplication; ``plan``
-    comes from ``chain_prefix_plan`` on ``chain_idx[:, :, 0]``."""
+    comes from ``chain_prefix_plan`` on ``chain_idx[:, :, 0]``, as NumPy
+    arrays or already on the device (``device_prefix_plan``)."""
     f = encode_context(params, raw_context)  # (I, d_f)
     i_n = f.shape[0]
     j_n = chain_scale_multihot.shape[0]
     dev = f.device
     h = torch.zeros(i_n, 1, cfg.d_state, dtype=f.dtype, device=dev)
     total = torch.zeros(i_n, j_n, dtype=f.dtype, device=dev)
-    for k, (model_of_prefix, parent, chain_to_prefix) in enumerate(plan):
+    for k, triple in enumerate(plan):
+        model_of_prefix, parent, to_prefix = (torch.as_tensor(a, device=dev)
+                                              for a in triple)
         cell = params["cells"][k]
-        gather = parent if h.shape[1] > 1 else np.zeros_like(parent)
         n_p = len(model_of_prefix)
-        to_prefix = torch.as_tensor(chain_to_prefix, device=dev)
+        # one carried state (stage 0, or no recursion) is every prefix's
+        h_p = (h[:, parent, :] if h.shape[1] > 1
+               else h.expand(i_n, n_p, cfg.d_state))
         z = torch.cat([
-            h[:, torch.as_tensor(gather, device=dev), :],
+            h_p,
             f[:, None, :].expand(i_n, n_p, f.shape[-1]),
-            cell["model_emb"][torch.as_tensor(model_of_prefix, device=dev)]
+            cell["model_emb"][model_of_prefix]
             [None].expand(i_n, n_p, cfg.d_model_emb),
         ], dim=-1)
         t = L.mlp_apply(cell["trunk"], z, act="relu", final_act="relu")

@@ -11,10 +11,15 @@ window, never with the user universe.
 models scored over the whole corpus on the device at a FIXED chunk
 shape, clicks realized per (user, item), and the tables compacted on
 the device (``_compact_group_tables_torch``) - the scores never leave
-the card.  Each phase runs under a ``torch.profiler.record_function``
-range (``world/slab``, ``score/<model>``, ``tables/compact``) so a
-profiler trace attributes device time to it; outside a profiler the
-ranges cost a few microseconds each.
+the card.  The scoring runs as fixed-shape programs (``graphs.Program``:
+one CUDA graph per stage model and one for the compaction, the port's
+``jax.jit``), a slab-keyed LRU cache of chunk tables lets repeat
+arrivals skip hashing and scoring, and ``workers`` chunk scorers serve
+a multi-chunk window on a thread pool.  Each phase runs under a
+``torch.profiler.record_function`` range (``world/slab``,
+``score/<model>``, ``tables/compact``, around the replays) so a profiler
+trace attributes device time to it; outside a profiler the ranges cost
+a few microseconds each.
 
 ``source.universe`` is the server-shaped handle a streaming
 ``ServingPipeline`` is built over: the chain set and compact layout
@@ -22,6 +27,10 @@ without per-user tables; every window brings its chunk's tables.
 """
 from __future__ import annotations
 
+import queue
+import threading
+from collections import OrderedDict
+from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass
 
 import numpy as np
@@ -31,10 +40,13 @@ from torch.profiler import record_function
 from repro_torch.cascade.engine import (CascadeModels, CompactPlan,
                                         _compact_group_tables_torch,
                                         _k3_layout, _user_batch,
-                                        build_compact_layout)
+                                        build_compact_layout, compact_index)
 from repro_torch.data.synthetic import StreamingWorld
 from repro_torch.device import resolve_device
+from repro_torch.graphs import Program, consume, record_event, side_stream
 from repro_torch.models.recsys import dien, din, dssm, ydnn
+
+STAGE_MODELS = ("DSSM", "YDNN", "DIN", "DIEN")
 
 
 @dataclass
@@ -48,6 +60,7 @@ class WindowChunk:
     tables: dict  # {"p": (G, n, cap) int32, "ck": (G, n, cap) float32}
     users: np.ndarray | None = None  # (n,) global user ids
     h2d_bytes: int = 0  # host->device bytes this chunk's production cost
+    ready: object = None  # CUDA event after which the tables are complete
 
     @property
     def n(self) -> int:
@@ -97,6 +110,79 @@ class RequestSource:
         raise NotImplementedError
 
 
+class _ScoringProgram:
+    """One chunk scorer: static device buffers at the chunk shape (the
+    model batch and the padded clicks), pinned staging buffers for them,
+    a CUDA stream of its own, and one ``Program`` per stage model plus
+    one for the table compaction, sharing one graph pool.  One thread at
+    a time uses it (``GeneratedSource`` hands programs out)."""
+
+    def __init__(self, src: "GeneratedSource", capture: bool):
+        dev, c, cfg = src.device, src.chunk, src.world.cfg
+        shapes = {"user_fields": ((c, cfg.n_user_fields), torch.int64),
+                  "hist_ids": ((c, cfg.hist_len), torch.int64),
+                  "hist_cats": ((c, cfg.hist_len), torch.int64),
+                  "hist_mask": ((c, cfg.hist_len), torch.float32),
+                  "clicks": ((c, cfg.n_items), torch.float32)}
+        self.inputs = {k: torch.zeros(s, dtype=dt, device=dev)
+                       for k, (s, dt) in shapes.items()}
+        self.staging = {k: torch.zeros(s, dtype=dt,
+                                       pin_memory=dev.type == "cuda")
+                        for k, (s, dt) in shapes.items()}
+        self.stream = side_stream(dev)
+        self.copied = None  # event: the staging buffers' copies are done
+        kw = dict(capture=capture, stream=self.stream,
+                  pool=torch.cuda.graph_pool_handle() if capture else None)
+        ub = {k: v for k, v in self.inputs.items() if k != "clicks"}
+
+        def scorer(name):
+            return lambda: {"scores": src.score_model(name, ub)}
+
+        self.models = {name: Program(scorer(name), **kw)
+                       for name in STAGE_MODELS}
+
+        def compact():
+            p, ck = _compact_group_tables_torch(
+                {k: prog.out["scores"] for k, prog in self.models.items()},
+                src._lay, self.inputs["clicks"], src._index)
+            return {"p": p, "ck": ck}
+
+        self.tables = Program(compact, **kw)
+        if capture:  # capture at construction, on the zero batch
+            with torch.cuda.stream(self.stream):
+                for prog in (*self.models.values(), self.tables):
+                    prog()
+
+    def run(self, src: "GeneratedSource", ids: np.ndarray):
+        """One chunk of arrivals -> (ctx, p, ck, ready, h2d_bytes): the
+        tables are copies, complete on the device after ``ready``."""
+        m = len(ids)
+        with record_function("world/slab"):
+            slab = src.world.user_slab(ids)
+            ctx = slab.reward_context(np.arange(m))
+            clicks = src.world.clicks_slab(ids, slab, pad_rows=src.chunk)
+            if self.copied is not None:
+                self.copied.synchronize()  # staging free again
+            with torch.cuda.stream(self.stream):
+                _user_batch(slab, np.arange(m), src.device, pad_to=src.chunk,
+                            out=self.inputs, staging=self.staging)
+                self.staging["clicks"].numpy()[:] = clicks
+                self.inputs["clicks"].copy_(self.staging["clicks"],
+                                            non_blocking=True)
+                self.copied = record_event(self.stream)
+        with torch.cuda.stream(self.stream):
+            for name, prog in self.models.items():
+                with record_function(f"score/{name}"):
+                    prog()
+            with record_function("tables/compact"):
+                out = self.tables()
+                # copies: the next replay overwrites the static outputs
+                p, ck = out["p"][:, :m].clone(), out["ck"][:, :m].clone()
+            ready = record_event(self.stream)
+        h2d = sum(v.numel() * v.element_size() for v in self.staging.values())
+        return ctx, p, ck, ready, h2d
+
+
 class GeneratedSource(RequestSource):
     """On-the-fly request generation from a ``StreamingWorld``.
 
@@ -107,12 +193,25 @@ class GeneratedSource(RequestSource):
     clicks and compact the (chunk, I) scores into (G, chunk, cap) tables
     on the device, sliced to the real rows.  ``device`` defaults to the
     card and raises without one.
+
+    On the card each of ``workers`` chunk scorers captures its stage
+    models and the compaction as CUDA graphs at construction, on a
+    stream of its own; chunk tables then reach a consumer on another
+    stream through ``WindowChunk.ready`` (``graphs.consume``).  A
+    scorer's graph pool holds its capture's peak - 20.2 GB at the full
+    width, 512 users against 4,000 items, most of it DIEN's attention
+    features (PERF.md) - so ``workers`` defaults to one.  A slab-keyed LRU
+    cache of ``table_cache`` chunk tables returns repeat arrivals without
+    scoring (``cache_hits``/``cache_misses``); a chunk is a pure function
+    of its arrival ids, so a hit, and a window scored on the pool, is
+    bitwise the sequential result.
     """
 
     def __init__(self, world: StreamingWorld, models: CascadeModels,
                  chains, *, expose: int, seed: int = 0, chunk: int = 512,
-                 item_block: int = 256, device=None):
-        self.device = resolve_device(device)
+                 item_block: int = 256, table_cache: int = 64,
+                 workers: int = 1, device=None):
+        self.device = dev = resolve_device(device)
         self.world = world
         self.models = models
         self.chains = chains
@@ -124,11 +223,31 @@ class GeneratedSource(RequestSource):
         self._lay = _k3_layout(chains, n_items=world.cfg.n_items)
         if self._lay is None:
             raise ValueError("GeneratedSource needs the k3 cascade layout")
-        dev = self.device
+        self._index = compact_index(self._lay, dev)
         n_items = world.cfg.n_items
         self._item_ids = torch.arange(n_items, device=dev)
         self._item_cats = torch.as_tensor(world.item_cat, device=dev)
-        self._dssm_items = None  # corpus item-tower vectors (lazy)
+        if models.dssm_cfg.n_item_fields == 1:
+            fields = self._item_cats[:, None]
+        else:
+            fields = torch.stack([self._item_ids, self._item_cats], -1)
+        with torch.no_grad():  # the corpus item tower, once
+            self._dssm_items = dssm.item_tower(models.dssm_params,
+                                               models.dssm_cfg, fields)
+        self._cache: OrderedDict = OrderedDict()  # slab key -> tables
+        self._cache_cap = int(table_cache)
+        self._lock = threading.Lock()
+        self.cache_hits = 0
+        self.cache_misses = 0
+        self.workers = int(workers)
+        self._pool = None
+        self._stream = side_stream(dev)  # joins a window's chunks
+        capture = dev.type == "cuda"
+        self.programs = [_ScoringProgram(self, capture)
+                         for _ in range(self.workers)]
+        self._free: queue.SimpleQueue = queue.SimpleQueue()
+        for prog in self.programs:
+            self._free.put(prog)
 
     def _n_items(self) -> int:
         return int(self.world.cfg.n_items)
@@ -137,61 +256,67 @@ class GeneratedSource(RequestSource):
     def d_context(self) -> int:
         return self.world.d_context
 
+    def close(self) -> None:
+        """Shut the chunk-scorer thread pool down (if one was started)."""
+        if self._pool is not None:
+            self._pool.shutdown()
+            self._pool = None
+
     # -- fixed-shape stage scoring on the device ---------------------------
 
     @torch.no_grad()
-    def score_slab(self, ub: dict) -> dict:
-        """{name: (chunk, I) f32} stage scores for a padded user batch."""
+    def score_model(self, name: str, ub: dict):
+        """(chunk, I) f32 scores of one stage model for a padded user
+        batch, eagerly."""
         m = self.models
         n_items = self._n_items()
-        if self._dssm_items is None:
-            if m.dssm_cfg.n_item_fields == 1:
-                fields = self._item_cats[:, None]
-            else:
-                fields = torch.stack([self._item_ids, self._item_cats], -1)
-            self._dssm_items = dssm.item_tower(m.dssm_params, m.dssm_cfg,
-                                               fields)
-        c = ub["user_fields"].shape[0]
-        scores = {}
-        with record_function("score/DSSM"):
-            scores["DSSM"] = dssm.user_tower(
-                m.dssm_params, m.dssm_cfg,
-                ub["user_fields"]) @ self._dssm_items.T
-        with record_function("score/YDNN"):
-            scores["YDNN"] = ydnn.user_vector(
+        if name == "DSSM":
+            return dssm.user_tower(m.dssm_params, m.dssm_cfg,
+                                   ub["user_fields"]) @ self._dssm_items.T
+        if name == "YDNN":
+            return ydnn.user_vector(
                 m.ydnn_params, m.ydnn_cfg, ub["hist_ids"], ub["hist_mask"],
                 ub["user_fields"]) \
                 @ m.ydnn_params["out_emb"]["table"][:n_items].T
-        for name, mod, params, cfg in (
-                ("DIN", din, m.din_params, m.din_cfg),
-                ("DIEN", dien, m.dien_params, m.dien_cfg)):
-            cols = []
-            with record_function(f"score/{name}"):
-                for lo in range(0, n_items, self.item_block):
-                    hi = min(n_items, lo + self.item_block)
-                    ids = self._item_ids[lo:hi].expand(c, hi - lo)
-                    cats = self._item_cats[lo:hi].expand(c, hi - lo)
-                    cols.append(mod.score(params, cfg, ub, ids, cats))
-                scores[name] = torch.cat(cols, dim=1)
-        return scores
+        mod, params, cfg = {"DIN": (din, m.din_params, m.din_cfg),
+                            "DIEN": (dien, m.dien_params, m.dien_cfg)}[name]
+        c = ub["user_fields"].shape[0]
+        cols = []
+        for lo in range(0, n_items, self.item_block):
+            hi = min(n_items, lo + self.item_block)
+            ids = self._item_ids[lo:hi].expand(c, hi - lo)
+            cats = self._item_cats[lo:hi].expand(c, hi - lo)
+            cols.append(mod.score(params, cfg, ub, ids, cats))
+        return torch.cat(cols, dim=1)
+
+    def score_slab(self, ub: dict) -> dict:
+        """{name: (chunk, I) f32} stage scores for a padded user batch,
+        eagerly: the reference the scoring programs replay."""
+        return {name: self.score_model(name, ub) for name in STAGE_MODELS}
 
     def _chunk_tables(self, ids: np.ndarray):
-        """One scoring chunk -> (ctx, p, ck, h2d_bytes), tables on the
-        device sliced to the chunk's real rows."""
-        m = len(ids)
-        with record_function("world/slab"):
-            slab = self.world.user_slab(ids)
-            ctx = slab.reward_context(np.arange(m))
-            ub = _user_batch(slab, np.arange(m), self.device,
-                             pad_to=self.chunk)
-            clicks = self.world.clicks_slab(ids, slab, pad_rows=self.chunk)
-        h2d = sum(int(v.numel()) * v.element_size() for v in ub.values())
-        h2d += clicks.nbytes
-        scores = self.score_slab(ub)
-        with record_function("tables/compact"):
-            p, ck = _compact_group_tables_torch(
-                scores, self._lay, torch.from_numpy(clicks).to(self.device))
-        return ctx, p[:, :m], ck[:, :m], h2d
+        """One scoring chunk -> (ctx, p, ck, ready, h2d_bytes), tables on
+        the device sliced to the chunk's real rows; from the slab cache
+        when these exact arrivals were produced before (a hit is the
+        result: a chunk is a pure function of its ids)."""
+        key = (len(ids), ids.tobytes())
+        with self._lock:
+            hit = self._cache.get(key)
+            if hit is not None:
+                self._cache.move_to_end(key)
+                self.cache_hits += 1
+                return (*hit, 0)
+            self.cache_misses += 1
+        prog = self._free.get()  # never two threads on one program
+        try:
+            ctx, p, ck, ready, h2d = prog.run(self, ids)
+        finally:
+            self._free.put(prog)
+        with self._lock:
+            self._cache[key] = (ctx, p, ck, ready)
+            while len(self._cache) > self._cache_cap:
+                self._cache.popitem(last=False)
+        return ctx, p, ck, ready, h2d
 
     # -- window production -------------------------------------------------
 
@@ -213,16 +338,28 @@ class GeneratedSource(RequestSource):
         """Chunk for an explicit arrival list (rows = arange(len))."""
         users = np.asarray(users)
         n = len(users)
-        parts = [self._chunk_tables(users[lo:lo + self.chunk])
-                 for lo in range(0, n, self.chunk)]
+        chunk_ids = [users[lo:lo + self.chunk]
+                     for lo in range(0, n, self.chunk)]
+        if self.workers > 1 and len(chunk_ids) > 1:
+            if self._pool is None:
+                self._pool = ThreadPoolExecutor(
+                    max_workers=self.workers,
+                    thread_name_prefix="chunk-score")
+            parts = list(self._pool.map(self._chunk_tables, chunk_ids))
+        else:
+            parts = [self._chunk_tables(ids) for ids in chunk_ids]
         if len(parts) == 1:
-            ctx, p, ck, h2d = parts[0]
+            ctx, p, ck, ready, h2d = parts[0]
         else:
             ctx = np.concatenate([pt[0] for pt in parts], axis=0)
-            p = torch.cat([pt[1] for pt in parts], dim=1)
-            ck = torch.cat([pt[2] for pt in parts], dim=1)
-            h2d = sum(pt[3] for pt in parts)
+            with torch.cuda.stream(self._stream):
+                for pt in parts:
+                    consume(pt[1:3], pt[3])
+                p = torch.cat([pt[1] for pt in parts], dim=1)
+                ck = torch.cat([pt[2] for pt in parts], dim=1)
+                ready = record_event(self._stream)
+            h2d = sum(pt[4] for pt in parts)
         return WindowChunk(ctx=np.asarray(ctx, np.float32),
                            rows=np.arange(n, dtype=np.int32),
                            tables={"p": p, "ck": ck}, users=users,
-                           h2d_bytes=int(h2d))
+                           h2d_bytes=int(h2d), ready=ready)

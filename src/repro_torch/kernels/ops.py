@@ -10,11 +10,18 @@ device's current stream; it never synchronises.
 
 ``LAUNCHES`` counts kernel launches per kernel: each wrapper adds one
 right where it launches, and nowhere else, so a run can show that its
-main path went through the kernels.
+main path went through the kernels.  A CUDA graph capture runs the
+wrappers' Python but launches nothing, and its replays launch without
+running any Python: ``recording`` gathers a capture's counts apart, and
+the graph's owner adds them with ``add_launches`` at every replay
+(``repro_torch.graphs``), so the counts keep meaning launches that
+happened.  Counting is thread-safe.
 """
 from __future__ import annotations
 
+import contextlib
 import math
+import threading
 
 import torch
 
@@ -26,9 +33,42 @@ LAUNCHES = {"cascade_truncate": 0, "target_attention": 0,
             "flash_attention": 0, "flash_attention_wgmma": 0}
 
 
+_LOCK = threading.Lock()
+_CAPTURE = threading.local()  # .counts: the capture this thread records
+
+
 def reset_launches() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
+    with _LOCK:
+        for k in LAUNCHES:
+            LAUNCHES[k] = 0
+
+
+def add_launches(counts: dict) -> None:
+    """Add ``counts`` (kernel -> launches) to ``LAUNCHES``."""
+    with _LOCK:
+        for k, v in counts.items():
+            LAUNCHES[k] += v
+
+
+@contextlib.contextmanager
+def recording():
+    """While this thread captures a CUDA graph: the wrappers' counts go
+    to the yielded dict, not to ``LAUNCHES`` (the capture launches
+    nothing; each replay launches them all)."""
+    prev = getattr(_CAPTURE, "counts", None)
+    _CAPTURE.counts = counts = {}
+    try:
+        yield counts
+    finally:
+        _CAPTURE.counts = prev
+
+
+def _count(name: str) -> None:
+    counts = getattr(_CAPTURE, "counts", None)
+    if counts is not None:
+        counts[name] = counts.get(name, 0) + 1
+    else:
+        add_launches({name: 1})
 
 
 def _on_cpu(*ts) -> bool:
@@ -51,7 +91,7 @@ def cascade_truncate(p_sorted, clicks_sorted, groups, rows, n3, *,
     out = load().cascade_truncate(p_sorted, clicks_sorted, groups, rows, n3,
                                   int(expose))
     if groups.shape[0]:  # the binding launches for B > 0
-        LAUNCHES["cascade_truncate"] += 1
+        _count("cascade_truncate")
     return out
 
 
@@ -64,7 +104,7 @@ def target_attention(q, keys, mask, w1, b1, w2, b2, w3, b3):
                                         b3)
     out = load().target_attention(q, keys, mask, w1, b1, w2, b2, w3, b3)
     if q.shape[0] and q.shape[1]:  # launched for B, N > 0
-        LAUNCHES["target_attention"] += 1
+        _count("target_attention")
     return out
 
 
@@ -75,7 +115,7 @@ def embedding_bag(table, ids, weights=None):
         return ref.embedding_bag_ref(table, ids, weights)
     out = load().embedding_bag(table, ids, weights)
     if out.numel():  # launched for B, D > 0
-        LAUNCHES["embedding_bag"] += 1
+        _count("embedding_bag")
     return out
 
 
@@ -86,7 +126,7 @@ def dot_interact(feats):
         return ref.dot_interact_ref(feats)
     out = load().dot_interact(feats)
     if out.numel():  # launched for B > 0 and F > 1
-        LAUNCHES["dot_interact"] += 1
+        _count("dot_interact")
     return out
 
 
@@ -99,7 +139,7 @@ def cin_layer(w, x_prev, x0):
     # one count a call: the binding launches w's TF32 split, the product
     # and, when it cuts K into parts, their sum in a fixed order
     if out.numel() and w.shape[1]:  # launched unless empty or K = 0
-        LAUNCHES["cin_layer"] += 1
+        _count("cin_layer")
     return out
 
 
@@ -155,5 +195,5 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = -1,
     out = getattr(load(), name)(q, k, v, bool(causal), int(window),
                                 float(softcap or 0.0), float(scale))
     if out.numel():  # launched for B, T, H > 0
-        LAUNCHES[name] += 1
+        _count(name)
     return out

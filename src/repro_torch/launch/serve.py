@@ -1,14 +1,20 @@
 """GreenFlow streaming serving on the port (plain ``[GlobalAxis]`` spec).
 
     python -m repro_torch.launch.serve --source generated \\
-        [--device cuda|cpu] [--windows N] [--requests N] [--users N]
+        [--device cuda|cpu] [--windows N] [--requests N] [--users N] \\
+        [--prefetch N]
 
 streams a ``GeneratedSource`` day: every window samples arrivals from a
 hash-generated user universe, scores DSSM, YDNN, DIN and DIEN over the
 whole corpus on the device, compacts the scores into CompactPlan tables
 and serves the window (reward scoring -> Eq. 10 -> guard -> cascade ->
-nearline dual update).  It prints one line per window: n, spend/budget,
-lambda, downgraded, revenue and host ms.
+nearline dual update).  Scoring and each padding bucket's window pass
+replay CUDA graphs captured on first use; a producer thread makes the
+next ``--prefetch`` windows' chunks while the card serves (0: the
+sequential reference path, bitwise the same windows).  It prints one
+line per window: n, spend/budget, lambda, downgraded, revenue, host ms,
+the ms the serving thread waited for its chunk, the graph captures the
+window caused (0 once its bucket is warm) and its bucket.
 
 The full-width stack is the paper's: a 4000-item corpus with 100-long
 histories, the ``paper_stage_specs`` chains with expose 20, the stage
@@ -155,15 +161,17 @@ def build_stack(*, users: int = 100_000, requests: int = 512,
                       float(chains.costs.max()), dev)
 
 
-def serve(stack: ServeStack, *, sync: bool = True) -> StreamStats:
-    """Run the stack's windows; with ``sync`` the per-window times
-    include the device work."""
+def serve(stack: ServeStack, *, sync: bool = True,
+          prefetch: int = 2) -> StreamStats:
+    """Run the stack's windows with ``prefetch`` chunks made ahead on a
+    producer thread (0: sequentially); with ``sync`` the per-window
+    times include the device work."""
     do_sync = None
     if sync and stack.device.type == "cuda":
         do_sync = torch.cuda.synchronize
     with torch.no_grad():
         return run_stream(stack.pipeline, stack.sizes, stack.source,
-                          sync=do_sync)
+                          prefetch=prefetch, sync=do_sync)
 
 
 def main(argv=None) -> int:
@@ -186,6 +194,9 @@ def main(argv=None) -> int:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--small", action="store_true",
                     help="small world and narrow models (CPU-sized)")
+    ap.add_argument("--prefetch", type=int, default=2,
+                    help="window-prep prefetch queue depth (0 = the "
+                         "sequential double-buffered reference path)")
     args = ap.parse_args(argv)
     stack = build_stack(users=args.users, requests=args.requests,
                         windows=args.windows, scenario=args.scenario,
@@ -193,7 +204,7 @@ def main(argv=None) -> int:
                         small=args.small, device=args.device)
     print(f"[serve] device {stack.device}, {len(stack.sizes)} windows, "
           f"U={args.users:,}, budget {stack.budget:.4e} FLOPs/window")
-    st = serve(stack)
+    st = serve(stack, prefetch=args.prefetch)
     for line in window_table(st):
         print(line)
     c_min = float(stack.source.chains.costs.min())

@@ -461,3 +461,81 @@ def test_small_serve_card_matches_cpu(cuda):
         assert (a.decisions_np == b.decisions_np).mean() >= 0.99
         torch.testing.assert_close(a.lam_after.cpu(), b.lam_after.cpu(),
                                    rtol=1e-2, atol=0.0)
+
+
+def _small_stack(**kw):
+    from repro_torch.launch import serve
+
+    return serve.build_stack(users=5000, requests=64, windows=4,
+                             small=True, device="cuda", **kw)
+
+
+def test_window_graphs_bitwise_eager(cuda):
+    """The captured window programs against the same programs run
+    eagerly (``graphs=False``) at a pinned price, on cold and warm
+    buckets: decisions, revenue, spend, downgrades, FLOPs and the
+    published price bit for bit; and the scoring graphs' stage scores
+    against eager ``score_slab`` on the batch they last scored."""
+    from repro_torch.serving.pipeline import ServingPipeline
+
+    stack = _small_stack()
+    src, pipe = stack.source, stack.pipeline
+    eager = ServingPipeline(src.universe, pipe.reward_params,
+                            pipe.reward_cfg, stack.budget, graphs=False,
+                            device=cuda)
+    compiles = []
+    for t, n in enumerate((48, 60, 50, 64, 64)):
+        c = src.window(t, n)
+        got, want = (p.serve_window(c.ctx, c.rows, tables=c.tables,
+                                    lam=1e-9 * t, ready=c.ready)
+                     for p in (pipe, eager))
+        torch.cuda.synchronize()
+        compiles.append(got.compiles)
+        for name in ("decisions", "revenue", "spend", "downgraded", "flops",
+                     "lam_before", "lam_after"):
+            assert torch.equal(getattr(got, name), getattr(want, name)), \
+                (t, name)
+    assert compiles == [2, 0, 0, 2, 0]  # (64, True) and (64, False)
+    sp = src.programs[0]
+    ref_scores = src.score_slab({k: v for k, v in sp.inputs.items()
+                                 if k != "clicks"})
+    torch.cuda.synchronize()
+    for name, prog in sp.models.items():
+        assert torch.equal(prog.out["scores"], ref_scores[name]), name
+
+
+def test_window_replay_never_syncs(cuda):
+    """A warm bucket's window under set_sync_debug_mode("error")."""
+    stack = _small_stack()
+    src, pipe = stack.source, stack.pipeline
+    for t in range(3):
+        c = src.window(t, 64)
+        torch.cuda.synchronize()
+        if t:  # the bucket is warm
+            torch.cuda.set_sync_debug_mode("error")
+        try:
+            r = pipe.serve_window(c.ctx, c.rows, tables=c.tables,
+                                  ready=c.ready)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        assert r.compiles == (0 if t else 2)
+
+
+def test_stream_launch_counts_equal_eager(cuda):
+    """Prefetched through the graphs, the kernels launch as eagerly: one
+    truncation a window, one target attention an item block and one bag
+    a scoring chunk, captures counting nothing."""
+    from repro_torch.serving.stream import run_stream
+
+    stack = _small_stack(chunk=64)
+    src = stack.source
+    sizes = [64, 150, 64, 150]
+    ops.reset_launches()
+    st = run_stream(stack.pipeline, sizes, src, prefetch=2)
+    torch.cuda.synchronize()
+    chunks = sum(-(-n // 64) for n in sizes)
+    blocks = -(-src._n_items() // src.item_block)
+    assert src.cache_misses == chunks and st.steady_compiles == 0
+    assert {k: v for k, v in ops.LAUNCHES.items() if v} == {
+        "cascade_truncate": len(sizes), "target_attention": blocks * chunks,
+        "embedding_bag": chunks}
