@@ -55,6 +55,20 @@ In order, it
      pinned price (both buckets) and the scoring graphs against eager
      ``score_slab``, and serves two steady-state windows with
      prefetch=0 under ``torch.cuda.set_sync_debug_mode("error")``;
+  4b. (after step 5's profile, which stays comparable with earlier
+     runs) on the same source, before its graphs are released, serves two
+     multi-price pipelines, 4 windows of 512 requests each, prefetch 2,
+     through their CUDA graphs: 4 priced tenants whose budgets spread 4x
+     (a (4,) price vector), and 3 priced tenants x 2 regions (a (5,)
+     price vector, the flow split, gram budgets and kappa * CI scales
+     from a fixed two-region trace whose region b doubles in windows
+     2-3), each with the counters reset before and read after; checks
+     every tenant's and region's spend against its budget (+ one
+     option's cost), the eager launch counts, zero steady-state
+     captures, captured == ``graphs=False`` bitwise at a pinned price
+     across the budget/scale change, no host sync in a steady window;
+     then a materialized ``CascadeServer`` over one full-width slab
+     serves through the truncation kernel exactly as the plain oracle;
   5. profiles one more full-width window (warm, through the graphs)
      under ``torch.profiler`` and prints its wall time, the device's busy
      time and idle share, each phase range's host and device span, the
@@ -931,29 +945,283 @@ def serve_full(args):
     return stack, st, launches
 
 
-def profile_window(stack) -> None:
+# -- phase 4b: tenants and regions on the same source ------------------------
+
+# a fixed two-region grid-intensity trace (gCO2e/kWh) for the geotenants
+# day; region b's intensity doubles in windows 2-3
+GEO_CI = ((420.0, 300.0), (380.0, 320.0), (400.0, 620.0), (440.0, 580.0))
+GEO_CI_MEAN = 400.0
+MULTI_PRICE_FIELDS = WINDOW_FIELDS + ("tenant_spend", "regions",
+                                      "region_spend", "tr_spend")
+
+
+class _Offset:
+    """The phase-4 source with window t at ``t + offset``: other arrivals
+    (so every chunk is scored, none served from the slab cache)."""
+
+    def __init__(self, src, offset: int):
+        self.src, self.offset = src, offset
+
+    def window(self, t, n):
+        return self.src.window(t + self.offset, n)
+
+
+def multi_price_cases(stack) -> dict:
+    """The two multi-price pipelines' specs and 4-window day traces:
+    ``tenants``, 4 priced tenants whose budgets spread 4x (as ``launch
+    .serve --scenario tenants --tenant-mode priced --tenant-spread 4``);
+    ``geotenants``, 3 priced tenants x 2 regions built as the JAX
+    package's ``--scenario geotenants`` builds them (gram budgets from
+    the FLOPs budget at the mean intensity, tenants spread 4x, each
+    region capped at 0.6 of the total; scales kappa * CI_r(t)), from
+    ``GEO_CI``."""
+    import numpy as np
+    from repro_torch.core.pfec import kwh_per_flop
+    from repro_torch.core.primal_dual import DualDescentConfig
+    from repro_torch.launch import serve
+    from repro_torch.serving import spec as S
+    from repro_torch.serving.stream import TrafficScenario
+
+    n_w = len(GEO_CI)
+    tb = serve.tenant_budgets(stack.budget, 4, 4.0)
+    g_total = stack.budget * kwh_per_flop() * GEO_CI_MEAN
+    tg = serve.tenant_budgets(g_total, 3, 4.0)
+    rg = np.full(2, 0.6 * g_total)
+    geo_dual = DualDescentConfig(max_iters=300, step_decay=0.98)
+    return {
+        "tenants": dict(
+            spec=S.ConstraintSpec([S.TenantAxis(tuple(tb), priced=True)]),
+            sizes=TrafficScenario("tenants", n_w, 512,
+                                  n_tenants=4).window_sizes(),
+            budgets=[tb] * n_w, scales=[1.0] * n_w, dual_cfg=None),
+        "geotenants": dict(
+            spec=S.ConstraintSpec([
+                S.TenantAxis(tuple(tg), priced=True),
+                S.RegionAxis(2, names=("region_a", "region_b"),
+                             split="flow"),
+                S.GlobalAxis(pricing="carbon")]),
+            sizes=TrafficScenario("tenants", n_w, 512,
+                                  n_tenants=3).window_sizes(),
+            budgets=[np.concatenate([tg, rg])] * n_w,
+            scales=[kwh_per_flop() * np.asarray(ci) for ci in GEO_CI],
+            dual_cfg=geo_dual)}
+
+
+def check_multi_price_caps(name, st, case, chains) -> None:
+    """Every tenant's and region's spend within its budget (or the floor
+    of its requests all on the cheapest option) plus one option's cost,
+    in the window's cost units; revenue positive, prices finite."""
+    import numpy as np
+    import torch
+
+    costs = np.asarray(chains.costs, np.float64)
+    for t, r in enumerate(st.windows):
+        scale = np.atleast_1d(np.asarray(case["scales"][t], np.float64))
+        c_max, c_min = costs.max() * scale.max(), costs.min() * scale.min()
+        bud = np.asarray(case["budgets"][t], np.float64)
+        n_t = r.n_valid // len(r.tenant_spend)
+        groups = [(f"tenant {k}", float(s), bud[k], n_t)
+                  for k, s in enumerate(r.tenant_spend.tolist())]
+        if r.region_spend is not None:
+            t_n = len(r.tenant_spend)
+            counts = np.bincount(r.regions_np, minlength=len(scale))
+            groups += [(f"region {k}", float(s), bud[t_n + k], counts[k])
+                       for k, s in enumerate(r.region_spend.tolist())]
+        for what, spend, b, n in groups:
+            cap = max(b, n * c_min) + c_max
+            if not spend <= cap:
+                raise AssertionError(f"{name} window {t}: {what} spend "
+                                     f"{spend} over its cap {cap}")
+        if not float(np.sum(r.revenue_np)) > 0:
+            raise AssertionError(f"{name} window {t}: no revenue")
+        if not bool(torch.isfinite(r.lam_after).all()):
+            raise AssertionError(f"{name} window {t}: price not finite")
+
+
+def check_multi_price_vs_eager(name, pipe, case, src) -> None:
+    """Two fresh chunks on the warm bucket through the captured program
+    and through ``graphs=False``, at the captured pipeline's price,
+    served with windows 1 and 2 of the day (region b's scale doubled in
+    the second): every output bit for bit."""
+    import torch
+    from repro_torch.serving.pipeline import ServingPipeline
+
+    eager = ServingPipeline.from_spec(
+        src.universe, pipe.reward_params, pipe.reward_cfg, case["spec"],
+        graphs=False, device=pipe.device,
+        **({} if case["dual_cfg"] is None else
+           {"dual_cfg": case["dual_cfg"]}))
+    lam = pipe.lam.clone()
+    for k, t in enumerate((1, 2)):
+        chunk = src.window(7000 + k, case["sizes"][t])
+        c0 = pipe.compile_count()
+        got, want = (p.serve_window(
+            chunk.ctx, chunk.rows, tables=chunk.tables, ready=chunk.ready,
+            lam=lam, update_lam=False, budget=case["budgets"][t],
+            cost_scale=case["scales"][t]) for p in (pipe, eager))
+        torch.cuda.synchronize()
+        if pipe.compile_count() != c0:
+            raise AssertionError(f"{name}: bucket {got.bucket} not warm")
+        for field in MULTI_PRICE_FIELDS:
+            a, b = getattr(got, field), getattr(want, field)
+            if (a is None) != (b is None) or (
+                    a is not None and not torch.equal(a, b)):
+                raise AssertionError(f"{name}: captured window (day "
+                                     f"window {t}) differs from eager in "
+                                     f"{field}")
+
+
+def check_multi_price_no_sync(pipe, case, src) -> None:
+    import torch
+
+    chunk = src.window(7100, case["sizes"][0])
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        res = pipe.serve_window(chunk.ctx, chunk.rows, tables=chunk.tables,
+                                ready=chunk.ready,
+                                budget=case["budgets"][0],
+                                cost_scale=case["scales"][0])
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    if res.compiles:
+        raise AssertionError("the no-sync window was not warm")
+
+
+def check_server_slab(stack) -> dict:
+    """A materialized ``CascadeServer`` over one full-width slab (512
+    users' stage scores and clicks from the phase-4 source): ``serve``
+    through the truncation kernel equals the plain per-request oracle
+    ``_revenue_requests`` exactly.  Its launch is not a path launch."""
+    import numpy as np
+    import torch
+    from repro_torch.cascade.engine import (CascadeServer,
+                                            _revenue_requests, _user_batch)
+    from repro_torch.kernels import ops
+
+    src = stack.source
+    users = src.arrivals(7200, src.chunk)
+    slab = src.world.user_slab(users)
+    ub = _user_batch(slab, np.arange(len(users)), stack.device,
+                     pad_to=src.chunk)
+    scores = {k: v.cpu().numpy() for k, v in src.score_slab(ub).items()}
+    clicks = src.world.clicks_slab(users, slab, pad_rows=src.chunk)
+    t0 = time.perf_counter()
+    server = CascadeServer(scores, src.chains, clicks, expose=src.expose,
+                           device=stack.device)
+    build_s = time.perf_counter() - t0
+    rng = np.random.default_rng(0)
+    rows = rng.integers(0, len(users), 512)
+    dec = rng.integers(0, src.chains.n_chains, 512)
+    before = ops.LAUNCHES["cascade_truncate"]
+    rev, _ = server.serve(rows, dec)
+    if ops.LAUNCHES["cascade_truncate"] != before + 1:
+        raise AssertionError("CascadeServer.serve did not launch the "
+                             "truncation kernel")
+    r = server._ranked
+    want = _revenue_requests(
+        torch.from_numpy(r.orders), torch.from_numpy(r.ranks),
+        torch.from_numpy(np.asarray(clicks, np.float32)),
+        torch.from_numpy(server._slots[dec]),
+        torch.from_numpy(server._keeps[dec]), torch.from_numpy(rows),
+        n_stages=src.chains.n_stages).numpy()
+    if not np.array_equal(rev, want):
+        raise AssertionError("CascadeServer.serve through the kernel "
+                             "differs from the plain oracle")
+    log(f"CascadeServer over a 512 x {clicks.shape[1]} slab (built in "
+        f"{build_s:.1f}s): serve through cascade_truncate == "
+        f"_revenue_requests on 512 requests, revenue {float(rev.sum()):.0f}")
+
+
+def serve_multi_price(stack) -> dict:
+    """Phase 4b: the tenants-priced and geotenants pipelines over the
+    phase-4 source, 4 windows each, prefetch 2, synchronised after each
+    window, every kernel count reset just before each run and read just
+    after it.  Returns {pipeline: launches}."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.serving.pipeline import ServingPipeline
+    from repro_torch.serving.stream import run_stream, window_table
+
+    src, base = stack.source, stack.pipeline
+    n_blocks = -(-src._n_items() // src.item_block)
+    out = {}
+    for k, (name, case) in enumerate(multi_price_cases(stack).items()):
+        pipe = ServingPipeline.from_spec(
+            src.universe, base.reward_params, base.reward_cfg, case["spec"],
+            device=stack.device,
+            **({} if case["dual_cfg"] is None else
+               {"dual_cfg": case["dual_cfg"]}))
+        misses = src.cache_misses
+        torch.cuda.synchronize()
+        ops.reset_launches()
+        st = run_stream(pipe, case["sizes"], _Offset(src, 5000 + 100 * k),
+                        budget_trace=case["budgets"],
+                        scale_trace=case["scales"], prefetch=2,
+                        sync=torch.cuda.synchronize)
+        launches = dict(ops.LAUNCHES)
+        chunks = src.cache_misses - misses
+        for line in window_table(st):
+            log(f"{name} {line}")
+        log(f"{name}: windows {case['sizes']}, wall {st.wall_s * 1e3:.3f} "
+            f"ms, serve_window ms {[round(x, 3) for x in st.submit_ms]}, "
+            f"stall ms {[round(x, 3) for x in st.stall_ms]}; launches "
+            f"{launches} over {chunks} chunks; captures {st.compiles}; "
+            f"capture ms " + ", ".join(
+                f"{key}: main {wp.main.capture_ms:.1f}, dual "
+                f"{wp.dual.capture_ms:.1f}"
+                for key, wp in pipe._programs.items()))
+        for t, r in enumerate(st.windows):
+            if r.tr_spend is not None:
+                log(f"{name} window {t}: (T, R) spend "
+                    f"{r.tr_spend.tolist()}, regions "
+                    f"{[int((r.regions_np == q).sum()) for q in range(2)]}")
+        want = {"cascade_truncate": len(st.windows),
+                "target_attention": n_blocks * chunks,
+                "embedding_bag": chunks}
+        if chunks != len(st.windows) or any(
+                cnt != want.get(kn, 0) for kn, cnt in launches.items()):
+            raise AssertionError(f"{name}: launches {launches} over "
+                                 f"{chunks} chunks, eager counts {want}")
+        if st.steady_compiles or st.compiles[0] != 2 or any(
+                st.compiles[1:]):
+            raise AssertionError(f"{name}: captures {st.compiles}")
+        check_multi_price_caps(name, st, case, src.chains)
+        check_multi_price_vs_eager(name, pipe, case, src)
+        check_multi_price_no_sync(pipe, case, src)
+        log(f"{name}: caps hold per tenant and region; captured == eager "
+            f"bitwise at a pinned price across the budget/scale change; "
+            f"no host sync in a steady window")
+        profile_served(f"{name} window", src, pipe, 7400 + k,
+                       case["sizes"][0], budget=case["budgets"][0],
+                       cost_scale=case["scales"][0])
+        out[name] = {kn: launches[kn] for kn in WINDOW_KERNELS}
+    check_server_slab(stack)
+    return out
+
+
+def profile_served(label, src, pipe, t, n, **serve_kw):
     """One more full-width window (produce + serve), warm, through the
-    graphs, under torch.profiler: device time per kernel, the host and
-    device span of each phase range, the device's idle share of the
-    window's wall time, and the graphs' capture times and pools."""
+    graphs, under torch.profiler: its wall time, the device's busy time
+    and idle share, and the host and device span of each phase range.
+    Returns the profile."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    n = stack.sizes[0]
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        chunk = stack.source.window(1000, n)
-        res = stack.pipeline.serve_window(chunk.ctx, chunk.rows,
-                                          tables=chunk.tables,
-                                          update_lam=False,
-                                          ready=chunk.ready)
+        chunk = src.window(t, n)
+        res = pipe.serve_window(chunk.ctx, chunk.rows, tables=chunk.tables,
+                                update_lam=False, ready=chunk.ready,
+                                **serve_kw)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     if res.compiles:
-        raise AssertionError("the profiled window was not warm")
+        raise AssertionError(f"the profiled {label} was not warm")
     # device busy: the table's "Self CUDA time total" - kernels, copies
     # and sets, not the annotation ranges (streams overlap little here)
     busy_ms = sum(e.self_device_time_total for e in prof.key_averages()
@@ -966,12 +1234,22 @@ def profile_window(stack) -> None:
             spans.setdefault(e.name, {"host": 0.0, "device": 0.0})
             spans[e.name][side] += e.time_range.elapsed_us() / 1e3
     order = sorted(spans.items(), key=lambda kv: -kv[1]["host"])
-    log(f"profiled window (warm, graphs): wall {wall_ms:.3f} ms, device "
+    log(f"profiled {label} (warm, graphs): wall {wall_ms:.3f} ms, device "
         f"busy {busy_ms:.3f} ms (idle share "
         f"{max(0.0, 1 - busy_ms / wall_ms):.4f})")
     for k, v in order:
         log(f"  range {k}: host span {v['host']:.3f} ms, device span "
             f"{v['device']:.3f} ms")
+    return prof
+
+
+def profile_window(stack) -> None:
+    """``profile_served`` on the serving window, then device time per
+    kernel and the graphs' capture times and pools."""
+    import torch
+
+    prof = profile_served("window", stack.source, stack.pipeline, 1000,
+                          stack.sizes[0])
     print(prof.key_averages().table(sort_by="self_device_time_total",
                                     row_limit=15), flush=True)
     graph_report(stack)
@@ -1457,6 +1735,7 @@ def main(argv=None) -> int:
     stack, st, launches = serve_full(args)
     n_windows = len(st.windows)
     profile_window(stack)
+    multi_launches = serve_multi_price(stack)
     del stack, st
     gc.collect()  # the programs' closures form cycles; free their graphs
     torch.cuda.empty_cache()
@@ -1470,8 +1749,15 @@ def main(argv=None) -> int:
     lm_launches += serve_lm_cells(args.seed)
     lm_parity(args.seed)
 
-    window_path = f"serving window ({n_windows} windows)"
+    window_path = (f"serving window ({n_windows} windows); "
+                   + "; ".join(f"{name} window ({len(GEO_CI)} windows)"
+                               for name in multi_launches))
     paths = {k: window_path for k in launches}
+    by_path = {k: {"serving window": launches[k],
+                   **{name: c[k] for name, c in multi_launches.items()}}
+               for k in launches}
+    for k in launches:
+        launches[k] = sum(by_path[k].values())
     paths.update({k: f"{arch} cells ({', '.join(ZOO_CALLS)})"
                   for arch, k in ZOO.items()})
     paths[BF16_FLASH] = (f"gemma2-2b bf16 serve path and cells "
@@ -1493,7 +1779,9 @@ def main(argv=None) -> int:
         {"name": name, "route": "cuda",
          "source": f"src/repro_torch/kernels/csrc/{build.KERNELS[name]}",
          "replaces": replaces[name], "launches": int(launches[name]),
-         "path": paths[name], "max_abs_err": r["max_abs_err"],
+         "path": paths[name],
+         **({"launches_by_path": by_path[name]} if name in by_path else {}),
+         "max_abs_err": r["max_abs_err"],
          "ms": r["ms"], "plain_ms": r["plain_ms"],
          "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
          "library_ms": r["library_ms"], "shape": r["shape"],

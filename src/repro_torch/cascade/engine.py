@@ -16,6 +16,17 @@ on one cap-wide row - the ``cascade_truncate`` kernel.
     one int64 and a single stable ``torch.sort`` orders each row;
   * ``_revenue_compact``            - per-request revenue on the tables,
     through the truncation kernel.
+
+The offline oracle rides on the same semantics: every stage keeps the
+first ``keep`` surviving items along the stage model's descending
+stable order (ties by item id).  ``run_chain`` and
+``simulate_revenue_matrix_reference`` are the brute-force NumPy form,
+``simulate_revenue_matrix`` the compaction form (bitwise equal to it),
+``_revenue_all_chains`` and ``_revenue_requests`` the generic K-stage
+form on tensors, and ``CascadeServer`` serves allocated chains over a
+materialized user universe: through the ``cascade_truncate`` kernel on
+its CompactPlan where the layout has one, through ``_revenue_requests``
+where it has none.
 """
 from __future__ import annotations
 
@@ -107,6 +118,169 @@ def _k3_layout(chains: ActionChainSet, *, n_items: int):
     }
 
 
+STAGE_MODELS = ("DSSM", "YDNN", "DIN", "DIEN")
+
+
+def corpus_items(models: CascadeModels, item_cats) -> tuple:
+    """(item ids, item categories, DSSM item-tower vectors) of the whole
+    corpus on the models' device: the item side every user batch is
+    scored against."""
+    dev = models.dssm_params["user_emb"]["table"].device
+    cats = torch.as_tensor(np.asarray(item_cats), device=dev)
+    ids = torch.arange(len(cats), device=dev)
+    if models.dssm_cfg.n_item_fields == 1:
+        fields = cats[:, None]
+    else:
+        fields = torch.stack([ids, cats], dim=-1)
+    with torch.no_grad():
+        return ids, cats, dssm.item_tower(models.dssm_params,
+                                          models.dssm_cfg, fields)
+
+
+@torch.no_grad()
+def score_corpus(models: CascadeModels, name: str, ub: dict, items: tuple,
+                 *, item_block: int):
+    """(B, I) f32 scores of stage model ``name`` for a user batch ``ub``
+    against the corpus ``items`` (``corpus_items``); DIN and DIEN score
+    the candidates in blocks of ``item_block``."""
+    item_ids, item_cats, dssm_items = items
+    n_items = len(item_ids)
+    if name == "DSSM":
+        return dssm.user_tower(models.dssm_params, models.dssm_cfg,
+                               ub["user_fields"]) @ dssm_items.T
+    if name == "YDNN":
+        return ydnn.user_vector(
+            models.ydnn_params, models.ydnn_cfg, ub["hist_ids"],
+            ub["hist_mask"], ub["user_fields"]) \
+            @ models.ydnn_params["out_emb"]["table"][:n_items].T
+    mod, params, cfg = {"DIN": (din, models.din_params, models.din_cfg),
+                        "DIEN": (dien, models.dien_params,
+                                 models.dien_cfg)}[name]
+    c = ub["user_fields"].shape[0]
+    cols = []
+    for lo in range(0, n_items, item_block):
+        hi = min(n_items, lo + item_block)
+        ids = item_ids[lo:hi].expand(c, hi - lo)
+        cats = item_cats[lo:hi].expand(c, hi - lo)
+        cols.append(mod.score(params, cfg, ub, ids, cats))
+    return torch.cat(cols, dim=1)
+
+
+def precompute_stage_scores(models: CascadeModels, world, users: np.ndarray,
+                            *, item_block: int = 256) -> dict:
+    """Score the full corpus with every stage model -> {name: (U, I)}
+    float32 host arrays, on the models' device."""
+    items = corpus_items(models, world.item_cat)
+    ub = _user_batch(world, users, items[0].device)
+    return {name: score_corpus(models, name, ub, items,
+                               item_block=item_block).cpu().numpy()
+            for name in STAGE_MODELS}
+
+
+# ---------------------------------------------------------------------------
+# Shared sorted orderings and the NumPy oracle
+# ---------------------------------------------------------------------------
+
+
+@dataclass
+class RankedScores:
+    """Per-model global item orderings shared by all chains:
+    ``orders[m, u]`` lists item ids in descending score order of model
+    ``names[m]`` (stable: ties by item id), ``ranks[m, u]`` the inverse
+    permutation."""
+
+    names: tuple  # (M,) model names, axis 0 of orders/ranks
+    orders: np.ndarray  # (M, U, I) int32
+    ranks: np.ndarray  # (M, U, I) int32
+
+    @property
+    def slot(self) -> dict:
+        return {n: m for m, n in enumerate(self.names)}
+
+
+def rank_stage_scores(stage_scores: dict) -> RankedScores:
+    """Stable-argsort every stage model's scores once."""
+    names = tuple(stage_scores)
+    mats = [np.asarray(stage_scores[n]) for n in names]
+    u, i = mats[0].shape
+    orders = np.empty((len(names), u, i), np.int32)
+    ranks = np.empty_like(orders)
+    pos = np.broadcast_to(np.arange(i, dtype=np.int32), (u, i))
+    for m, s in enumerate(mats):
+        o = np.argsort(-s, axis=1, kind="stable").astype(np.int32)
+        orders[m] = o
+        np.put_along_axis(ranks[m], o, pos, axis=1)
+    return RankedScores(names, orders, ranks)
+
+
+def chain_plan(chains: ActionChainSet, slot: dict, *, expose: int,
+               n_items: int) -> tuple[np.ndarray, np.ndarray]:
+    """(model_slots (J, K), keeps (J, K)) int32: stage k of chain j
+    scores with model ``model_slots[j, k]`` and keeps the first
+    ``keeps[j, k]`` survivors; keeps[:, 0] folds the stage-0 scale in
+    (top-n1 then top-n2 by one score is top-min(n1, n2)), the last stage
+    keeps ``expose``."""
+    j_n, k_n = chains.chain_idx.shape[:2]
+    slots = np.zeros((j_n, k_n), np.int32)
+    keeps = np.zeros((j_n, k_n), np.int32)
+    for j in range(j_n):
+        for k in range(k_n):
+            mi = int(chains.chain_idx[j, k, 0])
+            slots[j, k] = slot[chains.stages[k].models[mi].name]
+            if k < k_n - 1:
+                keeps[j, k] = int(chains.scale_value[j, k + 1])
+            else:
+                keeps[j, k] = expose
+        keeps[j, 0] = min(keeps[j, 0], int(chains.scale_value[j, 0]),
+                          n_items)
+    return slots, keeps
+
+
+def _truncate_np(surv: np.ndarray, order: np.ndarray, rank: np.ndarray,
+                 keep: int) -> np.ndarray:
+    """Keep the first ``keep`` survivors along ``order`` (one stage)."""
+    so = np.take_along_axis(surv, order, axis=1)
+    q = np.cumsum(so, axis=1) - so  # exclusive: survivors strictly before
+    so &= q < keep
+    return np.take_along_axis(so, rank, axis=1)
+
+
+def run_chain(stage_scores: dict, chain_desc: tuple, clicks: np.ndarray,
+              *, expose: int = 20) -> np.ndarray:
+    """One chain for all users, the NumPy reference: chain_desc = (n1,
+    n2, n3, rank_model_name), clicks (U, I) -> per-user revenue@expose
+    with keeps (min(n1, n2), n3, expose)."""
+    n1, n2, n3, rank_name = chain_desc
+    i = clicks.shape[1]
+    surv = np.ones(clicks.shape, bool)
+    pos = np.broadcast_to(np.arange(i, dtype=np.int32), clicks.shape)
+    for name, keep in (("DSSM", min(int(n1), int(n2))), ("YDNN", int(n3)),
+                       (rank_name, int(expose))):
+        order = np.argsort(-np.asarray(stage_scores[name]), axis=1,
+                           kind="stable").astype(np.int32)
+        rank = np.empty_like(order)
+        np.put_along_axis(rank, order, pos, axis=1)
+        surv = _truncate_np(surv, order, rank, keep)
+    return (surv * clicks).sum(axis=1).astype(np.float32)
+
+
+def simulate_revenue_matrix_reference(stage_scores: dict,
+                                      chains: ActionChainSet,
+                                      clicks: np.ndarray, *,
+                                      expose: int = 20) -> np.ndarray:
+    """Per-chain loop over ``run_chain`` - the brute-force oracle."""
+    u = clicks.shape[0]
+    out = np.zeros((u, chains.n_chains), np.float32)
+    k_rank = chains.n_stages - 1
+    for j in range(chains.n_chains):
+        n1, n2, n3 = (int(chains.scale_value[j, k]) for k in range(3))
+        mi = int(chains.chain_idx[j, k_rank, 0])
+        rank_name = chains.stages[k_rank].models[mi].name
+        out[:, j] = run_chain(stage_scores, (n1, n2, n3, rank_name), clicks,
+                              expose=expose)
+    return out
+
+
 # ---------------------------------------------------------------------------
 # Table builders
 # ---------------------------------------------------------------------------
@@ -191,6 +365,30 @@ def _compact_group_tables(stage_scores: dict, lay: dict, clicks: np.ndarray,
     g_clicks = np.take(clicks.ravel(), g_items + rows_off[None]) * g_valid
     clicks_sorted = np.take_along_axis(g_clicks, mperm, axis=2)
     return p_sorted, clicks_sorted, cap
+
+
+def _simulate_k3_numpy(stage_scores: dict, lay: dict, clicks: np.ndarray,
+                       *, expose: int,
+                       order1: np.ndarray | None = None) -> np.ndarray:
+    """Compaction path for the paper cascade layout -> (J, U) revenue in
+    the layout's group order: after one recall argsort every chain is
+    threshold arithmetic on (U, cap) rows (n3 keeps prefix positions
+    < n3, exposure the first ``expose`` of those in rank-model order)."""
+    gk = lay["group_key"]
+    g_n = len(gk)
+    p_sorted, clicks_sorted, cap = _compact_group_tables(
+        stage_scores, lay, clicks, order1=order1, expose=expose)
+    qdt = p_sorted.dtype
+    k_max = max(len(g[2]) for g in gk)
+    n3_pad = np.zeros((g_n, k_max), qdt)
+    for g, (_, _, n3list) in enumerate(gk):
+        n3_pad[g, :len(n3list)] = [min(n, cap) for n in n3list]
+    mask = p_sorted[:, None, :, :] < n3_pad[:, :, None, None]
+    q3 = np.cumsum(mask, axis=3, dtype=qdt)  # inclusive survivor count
+    mask &= q3 <= expose
+    rev = np.einsum("gkuc,guc->gku", mask, clicks_sorted)
+    rows = [rev[g, :len(n3list)] for g, (_, _, n3list) in enumerate(gk)]
+    return np.concatenate(rows, axis=0)
 
 
 def _desc_perm_torch(scores, ids):
@@ -337,6 +535,158 @@ def build_compact_layout(chains: ActionChainSet, *, n_items: int,
     return CompactPlan(np.full((g_n, 1, cap), cap, np.int32),
                        np.zeros((g_n, 1, cap), np.float32), g_of, n3_of,
                        int(cap), int(expose))
+
+
+def build_compact_plan(stage_scores: dict, chains: ActionChainSet,
+                       clicks: np.ndarray, *,
+                       expose: int) -> CompactPlan | None:
+    """CompactPlan for a materialized user universe, or None off the k3
+    layout."""
+    lay = _k3_layout(chains, n_items=clicks.shape[1])
+    if lay is None:
+        return None
+    p_sorted, clicks_sorted, cap = _compact_group_tables(
+        stage_scores, lay, np.asarray(clicks, np.float32), expose=expose)
+    g_of, n3_of = _layout_chain_maps(lay, chains.n_chains, cap)
+    return CompactPlan(p_sorted.astype(np.int32),
+                       clicks_sorted.astype(np.float32), g_of, n3_of,
+                       int(cap), int(expose))
+
+
+def _survive(surv, order, rank, keep):
+    """One stage on (B, I) survivor masks: keep the first ``keep`` (B,)
+    survivors along each row's ``order``."""
+    so = torch.gather(surv, 1, order)
+    si = so.to(torch.int32)
+    q = torch.cumsum(si, dim=1) - si
+    so = so & (q < keep[:, None])
+    return torch.gather(so, 1, rank)
+
+
+def _revenue_all_chains(orders, ranks, clicks, slots, keeps, *,
+                        n_stages: int):
+    """(U, J) revenue of every chain for every user on tensors: orders
+    and ranks (M, U, I), clicks (U, I) f32, slots/keeps (J, K)."""
+    orders, ranks = orders.long(), ranks.long()
+    u_n = clicks.shape[0]
+    cols = []
+    for j in range(slots.shape[0]):
+        surv = torch.ones(clicks.shape, dtype=torch.bool,
+                          device=clicks.device)
+        for k in range(n_stages):
+            m = int(slots[j, k])
+            surv = _survive(surv, orders[m], ranks[m],
+                            keeps[j, k].expand(u_n))
+        cols.append(torch.sum(torch.where(surv, clicks, 0.0), dim=1))
+    return torch.stack(cols, dim=1)
+
+
+def _revenue_requests(orders, ranks, clicks, slots, keeps, rows, *,
+                      n_stages: int):
+    """Per-request revenue: request b = (user rows[b], chain with model
+    slots slots[b] and keeps keeps[b]), any stage layout, in one batched
+    pass over the requests."""
+    rows = rows.long()
+    slots = slots.long()
+    surv = torch.ones((rows.shape[0], clicks.shape[1]), dtype=torch.bool,
+                      device=clicks.device)
+    for k in range(n_stages):
+        surv = _survive(surv, orders[slots[:, k], rows].long(),
+                        ranks[slots[:, k], rows].long(), keeps[:, k])
+    return torch.sum(torch.where(surv, clicks[rows], 0.0), dim=1)
+
+
+def simulate_revenue_matrix(stage_scores: dict, chains: ActionChainSet,
+                            clicks: np.ndarray, *, expose: int = 20,
+                            ranked: RankedScores | None = None
+                            ) -> np.ndarray:
+    """Ground-truth revenue of every chain for every user -> (U, J): the
+    reward model's training samples and the oracle for evaluating
+    allocations.  Equal to ``simulate_revenue_matrix_reference``."""
+    lay = _k3_layout(chains, n_items=clicks.shape[1])
+    if lay is not None:
+        order1 = (ranked.orders[ranked.slot[lay["stage_names"][0]]]
+                  if ranked is not None else None)
+        grouped = _simulate_k3_numpy(stage_scores, lay,
+                                     np.asarray(clicks, np.float32),
+                                     expose=expose, order1=order1)
+        out = np.empty((clicks.shape[0], chains.n_chains), np.float32)
+        out[:, lay["chain_order"]] = grouped.T
+        return out
+    ranked = ranked or rank_stage_scores(stage_scores)
+    slots, keeps = chain_plan(chains, ranked.slot, expose=expose,
+                              n_items=clicks.shape[1])
+    rev = _revenue_all_chains(
+        torch.from_numpy(ranked.orders), torch.from_numpy(ranked.ranks),
+        torch.as_tensor(np.asarray(clicks, np.float32)),
+        torch.from_numpy(slots), torch.from_numpy(keeps),
+        n_stages=chains.n_stages)
+    return rev.numpy()
+
+
+class CascadeServer:
+    """Online execution of allocated chains over a materialized user
+    universe (precomputed stage scores and clicks for its users).
+
+    ``compact`` is the CompactPlan of the k3 layout (None elsewhere);
+    ``tables`` holds its (G, U, cap) tables on ``device`` for the
+    serving pipeline.  ``serve`` executes through the
+    ``cascade_truncate`` kernel on the card and its plain version on the
+    CPU wherever the layout has a compact plan; ``_revenue_requests``
+    runs only where it has none.  ``device`` defaults to the card and
+    raises without one."""
+
+    def __init__(self, stage_scores: dict, chains: ActionChainSet,
+                 clicks: np.ndarray, expose: int = 20, *, device=None):
+        from repro_torch.device import resolve_device
+
+        self.device = dev = resolve_device(device)
+        self.stage_scores = stage_scores
+        self.chains = chains
+        self.clicks = clicks
+        self.expose = int(expose)
+        self._ranked = rank_stage_scores(stage_scores)
+        self._slots, self._keeps = chain_plan(
+            chains, self._ranked.slot, expose=self.expose,
+            n_items=clicks.shape[1])
+        self.compact = build_compact_plan(stage_scores, chains, clicks,
+                                          expose=self.expose)
+        self.tables = None
+        if self.compact is not None:
+            c = self.compact
+            self.tables = {
+                "p": torch.as_tensor(c.p_sorted, device=dev),
+                "ck": torch.as_tensor(c.clicks_sorted, device=dev),
+                "g_of": torch.as_tensor(c.group_of_chain, device=dev),
+                "n3_of": torch.as_tensor(c.n3_of_chain, device=dev)}
+        self._scan = None  # the generic layout's tensors, made on use
+
+    def serve(self, user_rows: np.ndarray, decisions: np.ndarray):
+        """user_rows: indices into the score matrices; decisions: (B,)
+        chain ids.  Returns (revenue (B,) ndarray, flops (B,))."""
+        decisions = np.asarray(decisions, np.int64)
+        rows = torch.as_tensor(np.asarray(user_rows, np.int64),
+                               device=self.device)
+        dec = torch.as_tensor(decisions, device=self.device)
+        if self.tables is not None:
+            t = self.tables
+            rev = _revenue_compact(t["p"], t["ck"], t["g_of"][dec], rows,
+                                   t["n3_of"][dec], expose=self.expose)
+        else:
+            if self._scan is None:
+                dev = self.device
+                self._scan = (
+                    torch.as_tensor(self._ranked.orders, device=dev),
+                    torch.as_tensor(self._ranked.ranks, device=dev),
+                    torch.as_tensor(np.asarray(self.clicks, np.float32),
+                                    device=dev),
+                    torch.as_tensor(self._slots, device=dev),
+                    torch.as_tensor(self._keeps, device=dev))
+            orders, ranks, clicks, slots, keeps = self._scan
+            rev = _revenue_requests(orders, ranks, clicks, slots[dec],
+                                    keeps[dec], rows,
+                                    n_stages=self.chains.n_stages)
+        return rev.cpu().numpy(), self.chains.costs[decisions]
 
 
 def _revenue_compact(p_sorted, clicks_sorted, groups, rows, n3, *,

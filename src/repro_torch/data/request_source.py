@@ -37,16 +37,15 @@ import numpy as np
 import torch
 from torch.profiler import record_function
 
-from repro_torch.cascade.engine import (CascadeModels, CompactPlan,
+from repro_torch.cascade.engine import (STAGE_MODELS, CascadeModels,
+                                        CompactPlan,
                                         _compact_group_tables_torch,
                                         _k3_layout, _user_batch,
-                                        build_compact_layout, compact_index)
+                                        build_compact_layout, compact_index,
+                                        corpus_items, score_corpus)
 from repro_torch.data.synthetic import StreamingWorld
 from repro_torch.device import resolve_device
 from repro_torch.graphs import Program, consume, record_event, side_stream
-from repro_torch.models.recsys import dien, din, dssm, ydnn
-
-STAGE_MODELS = ("DSSM", "YDNN", "DIN", "DIEN")
 
 
 @dataclass
@@ -224,16 +223,7 @@ class GeneratedSource(RequestSource):
         if self._lay is None:
             raise ValueError("GeneratedSource needs the k3 cascade layout")
         self._index = compact_index(self._lay, dev)
-        n_items = world.cfg.n_items
-        self._item_ids = torch.arange(n_items, device=dev)
-        self._item_cats = torch.as_tensor(world.item_cat, device=dev)
-        if models.dssm_cfg.n_item_fields == 1:
-            fields = self._item_cats[:, None]
-        else:
-            fields = torch.stack([self._item_ids, self._item_cats], -1)
-        with torch.no_grad():  # the corpus item tower, once
-            self._dssm_items = dssm.item_tower(models.dssm_params,
-                                               models.dssm_cfg, fields)
+        self._items = corpus_items(models, world.item_cat)  # once
         self._cache: OrderedDict = OrderedDict()  # slab key -> tables
         self._cache_cap = int(table_cache)
         self._lock = threading.Lock()
@@ -264,30 +254,11 @@ class GeneratedSource(RequestSource):
 
     # -- fixed-shape stage scoring on the device ---------------------------
 
-    @torch.no_grad()
     def score_model(self, name: str, ub: dict):
         """(chunk, I) f32 scores of one stage model for a padded user
         batch, eagerly."""
-        m = self.models
-        n_items = self._n_items()
-        if name == "DSSM":
-            return dssm.user_tower(m.dssm_params, m.dssm_cfg,
-                                   ub["user_fields"]) @ self._dssm_items.T
-        if name == "YDNN":
-            return ydnn.user_vector(
-                m.ydnn_params, m.ydnn_cfg, ub["hist_ids"], ub["hist_mask"],
-                ub["user_fields"]) \
-                @ m.ydnn_params["out_emb"]["table"][:n_items].T
-        mod, params, cfg = {"DIN": (din, m.din_params, m.din_cfg),
-                            "DIEN": (dien, m.dien_params, m.dien_cfg)}[name]
-        c = ub["user_fields"].shape[0]
-        cols = []
-        for lo in range(0, n_items, self.item_block):
-            hi = min(n_items, lo + self.item_block)
-            ids = self._item_ids[lo:hi].expand(c, hi - lo)
-            cats = self._item_cats[lo:hi].expand(c, hi - lo)
-            cols.append(mod.score(params, cfg, ub, ids, cats))
-        return torch.cat(cols, dim=1)
+        return score_corpus(self.models, name, ub, self._items,
+                            item_block=self.item_block)
 
     def score_slab(self, ub: dict) -> dict:
         """{name: (chunk, I) f32} stage scores for a padded user batch,

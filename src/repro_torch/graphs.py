@@ -16,13 +16,15 @@ A capture launches nothing, so it starts its static outputs at zero and
 keeps the kernel wrappers' counts apart (``ops.recording``); each replay
 adds them to ``ops.LAUNCHES``.  Captures use ``thread_local`` error mode,
 so another thread's CUDA calls (a producer thread filling the next
-chunk) cannot invalidate them.  A capture that fails raises; nothing
-falls back to eager.
+chunk) cannot invalidate them, and run with Python's cyclic garbage
+collector off, so no graph freed meanwhile can.  A capture that fails
+raises; nothing falls back to eager.
 
 The stream helpers below are no-ops on the CPU (``stream=None``).
 """
 from __future__ import annotations
 
+import gc
 import time
 
 import torch
@@ -112,12 +114,21 @@ class Program:
         torch.cuda.empty_cache()  # so the reserved delta is the pool
         r0 = torch.cuda.memory_reserved()
         graph = torch.cuda.CUDAGraph()
-        # entering synchronises the device: the timer starts after that
-        with ops.recording() as launches, torch.cuda.graph(
-                graph, pool=self.pool, stream=side,
-                capture_error_mode="thread_local"):
-            t0 = time.perf_counter()
-            static = self.fn()
+        # the cyclic collector stays off while capturing: a graph it
+        # frees there (programs' closures form cycles) would invalidate
+        # this capture
+        collecting = gc.isenabled()
+        gc.disable()
+        try:
+            # entering collects and synchronises: the timer starts after
+            with ops.recording() as launches, torch.cuda.graph(
+                    graph, pool=self.pool, stream=side,
+                    capture_error_mode="thread_local"):
+                t0 = time.perf_counter()
+                static = self.fn()
+        finally:
+            if collecting:
+                gc.enable()
         self.capture_ms = (time.perf_counter() - t0) * 1e3
         self.pool_bytes = torch.cuda.memory_reserved() - r0
         with torch.cuda.stream(side):

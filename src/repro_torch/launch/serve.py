@@ -1,8 +1,9 @@
-"""GreenFlow streaming serving on the port (plain ``[GlobalAxis]`` spec).
+"""GreenFlow streaming serving on the port.
 
     python -m repro_torch.launch.serve --source generated \\
         [--device cuda|cpu] [--windows N] [--requests N] [--users N] \\
-        [--prefetch N]
+        [--prefetch N] [--scenario NAME] [--tenants T] \\
+        [--tenant-mode shared|priced|independent] [--tenant-spread X]
 
 streams a ``GeneratedSource`` day: every window samples arrivals from a
 hash-generated user universe, scores DSSM, YDNN, DIN and DIEN over the
@@ -12,9 +13,20 @@ nearline dual update).  Scoring and each padding bucket's window pass
 replay CUDA graphs captured on first use; a producer thread makes the
 next ``--prefetch`` windows' chunks while the card serves (0: the
 sequential reference path, bitwise the same windows).  It prints one
-line per window: n, spend/budget, lambda, downgraded, revenue, host ms,
-the ms the serving thread waited for its chunk, the graph captures the
-window caused (0 once its bucket is warm) and its bucket.
+line per window: n, spend/budget, lambda (one per tenant when priced),
+downgraded, revenue, host ms, the ms the serving thread waited for its
+chunk, the graph captures the window caused (0 once its bucket is warm)
+and its bucket.
+
+``--scenario tenants`` serves ``--tenants`` equal blocks a window under
+per-tenant budgets that sum to the window budget, spread so the loosest
+tenant has ``--tenant-spread`` times the tightest one's (1: equal):
+``shared`` - one price on the total, the guard capping each tenant;
+``priced`` - a price per tenant in the same window pass;
+``independent`` - one pipeline per tenant.  ``carbon``, ``georegions``
+and ``geotenants`` need the port of ``repro.carbon`` (ROADMAP A9) for
+their grid-intensity traces and exit until then; their window programs
+are served through ``ServingPipeline.from_spec``.
 
 The full-width stack is the paper's: a 4000-item corpus with 100-long
 histories, the ``paper_stage_specs`` chains with expose 20, the stage
@@ -123,14 +135,30 @@ def reward_config(chains: ActionChainSet, d_context: int, *,
         d_context=d_context, **widths)
 
 
+NEEDS_CARBON = ("carbon", "georegions", "geotenants")
+
+
+def tenant_budgets(budget: float, n: int, spread: float) -> np.ndarray:
+    """``n`` tenant budgets summing to ``budget``, rising linearly from
+    the tightest to ``spread`` times it."""
+    w = np.linspace(1.0, spread, n)
+    return (budget * w / w.sum()).astype(np.float32)
+
+
 @dataclass
 class ServeStack:
     source: GeneratedSource
-    pipeline: ServingPipeline
+    pipelines: list  # one, or one a tenant (--tenant-mode independent)
     sizes: list
     budget: float
     c_max: float
     device: torch.device
+
+    @property
+    def pipeline(self) -> ServingPipeline:
+        if len(self.pipelines) != 1:
+            raise ValueError("independent tenants serve one pipeline each")
+        return self.pipelines[0]
 
 
 def build_stack(*, users: int = 100_000, requests: int = 512,
@@ -138,9 +166,19 @@ def build_stack(*, users: int = 100_000, requests: int = 512,
                 budget_frac: float = 0.6, seed: int = 0,
                 expose: int | None = None, chunk: int = 512,
                 item_block: int = 256, small: bool = False,
-                device=None) -> ServeStack:
+                tenants: int = 4, tenant_mode: str = "shared",
+                tenant_spread: float = 1.0, device=None) -> ServeStack:
     """World, chains, random-weight stage and reward models, the
-    ``GeneratedSource`` and the plain pipeline, all on ``device``."""
+    ``GeneratedSource`` and the pipeline(s), all on ``device``; with
+    ``scenario="tenants"``, ``tenants`` blocks a window under
+    ``tenant_mode``."""
+    if scenario in NEEDS_CARBON:
+        raise SystemExit(
+            f"--scenario {scenario} needs the grid-intensity traces of "
+            f"repro.carbon, not ported yet (ROADMAP A9); its window "
+            f"program runs through ServingPipeline.from_spec")
+    if tenant_mode not in ("shared", "priced", "independent"):
+        raise ValueError(f"unknown tenant mode {tenant_mode!r}")
     dev = resolve_device(device)
     expose = (8 if small else FULL_EXPOSE) if expose is None else expose
     wcfg = world_config(users, small=small, seed=seed)
@@ -154,24 +192,43 @@ def build_stack(*, users: int = 100_000, requests: int = 512,
                              seed=seed, chunk=chunk, item_block=item_block,
                              device=dev)
     budget = float(budget_frac * chains.costs.max() * requests)
-    pipe = ServingPipeline(source.universe, rparams, rcfg, budget,
-                           device=dev)
-    sizes = TrafficScenario(scenario, windows, requests).window_sizes()
-    return ServeStack(source, pipe, sizes, budget,
+    n_tenants = tenants if scenario == "tenants" else 1
+    sizes = TrafficScenario(scenario, windows, requests,
+                            n_tenants=n_tenants).window_sizes()
+    if n_tenants == 1:
+        pipes = [ServingPipeline(source.universe, rparams, rcfg, budget,
+                                 device=dev)]
+    elif tenant_mode == "independent":
+        pipes = [ServingPipeline(source.universe, rparams, rcfg, float(b),
+                                 device=dev)
+                 for b in tenant_budgets(budget, n_tenants, tenant_spread)]
+    else:
+        pipes = [ServingPipeline(
+            source.universe, rparams, rcfg, budget,
+            tenant_budgets=tenant_budgets(budget, n_tenants, tenant_spread),
+            tenant_mode=tenant_mode, device=dev)]
+    return ServeStack(source, pipes, sizes, budget,
                       float(chains.costs.max()), dev)
 
 
-def serve(stack: ServeStack, *, sync: bool = True,
-          prefetch: int = 2) -> StreamStats:
-    """Run the stack's windows with ``prefetch`` chunks made ahead on a
-    producer thread (0: sequentially); with ``sync`` the per-window
-    times include the device work."""
+def serve(stack: ServeStack, *, sync: bool = True, prefetch: int = 2,
+          pipeline: ServingPipeline | None = None) -> StreamStats:
+    """Run the stack's windows through its pipeline (or ``pipeline``,
+    one of the independent tenants', which serves its share of every
+    window) with ``prefetch`` chunks made ahead on a producer thread (0:
+    sequentially); with ``sync`` the per-window times include the
+    device work."""
     do_sync = None
     if sync and stack.device.type == "cuda":
         do_sync = torch.cuda.synchronize
+    sizes = stack.sizes
+    if pipeline is None:
+        pipeline = stack.pipeline
+    else:
+        sizes = [n // len(stack.pipelines) for n in sizes]
     with torch.no_grad():
-        return run_stream(stack.pipeline, stack.sizes, stack.source,
-                          prefetch=prefetch, sync=do_sync)
+        return run_stream(pipeline, sizes, stack.source, prefetch=prefetch,
+                          sync=do_sync)
 
 
 def main(argv=None) -> int:
@@ -190,6 +247,12 @@ def main(argv=None) -> int:
                     help="size of the streamed user universe")
     ap.add_argument("--scenario", default="constant",
                     choices=tuple(SCENARIOS))
+    ap.add_argument("--tenants", type=int, default=4)
+    ap.add_argument("--tenant-mode", default="shared",
+                    choices=("shared", "priced", "independent"))
+    ap.add_argument("--tenant-spread", type=float, default=1.0,
+                    help="--scenario tenants: budget ratio of the loosest "
+                         "to the tightest tenant")
     ap.add_argument("--budget-frac", type=float, default=0.6)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--small", action="store_true",
@@ -201,16 +264,26 @@ def main(argv=None) -> int:
     stack = build_stack(users=args.users, requests=args.requests,
                         windows=args.windows, scenario=args.scenario,
                         budget_frac=args.budget_frac, seed=args.seed,
-                        small=args.small, device=args.device)
+                        small=args.small, tenants=args.tenants,
+                        tenant_mode=args.tenant_mode,
+                        tenant_spread=args.tenant_spread,
+                        device=args.device)
     print(f"[serve] device {stack.device}, {len(stack.sizes)} windows, "
           f"U={args.users:,}, budget {stack.budget:.4e} FLOPs/window")
-    st = serve(stack, prefetch=args.prefetch)
-    for line in window_table(st):
-        print(line)
+    if len(stack.pipelines) == 1:
+        runs = [serve(stack, prefetch=args.prefetch)]
+    else:
+        runs = [serve(stack, prefetch=args.prefetch, pipeline=p)
+                for p in stack.pipelines]
     c_min = float(stack.source.chains.costs.min())
-    print(f"[serve] {len(st.sizes)} windows in {st.wall_s:.2f}s, worst "
-          f"overshoot vs cap: {st.overshoot(c_min) * 100:.3f}%, revenue "
-          f"{st.total_revenue:.1f}")
+    for k, st in enumerate(runs):
+        if len(runs) > 1:
+            print(f"[serve] tenant {k} (independent pipeline)")
+        for line in window_table(st):
+            print(line)
+        print(f"[serve] {len(st.sizes)} windows in {st.wall_s:.2f}s, worst "
+              f"overshoot vs cap: {st.overshoot(c_min) * 100:.3f}%, "
+              f"revenue {st.total_revenue:.1f}")
     return 0
 
 

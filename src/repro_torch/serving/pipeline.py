@@ -1,35 +1,65 @@
 """ServingPipeline: the score -> decide -> guard -> execute window pass.
 
-One window of the paper's online system, on the device:
+One window of the online system, on the device:
 
   1. reward scoring   - ``reward_matrix_grouped`` (model-prefix dedup);
-  2. Eq. 10 decisions - ``allocate`` at the window's entry price;
-  3. downgrade guard  - ``serving.guard.downgrade_guard`` (cumsum
-     tail-reserve walk, mask-aware);
+  2. Eq. 10 decisions - ``allocate`` at the window's entry price(s);
+  3. downgrade guard  - ``serving.guard`` (cumsum tail-reserve walks,
+     mask-aware, per-constraint budgets);
   4. cascade execute  - CompactPlan threshold arithmetic through the
      ``cascade_truncate`` kernel;
   5. nearline update  - ``dual_descent`` (Algorithm 1) on the window's
-     rewards publishes the next window's price.
+     rewards publishes the next window's price(s).
 
 Steps 1-4 are the response path; step 5 is nearline: it reuses the
 reward matrix on the device and nothing reads it back on the host.  The
 price lives in one device buffer that the update overwrites in place
 (``self.lam``); records hold device copies.
 
+What is budgeted is declared by a ``serving.spec.ConstraintSpec``
+(``ServingPipeline.from_spec``):
+
+  * [GlobalAxis]              - one budget, one scalar price (the paper);
+  * [TenantAxis(shared)]      - T equal-size tenant blocks a window, one
+    price on the total budget, the guard capping each tenant's block;
+  * [TenantAxis(priced)]      - a (T,) price vector, each tenant's price
+    on its own budget;
+  * [RegionAxis]              - the geo router: each request chooses
+    (chain, serving region) at costs c_{j,r} = flops_j * scale_r, (R,)
+    budgets and prices, the guard walking each region;
+  * [TenantAxis + RegionAxis] - tenant and region budgets together: a
+    tenant-t request pays (lam_tenant[t] + lam_region[r]) * c_{j,r}
+    ((T + R,) prices when tenants are priced, (R,) when shared), and the
+    guard chains a tenant walk with a region walk.
+
+The server is either a streaming universe (``StreamUniverse``: every
+window brings its chunk's (G, n, cap) tables and ``rows`` index them)
+or a materialized ``CascadeServer`` (``tables`` omitted: ``rows`` index
+its users and the window reads its CompactPlan).
+
 Windows are padded to a bucket size (multiples of ``pad_quantum``,
-linear or power-of-two steps) with a validity mask, so a traffic spike
-reuses a handful of shapes.  Each bucket ``(b, padded)`` gets one window
-program (the port's jitted pass per bucket): static input buffers, the
-response path captured as the ``window/main`` CUDA graph and the dual
-loop as ``window/dual``, replayed on every later window of the bucket
-(``graphs.Program``).  ``WindowResult.compiles`` counts the captures a
-window caused - zero on a warm bucket.  ``graphs=False`` runs the same
-programs eagerly through the same buffers: the reference the captured
-windows are held to, and what the CPU runs.  Only the plain
-``[GlobalAxis]`` spec is supported.
+linear or power-of-two steps) with a validity mask; tenant windows pad
+each tenant block on its own (``window_layout``).  Each bucket
+``(b, padded)`` gets one window program: static input buffers
+(contexts, rows, validity, tenant map, tables, the entry price, and the
+window's budgets and cost scales for the response path and for the
+dual), the response path captured as the ``window/main`` CUDA graph and
+the dual loop as ``window/dual``, replayed on every later window of the
+bucket (``graphs.Program``).  Every per-window number enters through
+those buffers, so a replay never reuses an earlier window's budget.
+``WindowResult.compiles`` counts the captures a window caused - zero on
+a warm bucket.  ``graphs=False`` runs the same programs eagerly through
+the same buffers: the reference the captured windows are held to, and
+what the CPU runs.
+
+The spends the window reports are ordered masked sums - one (b,) sum a
+constraint, never a matmul or an atomic scatter - so they are exact
+wherever the costs make every f32 sum exact and repeat bit for bit on
+the card.
 """
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass
 
 import numpy as np
@@ -46,25 +76,50 @@ from repro_torch.core.reward_model import (RewardModelConfig,
                                            reward_matrix_grouped)
 from repro_torch.device import resolve_device
 from repro_torch.graphs import Program, consume, record_event, side_stream
-from repro_torch.serving.guard import downgrade_guard
-from repro_torch.serving.spec import ConstraintSpec, GlobalAxis
+from repro_torch.serving.guard import downgrade_guard, downgrade_guard_chain
+from repro_torch.serving.spec import ConstraintSpec, spec_from_legacy
 
 
-def window_layout(n: int, b: int):
-    """Padded layout of an n-request window in a b-slot bucket:
-    ``(perm, valid)`` - ``perm[pos]`` is the original request index at
-    padded position ``pos`` (0 on padding), ``valid`` masks real ones."""
-    valid = np.zeros(b, np.float32)
-    valid[:n] = 1.0
-    perm = np.concatenate([np.arange(n, dtype=np.int64),
-                           np.zeros(b - n, np.int64)])
-    return perm, valid
+def window_layout(n: int, b: int, t_n: int | None = None):
+    """The padded layout of an n-request window in a b-slot bucket:
+    ``(perm, valid, k_of)``.  ``perm[pos]`` is the original request
+    index at padded position ``pos`` (0 on padding), ``valid`` masks
+    real requests and ``k_of`` maps positions to tenants (None without
+    tenants).  Plain windows pad at the end; tenant windows carry
+    ``t_n`` equal blocks of ``b // t_n`` slots, each padded at its end,
+    so every tenant's guard walk stays aligned with its budget."""
+    if t_n is None:
+        valid = np.zeros(b, np.float32)
+        valid[:n] = 1.0
+        perm = np.concatenate([np.arange(n, dtype=np.int64),
+                               np.zeros(b - n, np.int64)])
+        return perm, valid, None
+    if n % t_n:
+        raise ValueError(f"window size {n} not divisible by "
+                         f"{t_n} tenants")
+    if b % t_n:
+        raise ValueError(f"bucket {b} not divisible by {t_n} tenants")
+    n_t, bt = n // t_n, b // t_n
+    valid = np.zeros((t_n, bt), np.float32)
+    valid[:, :n_t] = 1.0
+    perm = np.zeros((t_n, bt), np.int64)
+    perm[:, :n_t] = (np.arange(t_n)[:, None] * n_t
+                     + np.arange(n_t)[None, :])
+    k_of = np.repeat(np.arange(t_n, dtype=np.int64), bt)
+    return perm.reshape(b), valid.reshape(b), k_of
 
 
 @dataclass
 class WindowResult:
     """One served window; tensors stay on the device until read, and are
-    the window's own (copies of the program's static outputs)."""
+    the window's own (copies of the program's static outputs).
+
+    ``budget`` and ``spend`` are in the window's cost units (FLOPs, or
+    gCO2e under a carbon ``cost_scale``); ``flops`` is always the
+    realized FLOPs.  ``lam_before``/``lam_after`` are scalars in the
+    single-price modes and (K,) vectors otherwise (``k_names`` order).
+    With tenants and regions ``tr_spend`` is the (T, R) spend whose
+    marginals are ``tenant_spend`` and ``region_spend``."""
 
     n_valid: int
     budget: float
@@ -76,6 +131,12 @@ class WindowResult:
     downgraded: torch.Tensor
     valid: np.ndarray  # (b,) 1.0 on real requests
     flops: torch.Tensor | None = None  # realized FLOPs
+    cost_scale: float = 1.0  # cost units per FLOP (mean over regions)
+    tenant_spend: torch.Tensor | None = None  # (T,)
+    regions: torch.Tensor | None = None  # (b,) serving region
+    region_spend: torch.Tensor | None = None  # (R,)
+    tr_spend: torch.Tensor | None = None  # (T, R)
+    k_budget: np.ndarray | None = None  # the window's budget vector
     compiles: int = 0  # program captures this window caused (0 = warm)
     bucket: tuple | None = None  # the (b, padded) program key
     h2d_bytes: int = 0
@@ -90,113 +151,152 @@ class WindowResult:
     def revenue_np(self) -> np.ndarray:
         return self.revenue.cpu().numpy()[self.valid > 0]
 
+    @property
+    def regions_np(self) -> np.ndarray | None:
+        if self.regions is None:
+            return None
+        return self.regions.cpu().numpy()[self.valid > 0]
+
 
 class _WindowProgram:
-    """One padding bucket's window program: static inputs (contexts,
-    rows, validity, the padded tables, the entry price, the rewards the
-    dual reads), two pinned staging slots used in turn, and the
-    ``window/main`` and ``window/dual`` programs on one graph pool."""
+    """One padding bucket's window program: static inputs, two pinned
+    staging slots used in turn, and the ``window/main`` and
+    ``window/dual`` programs on one graph pool.
 
-    def __init__(self, pipe: "ServingPipeline", b: int, padded: bool):
+    The per-window numbers live in one device vector ``knobs`` (the
+    budget, cost scale, dual budget and dual cost scale, and a price
+    given on the host), filled by one pinned copy a window; ``budget``,
+    ``scale``, ``d_budget`` and ``d_scale`` are views of it."""
+
+    def __init__(self, pipe: "ServingPipeline", b: int, padded: bool,
+                 chunked: bool):
         dev = pipe.device
-        g_n, d = len(pipe.server.compact.p_sorted), pipe.reward_cfg.d_context
+        cs = pipe._cs
+        d = pipe.reward_cfg.d_context
         self.ctx = torch.zeros((b, d), device=dev)
         self.rows = torch.zeros(b, dtype=torch.int64, device=dev)
         self.valid = torch.zeros(b, device=dev)
-        self.p = torch.full((g_n, b, pipe._cap), pipe._cap,
-                            dtype=torch.int32, device=dev)
-        self.ck = torch.zeros((g_n, b, pipe._cap), device=dev)
-        self.lam = torch.zeros((), device=dev)
+        self.k_of = torch.zeros(b, dtype=torch.int64, device=dev)
+        if chunked:
+            g_n, cap = len(pipe.server.compact.p_sorted), pipe._cap
+            self.p = torch.full((g_n, b, cap), cap, dtype=torch.int32,
+                                device=dev)
+            self.ck = torch.zeros((g_n, b, cap), device=dev)
+        else:  # the materialized server's tables, read by row
+            self.p, self.ck = pipe._tables["p"], pipe._tables["ck"]
+        self.lam = torch.zeros(pipe.lam.shape, device=dev)
         self.rewards = torch.zeros((b, pipe.chains.n_chains), device=dev)
+        nb = 0 if cs.mode == "plain" else cs.budget_len()
+        ns = 0 if cs.regions is None else cs.r_n
+        self._knob_sizes = (nb, ns) * 2
+        width = 2 * (max(nb, 1) + max(ns, 1)) + max(1, pipe.lam.numel())
+        self.knobs = torch.zeros(width, device=dev)
+        views, at = [], 0
+        for n in (nb, ns, nb, ns):
+            views.append(self.knobs[at] if n == 0
+                         else self.knobs[at:at + n])
+            at += max(n, 1)
+        self.budget, self.scale, self.d_budget, self.d_scale = views
+        self._lam_at = at
         pin = dev.type == "cuda"
         self._slots = [[torch.zeros((b, d), pin_memory=pin),
                         torch.zeros(b, dtype=torch.int64, pin_memory=pin),
-                        torch.zeros(b, pin_memory=pin), None]
+                        torch.zeros(b, pin_memory=pin),
+                        torch.zeros(b, dtype=torch.int64, pin_memory=pin),
+                        torch.zeros(width, pin_memory=pin), None]
                        for _ in range(2)]
         self._turn = 0
         capture = pipe.graphs and dev.type == "cuda"
         kw = dict(capture=capture, stream=pipe._capture_stream,
                   pool=torch.cuda.graph_pool_handle() if capture else None)
-        mask = self.valid if padded else None
-
-        def main():
-            rewards, dec, rev, spend, dg = pipe._main(
-                self.p, self.ck, self.ctx, self.rows, self.valid, self.lam,
-                padded)
-            flops = torch.sum(pipe._costs[dec.long()] * self.valid)
-            return {"rewards": rewards, "dec": dec, "rev": rev,
-                    "spend": spend, "dg": dg, "flops": flops}
-
-        def dual():
-            cfg = pipe.dual_cfg
-            lam, _ = dual_descent(
-                self.rewards, pipe._costs, pipe.budget, self.lam, mask=mask,
-                max_iters=cfg.max_iters, step_size=cfg.step_size,
-                step_decay=cfg.step_decay)
-            return {"lam": lam}
-
-        self.main = Program(main, **kw)
-        self.dual = Program(dual, **kw)
+        self.main = Program(lambda: pipe._main(self, padded), **kw)
+        self.dual = Program(lambda: pipe._dual(self, padded), **kw)
 
     def builds(self) -> int:
         return self.main.builds + self.dual.builds
 
-    def load(self, ctx: np.ndarray, perm: np.ndarray, valid: np.ndarray,
-             p, ck, lam) -> int:
+    def load(self, ctx: np.ndarray, rows: np.ndarray, valid: np.ndarray,
+             k_of, knobs: list, tables, lam) -> int:
         """Fill the static inputs for one window on the current stream:
-        host arrays by pinned ``non_blocking`` copies, the tables by
-        device copies (padding rows: the sentinel and no clicks), the
-        price by a device copy or a fill.  Returns the bytes copied from
-        the host."""
-        n = len(ctx)
+        host arrays by pinned ``non_blocking`` copies (``knobs`` the
+        budget, scale, dual budget and dual scale, each a number or a
+        vector), the chunk tables (if any) by device copies with
+        sentinel padding, and the price by a device copy, or from the
+        host with the knobs.  Returns the bytes copied from the host."""
         slot = self._slots[self._turn]
         self._turn ^= 1
-        if slot[3] is not None:
-            slot[3].synchronize()  # this slot's last copies are done
-        host_ctx = slot[0].numpy()
-        host_ctx[:n] = ctx
-        host_ctx[n:] = 0.0
-        slot[1].numpy()[:] = perm
+        if slot[5] is not None:
+            slot[5].synchronize()  # this slot's last copies are done
+        slot[0].numpy()[:] = ctx
+        slot[1].numpy()[:] = rows
         slot[2].numpy()[:] = valid
-        for dst, src in zip((self.ctx, self.rows, self.valid), slot[:3]):
+        host = slot[4].numpy()
+        at = 0
+        for v, n in zip(knobs, self._knob_sizes):
+            m = max(n, 1)
+            host[at:at + m] = np.asarray(v, np.float32).reshape(m)
+            at += m
+        lam_host = not isinstance(lam, torch.Tensor)
+        if lam_host:
+            host[at:] = np.broadcast_to(np.asarray(lam, np.float32),
+                                        self.lam.shape).reshape(-1)
+        dsts = [self.ctx, self.rows, self.valid, self.knobs]
+        srcs = [slot[0], slot[1], slot[2], slot[4]]
+        if k_of is not None:
+            slot[3].numpy()[:] = k_of
+            dsts.append(self.k_of)
+            srcs.append(slot[3])
+        for dst, src in zip(dsts, srcs):
             dst.copy_(src, non_blocking=True)
-        slot[3] = record_event(torch.cuda.current_stream()
+        slot[5] = record_event(torch.cuda.current_stream()
                                if self.ctx.is_cuda else None)
-        self.p[:, :n].copy_(p)
-        self.p[:, n:].fill_(self.p.shape[2])
-        self.ck[:, :n].copy_(ck)
-        self.ck[:, n:].zero_()
-        if isinstance(lam, torch.Tensor):
-            self.lam.copy_(lam)
+        if tables is not None:
+            p, ck = tables
+            n = p.shape[1]
+            self.p[:, :n].copy_(p)
+            self.p[:, n:].fill_(self.p.shape[2])
+            self.ck[:, :n].copy_(ck)
+            self.ck[:, n:].zero_()
+        if lam_host:
+            self.lam.copy_(self.knobs[self._lam_at:].view(self.lam.shape))
         else:
-            self.lam.fill_(float(lam))
-        return sum(t.numel() * t.element_size() for t in slot[:3])
+            self.lam.copy_(lam)
+        return sum(t.numel() * t.element_size() for t in srcs)
 
 
 class ServingPipeline:
-    """Per-window serving pass over a streaming universe.
+    """Per-window serving pass over a streaming universe or a
+    materialized ``CascadeServer``.
 
-    ``server`` is a ``StreamUniverse`` (chain set + compact layout);
-    every ``serve_window`` brings a chunk's tables.  ``reward_params``
-    is the reward model's parameter tree on ``device`` (with
-    ``label_norm`` when trained on ratio labels).  ``device`` defaults
-    to the card and raises without one.  ``graphs`` (default) captures
-    each bucket's window program as CUDA graphs on the card;
-    ``graphs=False`` runs the same programs eagerly (the reference).
+    ``reward_params`` is the reward model's parameter tree on ``device``
+    (with ``label_norm`` when trained on ratio labels).  The keyword
+    form (``budget_per_window``, ``tenant_budgets``/``tenant_mode``,
+    ``n_regions``) builds its spec through ``spec_from_legacy``;
+    ``spec`` overrides it.  ``device`` defaults to the card and raises
+    without one.  ``graphs`` (default) captures each bucket's window
+    program as CUDA graphs on the card; ``graphs=False`` runs the same
+    programs eagerly (the reference).
     """
 
     def __init__(self, server, reward_params: dict,
                  reward_cfg: RewardModelConfig, budget_per_window: float,
                  *, dual_cfg: DualDescentConfig | None = None,
                  pad_quantum: int = 32, bucketing: str = "linear",
+                 tenant_budgets=None, tenant_mode: str = "shared",
+                 n_regions: int | None = None,
                  spec: ConstraintSpec | None = None, graphs: bool = True,
                  device=None):
         self.device = dev = resolve_device(device)
         if spec is None:
-            spec = ConstraintSpec([GlobalAxis(float(budget_per_window))])
+            spec = spec_from_legacy(
+                float(budget_per_window), tenant_budgets=tenant_budgets,
+                tenant_mode=tenant_mode, n_regions=n_regions)
         self.spec = spec
-        self._cs = spec.compile()
-        self.budget = self._cs.total_budget
+        self._cs = cs = spec.compile()
+        self.budget = cs.total_budget
+        self.tenant_budgets = (None if cs.tenants is None else np.asarray(
+            cs.tenants.budgets, np.float32))
+        self.n_regions = cs.r_n
         self.server = server
         self.chains = server.chains
         self.reward_params = reward_params
@@ -206,7 +306,10 @@ class ServingPipeline:
             raise ValueError(f"bucketing must be 'linear' or 'pow2', "
                              f"got {bucketing!r}")
         self.bucketing = bucketing
-        self.pad_quantum = int(pad_quantum)
+        q = int(pad_quantum)
+        if cs.t_n is not None:
+            q = math.lcm(q, cs.t_n)
+        self.pad_quantum = q
         if server.compact is None:
             raise ValueError("the pipeline needs the compact (k3) layout")
         chains = self.chains
@@ -216,17 +319,35 @@ class ServingPipeline:
         self._costs = torch.as_tensor(chains.costs, dtype=torch.float32,
                                       device=dev)
         self._cheap = int(chains.cheapest())
+        j_n = chains.n_chains
+        if cs.regions is not None:  # each region's cheapest option
+            self._cheap_k = (torch.arange(cs.r_n, device=dev) * j_n
+                             + self._cheap)
         c = server.compact
         self._g_of = torch.as_tensor(c.group_of_chain, device=dev)
         self._n3_of = torch.as_tensor(c.n3_of_chain, device=dev)
         self._expose = int(c.expose)
         self._cap = int(c.cap)
+        # a streaming universe carries the layout only: every window
+        # brings its chunk's tables
+        self._stream_only = bool(getattr(server, "stream_only", False))
+        self._tables = None if self._stream_only else server.tables
         self.graphs = bool(graphs)
         self._capture_stream = side_stream(dev)
-        self._programs: dict = {}  # (b, padded) -> _WindowProgram
-        # the nearline price: one device buffer, overwritten in place
-        self.lam = torch.zeros((), dtype=torch.float32, device=dev)
+        self._programs: dict = {}  # (b, padded) -> program
+        # the nearline price(s): one device buffer, overwritten in place
+        self.lam = torch.full((cs.n_prices,) if cs.n_prices else (),
+                              self.dual_cfg.lam_init, dtype=torch.float32,
+                              device=dev)
         self.stats: list[WindowResult] = []
+
+    @classmethod
+    def from_spec(cls, server, reward_params: dict,
+                  reward_cfg: RewardModelConfig, spec: ConstraintSpec,
+                  **kw) -> "ServingPipeline":
+        """Build the pipeline from a declarative ConstraintSpec."""
+        return cls(server, reward_params, reward_cfg,
+                   spec.compile().total_budget, spec=spec, **kw)
 
     def _bucket(self, n: int) -> int:
         """Pad target: the next multiple of ``pad_quantum`` (linear) or
@@ -237,6 +358,17 @@ class ServingPipeline:
             b = q * (1 << max(0, (b + q - 1) // q - 1).bit_length())
         return b
 
+    def window_bucket(self, n: int) -> int:
+        """Padded size of an n-request window (tenant windows bucket
+        per block; see ``window_layout``)."""
+        t_n = self._cs.t_n
+        if t_n is None:
+            return self._bucket(n)
+        if n % t_n:
+            raise ValueError(f"window size {n} not divisible by "
+                             f"{t_n} tenants")
+        return self._bucket(n // t_n) * t_n
+
     def compile_count(self) -> int:
         """Window-program builds (CUDA graph captures on the card, first
         eager runs elsewhere) across every bucket so far: two per bucket,
@@ -244,62 +376,355 @@ class ServingPipeline:
         buckets holds it still."""
         return sum(p.builds() for p in self._programs.values())
 
+    # -- the window programs -------------------------------------------------
+
     def _rewards(self, ctx):
         """(b, J) predicted rewards of the window's padded contexts."""
         return denormalize_rewards(self.reward_params, reward_matrix_grouped(
             self.reward_params, self.reward_cfg, ctx, self._sh,
             self._prefix_plan))
 
-    @torch.no_grad()
-    def _main(self, p, ck, ctx, rows, valid, lam, padded: bool):
-        """Response path: score -> decide -> guard -> execute."""
-        rewards = self._rewards(ctx)
-        dec = allocate(rewards, self._costs, lam)
-        dec, dg, spend = downgrade_guard(dec, self._costs, self.budget,
-                                         self._cheap,
-                                         valid if padded else None)
+    def _execute(self, w, dec):
         d = dec.long()
-        rev = _revenue_compact(p, ck, self._g_of[d], rows, self._n3_of[d],
-                               expose=self._expose) * valid
-        return rewards, dec, rev, spend, dg
+        return _revenue_compact(w.p, w.ck, self._g_of[d], w.rows,
+                                self._n3_of[d], expose=self._expose) * w.valid
+
+    @torch.no_grad()
+    def _main(self, w, padded: bool) -> dict:
+        """Response path: score -> decide -> guard -> execute."""
+        rewards = self._rewards(w.ctx)
+        mask = w.valid if padded else None
+        mode = self._cs.mode
+        if mode == "geotenants":
+            out = self._main_geotenants(w, rewards, mask)
+        elif mode == "geo":
+            out = self._main_geo(w, rewards, mask)
+        else:
+            costs = self._costs * w.scale  # cost units (FLOPs or gCO2e)
+            if mode == "tenants":
+                if self._cs.tenant_priced:
+                    dec = allocate(rewards, costs[:, None], w.lam,
+                                   self._cs.tenant_member(w.k_of))
+                else:
+                    dec = allocate(rewards, costs, w.lam)
+                dec, dg, t_spend = downgrade_guard(
+                    dec, costs, w.budget, self._cheap, mask, k_of=w.k_of)
+                out = {"dec": dec, "dg": dg, "spend": torch.sum(t_spend),
+                       "t_spend": t_spend}
+            else:
+                dec = allocate(rewards, costs, w.lam)
+                dec, dg, spend = downgrade_guard(dec, costs, w.budget,
+                                                 self._cheap, mask)
+                out = {"dec": dec, "dg": dg, "spend": spend}
+        dec = out["dec"]
+        out["rewards"] = rewards
+        out["flops"] = torch.sum(self._costs[dec.long()] * w.valid)
+        out["rev"] = self._execute(w, dec)
+        return out
+
+    def _region_setup(self, w, rewards):
+        """Region-major option costs (m = r*J + j) and the eps_green
+        tie-break: about 1e-6 of the reward-per-cost scale, it orders
+        the regions at a zero price (a slack window routes green) and is
+        dwarfed by any meaningful price."""
+        costs = self._costs
+        opt_costs = (w.scale[:, None] * costs[None, :]).reshape(-1)
+        r_max = torch.max(torch.abs(rewards))
+        eps_green = 1e-6 * r_max / (torch.mean(opt_costs) + 1e-30)
+        return opt_costs, eps_green
+
+    def _flow_split(self, flops_mass, share):
+        """Deterministic proportional rounding of a tied window: walk the
+        (masked) FLOPs mass in arrival order and hand region r the
+        ``share[r]`` fraction of it (an interval assignment on the
+        cumulative mass, exact up to one request per region)."""
+        edges = torch.cumsum(share, dim=0)  # (R,) right edges in (0, 1]
+        prefix = torch.cumsum(flops_mass, dim=0)
+        total = prefix[-1]
+        pos = (prefix - 0.5 * flops_mass) / torch.clamp(total, min=1e-30)
+        return torch.sum((pos[:, None] > edges[None, :-1]).to(torch.int64),
+                         dim=1)
+
+    def _main_geo(self, w, rewards, mask) -> dict:
+        cs, costs, lam, scales = self._cs, self._costs, w.lam, w.scale
+        j_n, r_n = costs.shape[0], cs.r_n
+        opt_costs, eps_green = self._region_setup(w, rewards)
+        if cs.split == "flow":
+            # per-flop priced cost per region; the eps_green floor routes
+            # slack (lam = 0) windows green
+            u = (lam + eps_green) * scales  # (R,)
+            r0 = torch.argmin(u)
+            sel = r0.view(1)  # a gather, not a host read of the index
+            price_best = (lam.gather(0, sel) * scales.gather(0, sel)
+                          ) * costs  # (J,)
+            dec = torch.argmax(rewards - price_best[None, :], dim=1)
+            f = costs[dec] * w.valid
+            tied = u <= torch.min(u) * (1.0 + cs.tie_tol)
+            cap = torch.where(tied, w.budget / torch.clamp(scales,
+                                                           min=1e-30), 0.0)
+            total_cap = torch.sum(cap)
+            share = cap / (total_cap + 1e-30)
+            # zero remaining capacity (share all zero): the priced argmin
+            region = torch.where(total_cap > 0, self._flow_split(f, share),
+                                 r0)
+            dec_m = region * j_n + dec
+        else:
+            # the joint argmax over (chain, region) factors: each
+            # (request, chain) takes its cheapest-priced region, then the
+            # chains compete by Eq. 10 (first index on ties)
+            unit = scales[:, None] * costs[None, :]  # (R, J)
+            price_r = lam[:, None] * unit
+            price_irj = price_r[None].expand(rewards.shape[0], r_n, j_n)
+            r_star = torch.argmin(price_irj + eps_green * unit[None], dim=1)
+            price_best = torch.gather(price_irj, 1, r_star[:, None, :])[:, 0]
+            dec = torch.argmax(rewards - price_best, dim=1)
+            dec_m = torch.gather(r_star, 1, dec[:, None])[:, 0] * j_n + dec
+        dec_m, dg, r_spend = downgrade_guard(
+            dec_m, opt_costs, w.budget, self._cheap_k, mask,
+            k_of=dec_m.long() // j_n)
+        return {"dec": dec_m % j_n, "dg": dg, "spend": torch.sum(r_spend),
+                "regions": dec_m // j_n, "r_spend": r_spend}
+
+    def _main_geotenants(self, w, rewards, mask) -> dict:
+        cs, costs, lam, scales = self._cs, self._costs, w.lam, w.scale
+        j_n, t_n, r_n = costs.shape[0], cs.t_n, cs.r_n
+        opt_costs, eps_green = self._region_setup(w, rewards)
+        if cs.tenant_priced:
+            lam_r = lam[t_n:]
+            lam_ti = lam[:t_n][w.k_of]  # (b,)
+        else:  # shared tenants: region prices only, tenant budgets
+            lam_r = lam  # enforced by the guard's tenant walk
+            lam_ti = torch.zeros(rewards.shape[0], device=rewards.device)
+        # per-flop priced cost of serving request i in region r
+        q_ir = (lam_ti[:, None] + lam_r[None, :]) * scales[None, :]
+        u_ir = q_ir + eps_green * scales[None, :]  # green floor
+        r0 = torch.argmin(u_ir, dim=1)  # (b,)
+        # the per-flop price factors out of the chain argmax, so chains
+        # compete at the chosen region's price (Eq. 10)
+        p_i = torch.gather(q_ir, 1, r0[:, None])[:, 0]
+        dec = torch.argmax(rewards - p_i[:, None] * costs[None, :], dim=1)
+        f = costs[dec] * w.valid
+        if cs.split == "flow":
+            u_min = torch.gather(u_ir, 1, r0[:, None])[:, 0]
+            tied_ir = u_ir <= u_min[:, None] * (1.0 + cs.tie_tol)
+            is_tied = torch.sum(tied_ir.to(torch.int32), dim=1) > 1
+            # region capacity left after the untied requests
+            untied = f * (~is_tied).to(torch.float32)
+            fixed = torch.stack([torch.sum(untied * (r0 == r))
+                                 for r in range(r_n)])
+            # shares only cover regions inside some tied request's band
+            any_tied = torch.any(tied_ir & is_tied[:, None], dim=0)
+            cap = torch.clamp(w.budget[t_n:] / torch.clamp(scales, min=1e-30)
+                              - fixed, min=0.0) * any_tied.to(torch.float32)
+            total_cap = torch.sum(cap)
+            share = cap / (total_cap + 1e-30)
+            r_flow = self._flow_split(f * is_tied.to(torch.float32), share)
+            # a request never leaves its own tie band, and exhausted
+            # capacity falls back to the priced argmin
+            ok = torch.gather(tied_ir, 1, r_flow[:, None])[:, 0]
+            region = torch.where(is_tied & ok & (total_cap > 0), r_flow, r0)
+        else:
+            region = r0
+        dec_m = region * j_n + dec
+        # the tenant walk downgrades to the globally cheapest priced
+        # option, then the region walk re-caps within each region
+        dec_m, dg, _ = downgrade_guard_chain(
+            dec_m, opt_costs,
+            [(w.budget[:t_n], torch.argmin(opt_costs), w.k_of),
+             (w.budget[t_n:], self._cheap_k, lambda d: d.long() // j_n)],
+            mask)
+        region = dec_m // j_n
+        # per-(tenant, region) spends of the final decisions, one masked
+        # (b,) sum a cell
+        cd = opt_costs[dec_m.long()] * w.valid
+        in_t = [w.k_of == t for t in range(t_n)]
+        in_r = [region == r for r in range(r_n)]
+        tr_spend = torch.stack([torch.stack([torch.sum(cd * (a & b))
+                                             for b in in_r]) for a in in_t])
+        return {"dec": dec_m % j_n, "dg": dg, "spend": torch.sum(tr_spend),
+                "regions": region, "t_spend": torch.sum(tr_spend, dim=1),
+                "r_spend": torch.sum(tr_spend, dim=0), "tr_spend": tr_spend}
+
+    @torch.no_grad()
+    def _dual(self, w, padded: bool) -> dict:
+        """Nearline price update on the window's rewards against the
+        dual budget and scale (this window's, or the next window's when
+        the caller forecasts).  The (M, K) dual cost map and (I, K)
+        membership come from the compiled spec."""
+        cs, cfg = self._cs, self.dual_cfg
+        mask = w.valid if padded else None
+        rewards, budget, member = w.rewards, w.d_budget, None
+        j_n = self._costs.shape[0]
+        if cs.regions is not None:
+            opt_costs = (w.d_scale[:, None] * self._costs[None, :]
+                         ).reshape(-1)
+            rewards = rewards.repeat(1, cs.r_n)
+            if cs.mode == "geotenants":
+                costs = cs.dual_cost_map(opt_costs, j_n)
+                member = cs.dual_member(w.k_of, rewards.shape[0])
+                if not cs.tenant_priced:
+                    budget = budget[cs.t_n:]
+            else:
+                costs = cs.region_cost_map(opt_costs, j_n)
+        else:
+            costs = self._costs * w.d_scale
+            if cs.tenant_priced:
+                costs = costs[:, None]
+                member = cs.tenant_member(w.k_of)
+            elif cs.mode == "tenants":  # one price on the total budget
+                budget = torch.sum(budget)
+        lam, _ = dual_descent(
+            rewards, costs, budget, w.lam, mask=mask, member=member,
+            max_iters=cfg.max_iters, step_size=cfg.step_size,
+            step_decay=cfg.step_decay)
+        return {"lam": lam}
+
+    # -- public API ----------------------------------------------------------
+
+    def _named_vector(self, value, names: tuple, what: str):
+        """A named per-axis dict -> the positional vector (a number for
+        the single global axis); anything else passes through."""
+        if not isinstance(value, dict):
+            return value
+        missing = [k for k in names if k not in value]
+        extra = [k for k in value if k not in names]
+        if missing or extra:
+            raise ValueError(
+                f"named {what} keys must be exactly {list(names)} "
+                f"(missing {missing}, unknown {extra})")
+        vec = np.asarray([float(value[k]) for k in names], np.float32)
+        return float(vec[0]) if names == ("global",) else vec
+
+    def _window_budgets(self, budget, cost_scale):
+        """This window's (budget vector or None, reported budget, mean
+        cost scale, budget knob, scale knob) for the spec's mode."""
+        cs = self._cs
+        mode = cs.mode
+        if mode in ("geo", "geotenants"):
+            if budget is None or cost_scale is None:
+                raise ValueError(
+                    f"{mode} mode serves against per-region budgets: pass "
+                    f"a ({cs.budget_len()},) budget (tenants first) and an "
+                    f"({cs.r_n},) cost_scale every window")
+            bud_vec = np.asarray(budget, np.float32).reshape(-1)
+            sc_vec = np.asarray(cost_scale, np.float32).reshape(-1)
+            if len(bud_vec) != cs.budget_len() or len(sc_vec) != cs.r_n:
+                raise ValueError(
+                    f"{mode} budget/cost_scale must have {cs.budget_len()} "
+                    f"and {cs.r_n} entries, got {len(bud_vec)} and "
+                    f"{len(sc_vec)}")
+            if mode == "geotenants":  # the tighter of the two totals
+                t_n = cs.t_n
+                bud = float(min(bud_vec[:t_n].sum(), bud_vec[t_n:].sum()))
+            else:
+                bud = float(bud_vec.sum())
+            return bud_vec, bud, float(sc_vec.mean()), bud_vec, sc_vec
+        sc = 1.0 if cost_scale is None else float(cost_scale)
+        if mode == "tenants":
+            if budget is None:
+                bud_vec = self.tenant_budgets
+            else:
+                bud_vec = np.asarray(budget, np.float32).reshape(-1)
+                if len(bud_vec) != cs.t_n:
+                    raise ValueError(f"tenant budget override must have "
+                                     f"{cs.t_n} entries")
+            return bud_vec, float(bud_vec.sum()), sc, bud_vec, sc
+        bud = self.budget if budget is None else float(budget)
+        return None, bud, sc, bud, sc
 
     def serve_window(self, ctx: np.ndarray, rows: np.ndarray, *,
-                     tables: dict, lam=None, update_lam: bool = True,
+                     lam=None, update_lam: bool = True, budget=None,
+                     cost_scale=None, dual_budget=None,
+                     dual_cost_scale=None, tables: dict | None = None,
                      ready=None) -> WindowResult:
-        """Serve one window: ctx (n, d_context) raw contexts, rows (n,)
-        LOCAL indices into the chunk ``tables``.  Decisions use ``lam``
+        """Serve one window: ctx (n, d_context) raw contexts; rows (n,)
+        user rows of a materialized server, or with ``tables`` (a
+        ``WindowChunk``'s (G, n, cap) tables, required over a streaming
+        universe) local indices into them.  Decisions use ``lam``
         (default: the nearline price lambda_{t-1}); the pass then
-        publishes lambda_t unless ``update_lam=False``.  ``ready`` is the
-        chunk's event (``WindowChunk.ready``) when its tables were made
-        on another stream: the window waits for it on the device."""
+        publishes lambda_t unless ``update_lam=False``.
+
+        ``budget`` overrides this window's budget: a number in the plain
+        mode, (T,) with tenants, (R,) with regions and (T + R,) with
+        both (tenant budgets first; required with regions, together
+        with an (R,) ``cost_scale``).  ``cost_scale`` re-denominates the
+        costs as ``costs * cost_scale`` (carbon pricing passes kappa *
+        CI(t) with a gCO2e budget).  Both also take the named form, a
+        dict keyed by the compiled spec's ``budget_names`` /
+        ``scale_names``.  ``dual_budget``/``dual_cost_scale`` aim the
+        nearline update at another (budget, scale) - the next window's,
+        for the CI-forecast warm start (default: this window's).
+        ``ready`` is the chunk's event (``WindowChunk.ready``) when its
+        tables were made on another stream."""
         dev = self.device
+        cs = self._cs
         n = len(rows)
+        if self._stream_only != (tables is not None) and n:
+            raise ValueError(
+                "a streaming universe's windows carry their chunk tables "
+                "(serve_window(..., tables=chunk.tables)); a materialized "
+                "server's windows index its own")
+        bn, sn = cs.budget_names, cs.scale_names
+        budget = self._named_vector(budget, bn, "budget")
+        dual_budget = self._named_vector(dual_budget, bn, "dual_budget")
+        cost_scale = self._named_vector(cost_scale, sn, "cost_scale")
+        dual_cost_scale = self._named_vector(dual_cost_scale, sn,
+                                             "dual_cost_scale")
+        bud_vec, bud, sc, b_knob, s_knob = self._window_budgets(
+            budget, cost_scale)
+        k_budget = None if bud_vec is None else np.array(bud_vec)
         if n == 0:  # zero-arrival window: nothing to serve or learn from
             lam_rec = self.lam.clone()
             zero = torch.zeros((), device=dev)
+            t_n, r_n = cs.t_n, cs.r_n
             res = WindowResult(
-                n_valid=0, budget=self.budget, lam_before=lam_rec,
+                n_valid=0, budget=bud, lam_before=lam_rec,
                 lam_after=lam_rec,
                 decisions=torch.zeros(0, dtype=torch.int32, device=dev),
                 revenue=torch.zeros(0, device=dev), spend=zero,
                 downgraded=torch.zeros((), dtype=torch.int32, device=dev),
-                valid=np.zeros(0, np.float32), flops=zero)
+                valid=np.zeros(0, np.float32), flops=zero, cost_scale=sc,
+                tenant_spend=(None if t_n is None
+                              else torch.zeros(t_n, device=dev)),
+                regions=(None if r_n is None else torch.zeros(
+                    0, dtype=torch.int64, device=dev)),
+                region_spend=(None if r_n is None
+                              else torch.zeros(r_n, device=dev)),
+                tr_spend=(torch.zeros((t_n, r_n), device=dev)
+                          if cs.mode == "geotenants" else None),
+                k_budget=k_budget)
             self.stats.append(res)
             return res
-        p = torch.as_tensor(tables["p"])
-        ck = torch.as_tensor(tables["ck"])
-        if p.shape[1] != n:
-            raise ValueError(f"chunk tables carry {p.shape[1]} rows for "
-                             f"a {n}-request window")
-        b = self._bucket(n)
+        chunked = self._stream_only
+        run_tables = None
+        if chunked:
+            p = torch.as_tensor(tables["p"])
+            ck = torch.as_tensor(tables["ck"])
+            if p.shape[1] != n:
+                raise ValueError(f"chunk tables carry {p.shape[1]} rows "
+                                 f"for a {n}-request window")
+            consume((p, ck), ready)
+            run_tables = (p, ck)
+        b = self.window_bucket(n)
+        perm, valid, k_of = window_layout(n, b, cs.t_n)
         key = (b, b != n)
         c0 = self.compile_count()
         prog = self._programs.get(key)
         if prog is None:
-            prog = self._programs[key] = _WindowProgram(self, b, b != n)
-        perm, valid = window_layout(n, b)
-        consume((p, ck), ready)
-        h2d = prog.load(np.asarray(ctx, np.float32), perm, valid, p, ck,
+            prog = self._programs[key] = _WindowProgram(self, b, b != n,
+                                                        chunked)
+        real = valid > 0
+        ctx_p = np.zeros((b, np.shape(ctx)[1]), np.float32)
+        ctx_p[real] = np.asarray(ctx, np.float32)[perm[real]]
+        if chunked:  # rows index the padded chunk
+            rows_p = perm
+        else:
+            rows_p = np.zeros(b, np.int64)
+            rows_p[real] = np.asarray(rows, np.int64)[perm[real]]
+        knobs = [b_knob, s_knob,
+                 b_knob if dual_budget is None else dual_budget,
+                 s_knob if dual_cost_scale is None else dual_cost_scale]
+        h2d = prog.load(ctx_p, rows_p, valid, k_of, knobs, run_tables,
                         self.lam if lam is None else lam)
         lam_before = prog.lam.clone()
         with record_function("window/main"):
@@ -312,12 +737,21 @@ class ServingPipeline:
             lam_after = self.lam.clone()
         else:
             lam_after = lam_new.clone()
+
+        def own(name):
+            return out[name].clone() if name in out else None
+
         res = WindowResult(
-            n_valid=n, budget=self.budget, lam_before=lam_before,
-            lam_after=lam_after, decisions=out["dec"].clone(),
-            revenue=out["rev"].clone(), spend=out["spend"].clone(),
-            downgraded=out["dg"].clone(), valid=valid,
-            flops=out["flops"].clone(), compiles=self.compile_count() - c0,
+            n_valid=n, budget=bud, lam_before=lam_before,
+            lam_after=lam_after, decisions=own("dec"), revenue=own("rev"),
+            spend=own("spend"), downgraded=own("dg"),
+            valid=valid, flops=own("flops"), cost_scale=sc,
+            tenant_spend=own("t_spend"), regions=own("regions"),
+            region_spend=own("r_spend"), tr_spend=own("tr_spend"),
+            k_budget=k_budget, compiles=self.compile_count() - c0,
             bucket=key, h2d_bytes=int(h2d))
         self.stats.append(res)
         return res
+
+    def spend_trace(self) -> np.ndarray:
+        return np.array([float(torch.sum(r.spend)) for r in self.stats])

@@ -11,12 +11,16 @@ while the device still runs window t.  Every window is a pure function
 of (seed, t), so both are bitwise identical and a rerun replays
 identical traffic.
 
-Scenarios: ``constant`` (steady traffic) and ``spike`` (a burst over
-three windows starting at the first third - the dual price lags the
-burst and the guard absorbs it).
+Scenarios live in the ``SCENARIOS`` registry, the one source of valid
+names (``launch/serve.py``'s ``--scenario`` choices derive from it):
+one function a name, mapping a scenario to its per-window request counts.
+``run_stream`` can thread per-window budget and cost-scale traces into
+the pipeline, which is how a serving loop prices each window of a carbon or
+geo day at its grid intensity.
 """
 from __future__ import annotations
 
+import math
 import queue
 import threading
 import time
@@ -37,6 +41,7 @@ class TrafficScenario:
     n_windows: int
     n_base: int
     spike_mult: float = 3.0
+    n_tenants: int = 1
 
     def window_sizes(self) -> list[int]:
         return scenario_windows(self)
@@ -49,7 +54,8 @@ def _constant_windows(sc: TrafficScenario) -> list[int]:
 
 def _spike_windows(sc: TrafficScenario) -> list[int]:
     """``n_base`` with a ``spike_mult`` x burst over the 3 windows
-    starting at the first third (paper Fig. 5 protocol)."""
+    starting at the first third (paper Fig. 5 protocol: the price lags
+    the burst, the guard absorbs it)."""
     sizes = []
     for t in range(sc.n_windows):
         burst = sc.n_windows // 3 <= t < sc.n_windows // 3 + 3
@@ -57,20 +63,83 @@ def _spike_windows(sc: TrafficScenario) -> list[int]:
     return sizes
 
 
+def _diurnal_windows(sc: TrafficScenario) -> list[int]:
+    """One day-curve sinusoid over ``n_windows``, swinging between
+    ~0.4x and ~1.6x of ``n_base``."""
+    sizes = []
+    for t in range(sc.n_windows):
+        phase = 2.0 * math.pi * t / max(1, sc.n_windows)
+        sizes.append(int(sc.n_base * (1.0 + 0.6 * math.sin(phase))))
+    return sizes
+
+
+def _tenants_windows(sc: TrafficScenario) -> list[int]:
+    """Constant traffic in ``n_tenants`` equal blocks a window (spec
+    ``[TenantAxis(budgets, priced=...)]``: per-tenant budgets under one
+    shared price, per-tenant prices, or independent pipelines - see
+    ``launch/serve.py --tenant-mode``)."""
+    return _constant_windows(sc)
+
+
+def _carbon_windows(sc: TrafficScenario) -> list[int]:
+    """The diurnal day-curve, priced at kappa*CI(t) and budgeted in
+    gCO2e a window (spec ``[GlobalAxis(pricing="carbon")]``); the carbon
+    part lives in the (budget, cost_scale) traces fed to ``run_stream``."""
+    return _diurnal_windows(sc)
+
+
+def _georegions_windows(sc: TrafficScenario) -> list[int]:
+    """The day-curve served by the two-region router (spec
+    ``[RegionAxis(2), GlobalAxis(pricing="carbon")]``): (R,) gram budgets
+    and (R,) kappa*CI_r(t) scales a window."""
+    return _diurnal_windows(sc)
+
+
+def _geotenants_windows(sc: TrafficScenario) -> list[int]:
+    """The day-curve with both axes (spec ``[TenantAxis(budgets,
+    priced=True), RegionAxis(2), GlobalAxis(pricing="carbon")]``):
+    tenant gram budgets and region gram caps priced together, a tenant-t
+    request paying (lam_tenant[t] + lam_region[r]) * c_{j,r}."""
+    return _diurnal_windows(sc)
+
+
+def _swing_windows(sc: TrafficScenario) -> list[int]:
+    """Decade-ladder swings: sizes cycle through ``n_base`` x {1, 10,
+    100, ...} up to ``spike_mult`` - with ``bucketing="pow2"`` the
+    program count stays logarithmic in the swing and steady-state
+    captures stay zero."""
+    decades = max(1, int(math.log10(max(10.0, sc.spike_mult))) + 1)
+    mults = [10.0 ** d for d in range(decades)]
+    return [int(sc.n_base * mults[t % decades])
+            for t in range(sc.n_windows)]
+
+
 SCENARIOS: dict = {
     "constant": _constant_windows,
     "spike": _spike_windows,
+    "diurnal": _diurnal_windows,
+    "tenants": _tenants_windows,
+    "carbon": _carbon_windows,
+    "georegions": _georegions_windows,
+    "geotenants": _geotenants_windows,
+    "swing": _swing_windows,
 }
 
 
 def scenario_windows(sc: TrafficScenario) -> list[int]:
-    """Per-window request counts for a scenario."""
+    """Per-window request counts for a scenario; with tenants every
+    count is rounded down to whole equal tenant blocks."""
     try:
-        builder = SCENARIOS[sc.name]
+        make = SCENARIOS[sc.name]
     except KeyError:
         raise ValueError(f"unknown scenario {sc.name!r}: valid "
                          f"scenarios are {', '.join(SCENARIOS)}") from None
-    return [max(1, n) for n in builder(sc)]
+    out = []
+    for n in make(sc):
+        if sc.n_tenants > 1:  # keep tenant blocks equal-sized
+            n = max(sc.n_tenants, n - n % sc.n_tenants)
+        out.append(max(1, n))
+    return out
 
 
 @dataclass
@@ -123,27 +192,41 @@ class StreamStats:
     def total_revenue(self) -> float:
         return float(sum(r.revenue_np.sum() for r in self.windows))
 
+    @property
+    def total_spend(self) -> float:
+        return float(sum(float(torch.sum(r.spend)) for r in self.windows))
+
     def overshoot(self, c_min: float) -> float:
         """Max relative spend overshoot vs. max(budget, n*c_min)."""
         worst = 0.0
         for r in self.windows:
             cap = max(r.budget, r.n_valid * c_min)
-            worst = max(worst, float(r.spend) / cap - 1.0)
+            worst = max(worst, float(torch.sum(r.spend)) / cap - 1.0)
         return worst
 
 
 def run_stream(pipeline: ServingPipeline, sizes: list[int], source, *,
-               lam_trace=None, prefetch: int = 2, clock=None,
+               lam_trace=None, budget_trace=None, scale_trace=None,
+               forecast: bool = False, prefetch: int = 2, clock=None,
                sync=None) -> StreamStats:
-    """Serve ``sizes`` windows from ``source`` (anything with
-    ``window(t, n) -> WindowChunk``).
+    """Serve ``sizes`` windows from ``source``: a ``RequestSource``
+    (anything with ``window(t, n) -> WindowChunk``, whose chunk tables
+    the windows gather), or a callable ``sample_window(t, n) -> (ctx,
+    rows)`` indexing a materialized server.
 
     ``prefetch`` > 0: one producer thread, running on its own CUDA
     stream, makes the chunks strictly in window order into a queue of
     depth ``prefetch``; its exception is raised in the serving thread.
     A chunk's tables reach the serving stream through its ``ready``
     event.  ``prefetch=0``: the sequential double-buffered path.
-    ``lam_trace`` pins each window's entry price (parity checks).
+    ``lam_trace`` pins each window's entry price (parity checks);
+    ``budget_trace`` and ``scale_trace`` set each window's budget and
+    cost scale (vectors with tenants or regions, or the named dict
+    form; see ``ServingPipeline.serve_window``).  ``forecast=True`` aims
+    window t's nearline update at window t+1's budget and scale (the
+    CI-forecast warm start: the published price lands where the next
+    window needs it instead of lagging a swing by one window); with
+    constant traces it changes nothing.
     ``clock`` (default ``time.perf_counter``) times host work: per
     window ``prep_ms`` (chunk production), ``stall_ms`` (the serving
     thread's wait for it) and ``submit_ms`` (``serve_window``).  Without
@@ -152,27 +235,43 @@ def run_stream(pipeline: ServingPipeline, sizes: list[int], source, *,
     every window, so ``submit_ms`` and ``wall_s`` cover the device work
     too."""
     clock = clock or time.perf_counter
+    streaming = hasattr(source, "window")
     submit_ms: list[float] = []
     results: list[WindowResult] = []
+    last = len(sizes) - 1
 
     def prep(t: int, n: int):
         p0 = clock()
-        chunk = source.window(t, n)
-        return chunk, (clock() - p0) * 1e3
+        if streaming:
+            chunk = source.window(t, n)
+            item = (chunk.ctx, chunk.rows, chunk.tables,
+                    getattr(chunk, "ready", None), int(chunk.h2d_bytes))
+        else:
+            ctx, rows = source(t, n)
+            item = (ctx, rows, None, None, 0)
+        return item, (clock() - p0) * 1e3
 
     def serve(t: int, item, stall: float) -> None:
-        chunk, prep_ms = item
+        (ctx, rows, tables, ready, h2d), prep_ms = item
+        t_next = min(t + 1, last)  # the last window has nothing to aim at
         d0 = clock()
         res = pipeline.serve_window(
-            chunk.ctx, chunk.rows, tables=chunk.tables,
+            ctx, rows, tables=tables, ready=ready,
             lam=None if lam_trace is None else lam_trace[t],
-            ready=getattr(chunk, "ready", None))
+            budget=None if budget_trace is None else budget_trace[t],
+            cost_scale=None if scale_trace is None else scale_trace[t],
+            dual_budget=(budget_trace[t_next]
+                         if forecast and budget_trace is not None
+                         else None),
+            dual_cost_scale=(scale_trace[t_next]
+                             if forecast and scale_trace is not None
+                             else None))
         if sync is not None:
             sync()
         submit_ms.append((clock() - d0) * 1e3)
         res.prep_ms += prep_ms
         res.stall_ms += stall
-        res.h2d_bytes += int(chunk.h2d_bytes)
+        res.h2d_bytes += h2d
         results.append(res)
 
     t0 = clock()
@@ -217,16 +316,18 @@ def run_stream(pipeline: ServingPipeline, sizes: list[int], source, *,
 
 
 def window_table(stats: StreamStats) -> list[str]:
-    """Per-window report lines: n, spend/budget, lambda, downgraded,
-    revenue, host ms (prep + submit), stall ms, captures and bucket."""
+    """Per-window report lines: n, spend/budget, lambda (a price per
+    constraint with several), downgraded, revenue, host ms (prep +
+    submit), stall ms, captures and bucket."""
     lines = [f"{'win':>4} {'n':>5} {'spend/budget':>13} {'lam':>11} "
              f"{'downgraded':>10} {'revenue':>9} {'ms':>9} {'stall':>8} "
              f"{'cap':>3} bucket"]
     for t, r in enumerate(stats.windows):
+        lam = "/".join(f"{v:.4e}" for v in r.lam_after.reshape(-1).tolist())
         lines.append(
-            f"{t:>4} {r.n_valid:>5} {float(r.spend) / r.budget:>13.4f} "
-            f"{float(r.lam_after):>11.4e} {int(r.downgraded):>10d} "
-            f"{float(np.sum(r.revenue_np)):>9.1f} "
+            f"{t:>4} {r.n_valid:>5} "
+            f"{float(torch.sum(r.spend)) / r.budget:>13.4f} {lam:>11} "
+            f"{int(r.downgraded):>10d} {float(np.sum(r.revenue_np)):>9.1f} "
             f"{r.prep_ms + stats.submit_ms[t]:>9.2f} {r.stall_ms:>8.2f} "
             f"{r.compiles:>3d} {r.bucket}")
     return lines

@@ -539,3 +539,111 @@ def test_stream_launch_counts_equal_eager(cuda):
     assert {k: v for k, v in ops.LAUNCHES.items() if v} == {
         "cascade_truncate": len(sizes), "target_attention": blocks * chunks,
         "embedding_bag": chunks}
+
+
+def _multi_price_case(stack, mode):
+    """A spec and a plan of (n, budget, cost_scale) windows, several on
+    each bucket with other budgets and scales."""
+    import numpy as np
+
+    from repro_torch.launch import serve
+    from repro_torch.serving import spec as S
+
+    b = stack.budget
+    if mode == "tenants_priced":
+        tb = serve.tenant_budgets(b, 2, 4.0)
+        return (S.ConstraintSpec([S.TenantAxis(tuple(tb), priced=True)]),
+                [(64, tb, 1.0), (64, 0.5 * tb, 2.0), (60, tb, 1.0),
+                 (60, 1.5 * tb, 0.5), (64, tb, 1.0)])
+    tb = serve.tenant_budgets(b, 3, 4.0)
+    rg = 0.6 * b
+    return (S.ConstraintSpec([S.TenantAxis(tuple(tb), priced=True),
+                              S.RegionAxis(2, split="flow"),
+                              S.GlobalAxis(pricing="carbon")]),
+            [(96, np.array([*tb, rg, rg]), np.array([1.0, 1.0])),
+             (96, np.array([*tb, rg, 0.5 * rg]), np.array([1.0, 2.0])),
+             (90, np.array([*tb, 2 * rg, rg]), np.array([2.0, 1.0])),
+             (90, np.array([*tb, rg, rg]), np.array([1.0, 1.0])),
+             (96, np.array([*tb, rg, rg]), np.array([0.5, 1.0]))])
+
+
+@pytest.mark.parametrize("mode", ["tenants_priced", "geotenants"])
+def test_multi_price_graphs_bitwise_eager(cuda, mode):
+    """The tenants-priced and geotenants window programs captured
+    against the same programs run eagerly, at pinned (K,) prices, with
+    the budgets and scales changing between windows of one bucket:
+    every output bit for bit."""
+    from repro_torch.serving.pipeline import ServingPipeline
+
+    stack = _small_stack()
+    src, base = stack.source, stack.pipeline
+    spec, plan = _multi_price_case(stack, mode)
+    pipes = [ServingPipeline.from_spec(src.universe, base.reward_params,
+                                       base.reward_cfg, spec, graphs=g,
+                                       device=cuda) for g in (True, False)]
+    compiles = []
+    for t, (n, bud, sc) in enumerate(plan):
+        c = src.window(t, n)
+        lam = pipes[1].lam.clone()  # the eager run's price, pinned
+        got, want = (p.serve_window(c.ctx, c.rows, tables=c.tables,
+                                    ready=c.ready, lam=lam, budget=bud,
+                                    cost_scale=sc) for p in pipes)
+        torch.cuda.synchronize()
+        compiles.append(got.compiles)
+        for name in ("decisions", "revenue", "spend", "downgraded", "flops",
+                     "lam_before", "lam_after", "tenant_spend", "regions",
+                     "region_spend", "tr_spend"):
+            a, b = getattr(got, name), getattr(want, name)
+            assert (a is None) == (b is None), name
+            assert a is None or torch.equal(a, b), (mode, t, name)
+    # three tenant blocks pad to multiples of lcm(32, 3): 90 and 96
+    # requests share one padded bucket
+    assert compiles == ([2, 0, 2, 0, 0] if mode == "tenants_priced"
+                        else [2, 0, 0, 0, 0])
+
+
+def test_multi_price_stream_zero_steady_captures(cuda):
+    """A geotenants stream with per-window budget and scale traces
+    through the graphs: each bucket captures once, on first sight."""
+    import numpy as np
+
+    from repro_torch.serving.pipeline import ServingPipeline
+    from repro_torch.serving.stream import run_stream
+
+    stack = _small_stack()
+    src, base = stack.source, stack.pipeline
+    spec, plan = _multi_price_case(stack, "geotenants")
+    pipe = ServingPipeline.from_spec(src.universe, base.reward_params,
+                                     base.reward_cfg, spec, device=cuda)
+    st = run_stream(pipe, [n for n, _, _ in plan], src, prefetch=2,
+                    budget_trace=[b for _, b, _ in plan],
+                    scale_trace=[s for _, _, s in plan], forecast=True)
+    torch.cuda.synchronize()
+    assert st.compiles == [2, 0, 0, 0, 0] and st.steady_compiles == 0
+    assert np.isfinite(st.total_spend) and st.total_revenue > 0
+
+
+def test_cascade_server_serve_launches_truncation(cuda):
+    """``CascadeServer.serve`` on the card runs the truncation kernel
+    (one launch) and returns the CPU server's revenue exactly."""
+    import numpy as np
+
+    from repro_torch.cascade.engine import CascadeServer
+    from repro_torch.core.action_chain import generate_action_chains
+    from repro_torch.launch.serve import small_stage_specs
+
+    rng = np.random.default_rng(0)
+    u, i = 64, 300
+    scores = {k: rng.normal(size=(u, i)).astype(np.float32)
+              for k in ("DSSM", "YDNN", "DIN", "DIEN")}
+    clicks = (rng.random((u, i)) < 0.15).astype(np.float32)
+    chains = generate_action_chains(small_stage_specs(i, 8))
+    card = CascadeServer(scores, chains, clicks, expose=8, device=cuda)
+    host = CascadeServer(scores, chains, clicks, expose=8, device="cpu")
+    rows = rng.integers(0, u, 200)
+    dec = rng.integers(0, chains.n_chains, 200)
+    before = ops.LAUNCHES["cascade_truncate"]
+    rev, flops = card.serve(rows, dec)
+    assert ops.LAUNCHES["cascade_truncate"] == before + 1
+    np.testing.assert_array_equal(rev, host.serve(rows, dec)[0])
+    np.testing.assert_array_equal(flops, chains.costs[dec])
