@@ -69,6 +69,36 @@ In order, it
      across the budget/scale change, no host sync in a steady window;
      then a materialized ``CascadeServer`` over one full-width slab
      serves through the truncation kernel exactly as the plain oracle;
+  4c. on the same source, before its graphs are released, serves the
+     CLI's three carbon days through ``launch.serve``'s own day functions
+     (``carbon_day``, and ``region_day`` for both geo days), each at a window
+     offset of its own, 4 windows of the diurnal curve (512, 819, 512,
+     204 requests; 510, 819, 510, 204 in three tenant blocks), prefetch
+     2, synchronised after each window, the counters reset before each
+     day and read after it: carbon (a diurnal trace at a mean of 450
+     g/kWh, carbon pricing, a ``CarbonLedger`` on the pipeline),
+     georegions (two region traces 8 h apart, the flow split, a ledger a
+     region) and geotenants (3 priced tenants spread 4x x 2 regions,
+     each region capped at 0.6 of the total); checks every window's
+     spend against its budget, tenant and region caps plus one option's
+     cost, zero steady-state captures, the eager launch counts and no
+     other kernel, the ledgers (requests == served, FLOPs == the chain
+     costs of the decisions each region served, recomputed exactly,
+     gCO2e == kWh x the window's intensity) and each report CSV (with a
+     ``region`` column on the geo days); prints each day's wall ms,
+     window ms and ledger reports; then serves the carbon day again with
+     an ``Obs`` attached (metrics, spans, the JSONL flight log), held to
+     the first run bit for bit, and one more warm window of that
+     pipeline, ledger and obs attached, under
+     ``torch.cuda.set_sync_debug_mode("error")``; last, the CLI itself
+     (``serve.main``, as ``python -m repro_torch.launch.serve --scenario
+     carbon`` runs it) builds a full-width stack of its own and serves
+     the carbon day with ``--metrics-out``, ``--trace-out`` and
+     ``--profile-dir``: its launches equal the eager counts (with the
+     scoring capture's warm-up on the zero batch), the metrics
+     count the table-cache misses, the flight log has a row a window, the
+     span trace holds ``chunk_tables`` and every serving span, and the
+     profiler's trace holds the three window kernels;
   5. profiles one more full-width window (warm, through the graphs)
      under ``torch.profiler`` and prints its wall time, the device's busy
      time and idle share, each phase range's host and device span, the
@@ -114,7 +144,6 @@ import gc
 import json
 import math
 import os
-import subprocess
 import sys
 import time
 
@@ -129,14 +158,6 @@ PEAK_TF32_S = 495e12  # H100 SXM TF32 tensor cores, dense
 
 def log(msg: str) -> None:
     print(f"[smoke] {msg}", flush=True)
-
-
-def card_line() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True).stdout.strip().splitlines()
-    return out[0]
 
 
 def cuda_ms(fn, *, reps: int, warm: int = 2) -> float:
@@ -1008,25 +1029,32 @@ def multi_price_cases(stack) -> dict:
 
 
 def check_multi_price_caps(name, st, case, chains) -> None:
-    """Every tenant's and region's spend within its budget (or the floor
-    of its requests all on the cheapest option) plus one option's cost,
-    in the window's cost units; revenue positive, prices finite."""
+    """Every tenant's and region's spend (the window's, without either)
+    within its budget (or the floor of its requests all on the cheapest
+    option) plus one option's cost, in the window's cost units (without
+    scales, FLOPs); revenue positive, prices finite."""
     import numpy as np
     import torch
 
     costs = np.asarray(chains.costs, np.float64)
     for t, r in enumerate(st.windows):
-        scale = np.atleast_1d(np.asarray(case["scales"][t], np.float64))
+        sc = None if case["scales"] is None else case["scales"][t]
+        scale = np.atleast_1d(np.asarray(1.0 if sc is None else sc,
+                                         np.float64))
         c_max, c_min = costs.max() * scale.max(), costs.min() * scale.min()
-        bud = np.asarray(case["budgets"][t], np.float64)
-        n_t = r.n_valid // len(r.tenant_spend)
-        groups = [(f"tenant {k}", float(s), bud[k], n_t)
-                  for k, s in enumerate(r.tenant_spend.tolist())]
+        bud = np.atleast_1d(np.asarray(case["budgets"][t], np.float64))
+        groups = []
+        t_n = 0 if r.tenant_spend is None else len(r.tenant_spend)
+        if t_n:
+            n_t = r.n_valid // t_n
+            groups += [(f"tenant {k}", float(s), bud[k], n_t)
+                       for k, s in enumerate(r.tenant_spend.tolist())]
         if r.region_spend is not None:
-            t_n = len(r.tenant_spend)
             counts = np.bincount(r.regions_np, minlength=len(scale))
             groups += [(f"region {k}", float(s), bud[t_n + k], counts[k])
                        for k, s in enumerate(r.region_spend.tolist())]
+        if not groups:
+            groups = [("window", float(r.spend), bud[0], r.n_valid)]
         for what, spend, b, n in groups:
             cap = max(b, n * c_min) + c_max
             if not spend <= cap:
@@ -1198,6 +1226,261 @@ def serve_multi_price(stack) -> dict:
                        cost_scale=case["scales"][0])
         out[name] = {kn: launches[kn] for kn in WINDOW_KERNELS}
     check_server_slab(stack)
+    return out
+
+
+# -- phase 4c: the CLI's carbon days on the same source ----------------------
+
+CARBON_DAYS = {
+    "carbon": ["--ci-trace", "diurnal", "--ci-mean", "450",
+               "--carbon-pricing", "carbon"],
+    "georegions": ["--geo-offset-h", "8", "--geo-split", "flow"],
+    "geotenants": ["--tenants", "3", "--tenant-mode", "priced",
+                   "--tenant-spread", "4", "--region-cap-frac", "0.6"],
+}
+CARBON_FIELDS = ("decisions", "spend", "lam_after", "tenant_spend",
+                 "region_spend", "tr_spend", "regions")
+
+
+def carbon_day_args(name: str, report_dir: str):
+    """The CLI's arguments of one day: 4 windows around 512 requests
+    (the diurnal curve: 512, 819, 512, 204; 510, 819, 510, 204 in three
+    tenant blocks), prefetch 2, the report in ``report_dir``."""
+    from repro_torch.launch import serve
+
+    return serve.parser().parse_args(
+        ["--scenario", name, "--windows", "4", "--requests", "512",
+         "--prefetch", "2", "--carbon-report",
+         os.path.join(report_dir, f"{name}.csv"), *CARBON_DAYS[name]])
+
+
+def check_ledgers(name, day, chains) -> None:
+    """The day's ledgers: their requests are the served requests, their
+    FLOPs the chain costs of the decisions each region served, recomputed
+    exactly, and each entry's gCO2e its kWh at that window's intensity;
+    the report CSV exists, with a ``region`` column on a geo day."""
+    import numpy as np
+
+    costs = np.asarray(chains.costs, np.float64)
+    served = sum(r.n_valid for r in day.stats.windows)
+    metered = sum(led.report()["n_requests"] for led in day.ledgers.values())
+    if metered != served:
+        raise AssertionError(f"{name}: ledgers metered {metered} requests "
+                             f"of {served} served")
+    for k, (region, led) in enumerate(day.ledgers.items()):
+        for t, (e, r) in enumerate(zip(led.entries, day.stats.windows)):
+            dec = r.decisions_np
+            if r.regions is not None:
+                dec = dec[r.regions_np == k]
+            flops = float(np.sum(costs[dec]))
+            if e.flops != flops or e.n_requests != len(dec):
+                raise AssertionError(f"{name} {region} window {t}: ledger "
+                                     f"{e.flops} FLOPs for {e.n_requests} "
+                                     f"requests, decisions {flops} for "
+                                     f"{len(dec)}")
+            if (e.ci_g_per_kwh != day.ci[region][t]
+                    or e.gco2e != e.kwh * e.ci_g_per_kwh):
+                raise AssertionError(f"{name} {region} window {t}: gCO2e "
+                                     f"{e.gco2e} is not kWh {e.kwh} x CI "
+                                     f"{day.ci[region][t]}")
+    with open(day.report) as f:
+        header = f.readline()
+    want = "region,window," if name != "carbon" else "window,"
+    if not header.startswith(want):
+        raise AssertionError(f"{name}: report header {header!r}")
+
+
+def check_carbon_obs(stack, day, report_dir) -> None:
+    """The carbon day again, with an ``Obs`` attached (metrics, tracer and
+    the JSONL flight log): decisions, spends and the price after each
+    window bit for bit the obs-free run's; then one more warm window of
+    its pipeline, with the ledger and obs attached, under
+    ``set_sync_debug_mode("error")``."""
+    import torch
+    from repro_torch.launch import serve
+    from repro_torch.obs import Obs, WindowEventLog
+
+    obs = Obs(events=WindowEventLog(os.path.join(report_dir,
+                                                 "carbon.windows.jsonl")))
+    args = carbon_day_args("carbon", report_dir)
+    args.carbon_report = os.path.join(report_dir, "carbon_obs.csv")
+    src = _Offset(stack.source, 8000)
+    again = serve.carbon_day(stack, args, source=src, obs=obs)
+    for t, (a, b) in enumerate(zip(day.stats.windows, again.stats.windows)):
+        for field in CARBON_FIELDS:
+            x, y = getattr(a, field), getattr(b, field)
+            if (x is None) != (y is None) or (
+                    x is not None and not torch.equal(x, y)):
+                raise AssertionError(f"carbon window {t}: obs on differs "
+                                     f"from obs off in {field}")
+    with open(obs.events.path) as f:
+        rows = [json.loads(line) for line in f]
+    if len(rows) != 4 or any(r["gco2e"] is None for r in rows):
+        raise AssertionError(f"carbon flight log: {rows}")
+    pipe = again.pipeline
+    chunk = stack.source.window(8900, 512)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        res = pipe.serve_window(chunk.ctx, chunk.rows, tables=chunk.tables,
+                                ready=chunk.ready, budget=again.budgets[0],
+                                cost_scale=again.scales[0])
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    if res.compiles or len(pipe.ledger.entries) != 5:
+        raise AssertionError("the no-sync carbon window was not warm or "
+                             "not metered")
+    spans = sorted({e[0] for e in obs.tracer.events})
+    log(f"carbon day with obs == without, bitwise ({', '.join(CARBON_FIELDS)}"
+        f"); {len(rows)} flight-log rows, spans {spans}; a warm window with "
+        f"the ledger and obs attached served with no host sync")
+
+
+def check_cli_carbon_day(report_dir) -> dict:
+    """The CLI's carbon day end to end, as ``python -m
+    repro_torch.launch.serve --scenario carbon`` serves it on the card:
+    ``serve.main`` builds a full-width stack of its own (its source
+    carries the ``Obs``, so the table-cache counters and ``chunk_tables``
+    spans are recorded), serves 4 diurnal windows with ``--metrics-out``,
+    ``--trace-out`` and ``--profile-dir`` (``torch.profiler`` around the
+    stack's graph captures and the day) and writes every file.  The
+    counters are reset just before and read just after; returns the
+    launches of the window kernels."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve
+
+    out = os.path.join(report_dir, "cli")
+    prom = os.path.join(out, "serve.prom")
+    trace = os.path.join(out, "serve.trace.json")
+    prof = os.path.join(out, "prof")
+    argv = ["--scenario", "carbon", "--windows", "4", "--requests", "512",
+            "--carbon-report", os.path.join(out, "carbon.csv"),
+            "--metrics-out", prom, "--trace-out", trace, "--profile-dir",
+            prof, "--obs-interval", "2"]
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    rc = serve.main(argv)
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    launches = dict(ops.LAUNCHES)
+    gc.collect()  # the CLI's stack and its graphs
+    torch.cuda.empty_cache()
+    sizes = serve.scenario_sizes("carbon", 4, 512)
+    chunks = sum(-(-n // 512) for n in sizes)
+    # the CLI builds its source, whose scoring program runs once eagerly
+    # on the zero batch before it captures: one chunk more than served
+    want = {"cascade_truncate": len(sizes),
+            "target_attention": -(-serve.FULL_ITEMS // 256) * (chunks + 1),
+            "embedding_bag": chunks + 1}
+    if rc != 0 or any(c != want.get(k, 0) for k, c in launches.items()):
+        raise AssertionError(f"CLI carbon day: exit {rc}, launches "
+                             f"{launches}, eager counts {want}")
+    lines = open(prom).read().splitlines()
+    for line in (f"greenflow_windows_total {len(sizes)}",
+                 f"greenflow_table_cache_misses_total {chunks}"):
+        if line not in lines:
+            raise AssertionError(f"CLI carbon day: no {line!r} in {prom}")
+    with open(prom + ".json") as f:
+        json.load(f)
+    with open(prom + ".windows.jsonl") as f:
+        rows = [json.loads(line) for line in f]
+    if len(rows) != len(sizes) or any(r["gco2e"] is None for r in rows):
+        raise AssertionError(f"CLI carbon day flight log: {rows}")
+    with open(trace) as f:
+        spans = {e["name"] for e in json.load(f)["traceEvents"]
+                 if e["ph"] == "X"}
+    need = {"chunk_tables", "prep", "stall", "serve", "h2d", "dispatch",
+            "dual_update", "block_until_ready", "ledger"}
+    if not need <= spans:
+        raise AssertionError(f"CLI carbon day: spans {sorted(spans)} lack "
+                             f"{sorted(need - spans)}")
+    with open(os.path.join(prof, "trace.json")) as f:
+        events = json.load(f)["traceEvents"]
+    ranges = {e.get("name") for e in events
+              if e.get("cat") == "user_annotation"}
+    kernels = [e.get("name", "") for e in events if e.get("cat") == "kernel"]
+    seen = {k: sum(f"{k}_kernel" in name for name in kernels)
+            for k in WINDOW_KERNELS}
+    if not ({"serve", "dispatch", "window/main"} <= ranges
+            and all(seen.values())):
+        raise AssertionError(f"CLI carbon day profile: ranges "
+                             f"{sorted(ranges)[:20]}, kernels {seen}")
+    log(f"CLI carbon day (serve.main, full width, --metrics-out "
+        f"--trace-out --profile-dir): wall {wall_ms:.3f} ms with the stack "
+        f"build and the profiler; launches {launches} over {chunks} chunks "
+        f"and the capture's warm-up chunk (== eager); {len(rows)} "
+        f"flight-log rows, {chunks} table-cache misses, spans "
+        f"{sorted(spans)}; profiler trace: {len(events)} events, "
+        f"{len(kernels)} device kernels, window kernels {seen}, host ranges "
+        f"{sorted(ranges & need)}")
+    return {k: launches[k] for k in WINDOW_KERNELS}
+
+
+def serve_carbon_days(stack) -> dict:
+    """Phase 4c: the CLI's carbon, georegions and geotenants days
+    (``launch.serve.carbon_day``, ``region_day``) over
+    the phase-4 source at window offsets of their own, every kernel count
+    reset just before each day and read just after it.  Returns {day:
+    launches}."""
+    import tempfile
+
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve
+
+    src = stack.source
+    n_blocks = -(-src._n_items() // src.item_block)
+    out = {}
+    with tempfile.TemporaryDirectory(prefix="carbon-days-") as report_dir:
+        days = {}
+        for k, name in enumerate(CARBON_DAYS):
+            args = carbon_day_args(name, report_dir)
+            misses = src.cache_misses
+            torch.cuda.synchronize()
+            ops.reset_launches()
+            day = serve.DAYS[name](stack, args,
+                                   source=_Offset(src, 8000 + 100 * k))
+            launches = dict(ops.LAUNCHES)
+            chunks = src.cache_misses - misses
+            st = day.stats
+            want = {"cascade_truncate": len(st.windows),
+                    "target_attention": n_blocks * chunks,
+                    "embedding_bag": chunks}
+            expect_chunks = sum(-(-n // src.chunk) for n in st.sizes)
+            if chunks != expect_chunks or any(
+                    cnt != want.get(kn, 0) for kn, cnt in launches.items()):
+                raise AssertionError(f"{name}: launches {launches} over "
+                                     f"{chunks} chunks, eager counts {want}")
+            if st.steady_compiles:
+                raise AssertionError(f"{name}: steady captures "
+                                     f"{st.compiles}")
+            check_multi_price_caps(name, st, {"budgets": day.budgets,
+                                              "scales": day.scales},
+                                   src.chains)
+            check_ledgers(name, day, src.chains)
+            log(f"{name} day: windows {st.sizes}, wall {st.wall_s * 1e3:.3f}"
+                f" ms, window ms (to the device's end) "
+                f"{[round(x, 3) for x in st.submit_ms]}, stall ms "
+                f"{[round(x, 3) for x in st.stall_ms]}; launches {launches} "
+                f"over {chunks} chunks; captures {st.compiles}")
+            for region, led in day.ledgers.items():
+                rep = led.report()
+                log(f"{name} ledger {region}: {rep['n_requests']} requests, "
+                    f"{rep['flops']:.6e} FLOPs, {rep['kwh']:.6e} kWh, "
+                    f"{rep['gco2e']:.6e} gCO2e (all-max "
+                    f"{rep['baseline_gco2e']:.6e}), embodied "
+                    f"{rep['embodied_gco2e']:.6e}, daily saved "
+                    f"{rep['daily_saved_kwh']:.6e} kWh "
+                    f"{rep['daily_saved_tco2e']:.6e} tCO2e")
+            out[name] = {kn: launches[kn] for kn in WINDOW_KERNELS}
+            days[name] = day
+        log("carbon days: spends within their caps, ledgers == the served "
+            "decisions exactly, gCO2e == kWh x CI, zero steady captures, "
+            "launches == the eager counts, reports written")
+        check_carbon_obs(stack, days["carbon"], report_dir)
+        out["carbon CLI"] = check_cli_carbon_day(report_dir)
     return out
 
 
@@ -1692,8 +1975,11 @@ def main(argv=None) -> int:
         return 2
     from repro_torch.kernels import build
     from repro_torch.launch import serve
+    from repro_torch.obs.env import card_line
 
     card = card_line()
+    if card is None:
+        raise RuntimeError("nvidia-smi reported no card")
     log(f"card: {card}")
     log(f"torch {torch.__version__} cuda {torch.version.cuda}, "
         f"{torch.cuda.get_device_name(0)} x {torch.cuda.device_count()}")
@@ -1736,6 +2022,8 @@ def main(argv=None) -> int:
     n_windows = len(st.windows)
     profile_window(stack)
     multi_launches = serve_multi_price(stack)
+    multi_launches.update(
+        {f"{name} day": c for name, c in serve_carbon_days(stack).items()})
     del stack, st
     gc.collect()  # the programs' closures form cycles; free their graphs
     torch.cuda.empty_cache()

@@ -46,6 +46,7 @@ from repro_torch.cascade.engine import (STAGE_MODELS, CascadeModels,
 from repro_torch.data.synthetic import StreamingWorld
 from repro_torch.device import resolve_device
 from repro_torch.graphs import Program, consume, record_event, side_stream
+from repro_torch.obs import get_obs
 
 
 @dataclass
@@ -203,13 +204,15 @@ class GeneratedSource(RequestSource):
     cache of ``table_cache`` chunk tables returns repeat arrivals without
     scoring (``cache_hits``/``cache_misses``); a chunk is a pure function
     of its arrival ids, so a hit, and a window scored on the pool, is
-    bitwise the sequential result.
+    bitwise the sequential result.  ``obs`` mirrors the cache counters
+    into its registry and wraps each window's chunk production
+    (``window``) in a ``chunk_tables`` span.
     """
 
     def __init__(self, world: StreamingWorld, models: CascadeModels,
                  chains, *, expose: int, seed: int = 0, chunk: int = 512,
                  item_block: int = 256, table_cache: int = 64,
-                 workers: int = 1, device=None):
+                 workers: int = 1, obs=None, device=None):
         self.device = dev = resolve_device(device)
         self.world = world
         self.models = models
@@ -227,8 +230,16 @@ class GeneratedSource(RequestSource):
         self._cache: OrderedDict = OrderedDict()  # slab key -> tables
         self._cache_cap = int(table_cache)
         self._lock = threading.Lock()
+        # the plain ints stay authoritative; the obs counters mirror them
         self.cache_hits = 0
         self.cache_misses = 0
+        self.obs = get_obs(obs)
+        self._hits_c = self.obs.metrics.counter(
+            "greenflow_table_cache_hits_total",
+            "slab-table cache hits (a hit IS the chunk result)")
+        self._misses_c = self.obs.metrics.counter(
+            "greenflow_table_cache_misses_total",
+            "slab-table cache misses (chunk scored + compacted)")
         self.workers = int(workers)
         self._pool = None
         self._stream = side_stream(dev)  # joins a window's chunks
@@ -276,8 +287,10 @@ class GeneratedSource(RequestSource):
             if hit is not None:
                 self._cache.move_to_end(key)
                 self.cache_hits += 1
+                self._hits_c.inc()
                 return (*hit, 0)
             self.cache_misses += 1
+            self._misses_c.inc()
         prog = self._free.get()  # never two threads on one program
         try:
             ctx, p, ck, ready, h2d = prog.run(self, ids)
@@ -303,7 +316,10 @@ class GeneratedSource(RequestSource):
                                          device=self.device),
                         "ck": torch.zeros((g_n, 0, cap), device=self.device)},
                 users=np.zeros(0, np.int64))
-        return self.window_for_users(self.arrivals(t, n))
+        users = self.arrivals(t, n)
+        with self.obs.span("chunk_tables", t=t, n=n,
+                           chunks=-(-n // self.chunk)):
+            return self.window_for_users(users)
 
     def window_for_users(self, users: np.ndarray) -> WindowChunk:
         """Chunk for an explicit arrival list (rows = arange(len))."""

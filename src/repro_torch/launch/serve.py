@@ -3,7 +3,8 @@
     python -m repro_torch.launch.serve --source generated \\
         [--device cuda|cpu] [--windows N] [--requests N] [--users N] \\
         [--prefetch N] [--scenario NAME] [--tenants T] \\
-        [--tenant-mode shared|priced|independent] [--tenant-spread X]
+        [--tenant-mode shared|priced|independent] [--tenant-spread X] \\
+        [--metrics-out PATH] [--trace-out PATH] [--profile-dir DIR]
 
 streams a ``GeneratedSource`` day: every window samples arrivals from a
 hash-generated user universe, scores DSSM, YDNN, DIN and DIEN over the
@@ -23,10 +24,42 @@ per-tenant budgets that sum to the window budget, spread so the loosest
 tenant has ``--tenant-spread`` times the tightest one's (1: equal):
 ``shared`` - one price on the total, the guard capping each tenant;
 ``priced`` - a price per tenant in the same window pass;
-``independent`` - one pipeline per tenant.  ``carbon``, ``georegions``
-and ``geotenants`` need the port of ``repro.carbon`` (ROADMAP A9) for
-their grid-intensity traces and exit until then; their window programs
-are served through ``ServingPipeline.from_spec``.
+``independent`` - one pipeline per tenant.
+
+The carbon days make the run one 24 h day (``--windows`` windows of
+86400 / windows s each) over the diurnal traffic curve:
+
+``--scenario carbon``      per-window gCO2e budgets and chain costs
+                           flops_j * kappa * CI(t) from the grid trace
+                           (``--ci-trace diurnal|duck|constant`` or
+                           ``--ci-csv FILE``, ``--ci-mean``,
+                           ``--ci-phase-h``), ``--carbon-pricing
+                           carbon|flops``, metered by a ``CarbonLedger``;
+``--scenario georegions``  the two-region router, region CI days
+                           ``--geo-offset-h`` apart, (R,) gram budgets
+                           and prices, ``--geo-split flow|argmax``, a
+                           ledger a region;
+``--scenario geotenants``  ``--tenants`` gram budgets spread
+                           ``--tenant-spread`` x (default 4) and region
+                           caps of ``--region-cap-frac`` of their total,
+                           priced together in one window pass.
+
+``--ci-forecast`` aims each nearline update at the next window's
+intensity; ``--embodied-g-per-device-h`` and ``--devices`` set the
+ledger's embodied carbon.  Each day prints its window table, the
+ledger's report (realized and all-max-chain kWh and gCO2e, embodied
+carbon, daily savings, FLOPs by stage and model) and writes the
+ledger's CSV to ``--carbon-report`` (default ``results/torch/
+carbon_report{,_geo,_geotenants}.csv``).
+
+Telemetry (``repro_torch.obs``): ``--metrics-out PATH`` writes a
+Prometheus-text snapshot (+ ``PATH.json`` and the per-window JSONL
+flight log ``PATH.windows.jsonl``), ``--trace-out PATH`` the host span
+trace as Chrome trace-event JSON, ``--obs-interval N`` prints a live
+line every N windows, ``--profile-dir DIR`` runs under
+``torch.profiler`` (CPU and CUDA activities) with the host spans as
+``record_function`` ranges and writes ``DIR/trace.json``.  Telemetry
+changes no decision or price.
 
 The full-width stack is the paper's: a 4000-item corpus with 100-long
 histories, the ``paper_stage_specs`` chains with expose 20, the stage
@@ -40,23 +73,38 @@ and the widths for a quick run on the CPU (``--device cpu``).
 from __future__ import annotations
 
 import argparse
+import os
 from dataclasses import dataclass
 
 import numpy as np
 import torch
+from torch.profiler import ProfilerActivity, profile
 
+from repro_torch.carbon.controller import CarbonBudget, grams_per_flop
+from repro_torch.carbon.intensity import (IntensityTrace, constant_trace,
+                                          diurnal_trace, load_ci_csv,
+                                          solar_duck_trace,
+                                          two_region_traces)
+from repro_torch.carbon.ledger import (DAY_S,
+                                       DEFAULT_EMBODIED_G_PER_DEVICE_H,
+                                       CarbonLedger, geo_report_csv)
 from repro_torch.cascade.engine import CascadeModels
 from repro_torch.core.action_chain import (ActionChainSet, ModelInstance,
                                            StageSpec,
                                            generate_action_chains,
                                            paper_stage_specs)
+from repro_torch.core.pfec import pfec_report
+from repro_torch.core.primal_dual import DualDescentConfig
 from repro_torch.core.reward_model import (RewardModelConfig,
                                            reward_model_init)
 from repro_torch.data.request_source import GeneratedSource
 from repro_torch.data.synthetic import StreamingWorld, WorldConfig
 from repro_torch.device import resolve_device
 from repro_torch.models.recsys import dien, din, dssm, ydnn
+from repro_torch.obs import Obs, WindowEventLog
 from repro_torch.serving.pipeline import ServingPipeline
+from repro_torch.serving.spec import (ConstraintSpec, GlobalAxis,
+                                      RegionAxis, TenantAxis)
 from repro_torch.serving.stream import (SCENARIOS, StreamStats,
                                         TrafficScenario, run_stream,
                                         window_table)
@@ -135,7 +183,9 @@ def reward_config(chains: ActionChainSet, d_context: int, *,
         d_context=d_context, **widths)
 
 
-NEEDS_CARBON = ("carbon", "georegions", "geotenants")
+CARBON_DAYS = ("carbon", "georegions", "geotenants")
+RESULTS = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..",
+                       "..", "..", "results", "torch")
 
 
 def tenant_budgets(budget: float, n: int, spread: float) -> np.ndarray:
@@ -145,19 +195,33 @@ def tenant_budgets(budget: float, n: int, spread: float) -> np.ndarray:
     return (budget * w / w.sum()).astype(np.float32)
 
 
+def scenario_sizes(scenario: str, windows: int, requests: int, *,
+                   tenants: int = 4, spike: float = 3.0) -> list[int]:
+    """Per-window request counts: ``tenants`` equal blocks a window in
+    the ``tenants`` and ``geotenants`` scenarios."""
+    n_tenants = tenants if scenario in ("tenants", "geotenants") else 1
+    return TrafficScenario(scenario, windows, requests, spike_mult=spike,
+                           n_tenants=n_tenants).window_sizes()
+
+
 @dataclass
 class ServeStack:
     source: GeneratedSource
-    pipelines: list  # one, or one a tenant (--tenant-mode independent)
+    pipelines: list  # one, or one a tenant; none for the carbon days
     sizes: list
     budget: float
     c_max: float
     device: torch.device
+    reward_params: dict
+    reward_cfg: RewardModelConfig
 
     @property
     def pipeline(self) -> ServingPipeline:
         if len(self.pipelines) != 1:
-            raise ValueError("independent tenants serve one pipeline each")
+            raise ValueError(
+                f"the stack holds {len(self.pipelines)} pipelines "
+                f"(independent tenants serve one each; the carbon days "
+                f"build their own)")
         return self.pipelines[0]
 
 
@@ -167,16 +231,14 @@ def build_stack(*, users: int = 100_000, requests: int = 512,
                 expose: int | None = None, chunk: int = 512,
                 item_block: int = 256, small: bool = False,
                 tenants: int = 4, tenant_mode: str = "shared",
-                tenant_spread: float = 1.0, device=None) -> ServeStack:
+                tenant_spread: float = 1.0, spike: float = 3.0, obs=None,
+                device=None) -> ServeStack:
     """World, chains, random-weight stage and reward models, the
     ``GeneratedSource`` and the pipeline(s), all on ``device``; with
     ``scenario="tenants"``, ``tenants`` blocks a window under
-    ``tenant_mode``."""
-    if scenario in NEEDS_CARBON:
-        raise SystemExit(
-            f"--scenario {scenario} needs the grid-intensity traces of "
-            f"repro.carbon, not ported yet (ROADMAP A9); its window "
-            f"program runs through ServingPipeline.from_spec")
+    ``tenant_mode``.  The carbon days (``CARBON_DAYS``) build their
+    pipelines themselves (``carbon_day``, ``region_day``), so their stack
+    holds none."""
     if tenant_mode not in ("shared", "priced", "independent"):
         raise ValueError(f"unknown tenant mode {tenant_mode!r}")
     dev = resolve_device(device)
@@ -190,37 +252,43 @@ def build_stack(*, users: int = 100_000, requests: int = 512,
     rparams = reward_model_init(gen, rcfg, dev)
     source = GeneratedSource(world, models, chains, expose=expose,
                              seed=seed, chunk=chunk, item_block=item_block,
-                             device=dev)
+                             obs=obs, device=dev)
     budget = float(budget_frac * chains.costs.max() * requests)
+    sizes = scenario_sizes(scenario, windows, requests, tenants=tenants,
+                           spike=spike)
     n_tenants = tenants if scenario == "tenants" else 1
-    sizes = TrafficScenario(scenario, windows, requests,
-                            n_tenants=n_tenants).window_sizes()
-    if n_tenants == 1:
+    kw = dict(obs=obs, device=dev)
+    if scenario in CARBON_DAYS:
+        pipes = []
+    elif n_tenants == 1:
         pipes = [ServingPipeline(source.universe, rparams, rcfg, budget,
-                                 device=dev)]
+                                 **kw)]
     elif tenant_mode == "independent":
         pipes = [ServingPipeline(source.universe, rparams, rcfg, float(b),
-                                 device=dev)
+                                 **kw)
                  for b in tenant_budgets(budget, n_tenants, tenant_spread)]
     else:
         pipes = [ServingPipeline(
             source.universe, rparams, rcfg, budget,
             tenant_budgets=tenant_budgets(budget, n_tenants, tenant_spread),
-            tenant_mode=tenant_mode, device=dev)]
+            tenant_mode=tenant_mode, **kw)]
     return ServeStack(source, pipes, sizes, budget,
-                      float(chains.costs.max()), dev)
+                      float(chains.costs.max()), dev, rparams, rcfg)
+
+
+def _sync(stack: ServeStack):
+    """``torch.cuda.synchronize`` after every window on the card, so the
+    per-window times include the device work."""
+    return torch.cuda.synchronize if stack.device.type == "cuda" else None
 
 
 def serve(stack: ServeStack, *, sync: bool = True, prefetch: int = 2,
-          pipeline: ServingPipeline | None = None) -> StreamStats:
+          pipeline: ServingPipeline | None = None, obs=None) -> StreamStats:
     """Run the stack's windows through its pipeline (or ``pipeline``,
     one of the independent tenants', which serves its share of every
     window) with ``prefetch`` chunks made ahead on a producer thread (0:
     sequentially); with ``sync`` the per-window times include the
     device work."""
-    do_sync = None
-    if sync and stack.device.type == "cuda":
-        do_sync = torch.cuda.synchronize
     sizes = stack.sizes
     if pipeline is None:
         pipeline = stack.pipeline
@@ -228,10 +296,310 @@ def serve(stack: ServeStack, *, sync: bool = True, prefetch: int = 2,
         sizes = [n // len(stack.pipelines) for n in sizes]
     with torch.no_grad():
         return run_stream(pipeline, sizes, stack.source, prefetch=prefetch,
-                          sync=do_sync)
+                          obs=obs, sync=_sync(stack) if sync else None)
 
 
-def main(argv=None) -> int:
+# -- the carbon days ----------------------------------------------------------
+
+
+@dataclass
+class CarbonDay:
+    """One served carbon, georegions or geotenants day: the stream, its
+    pipeline, the ledgers (one, or one a region) and each window's
+    budget, cost scale and grid intensity (a (W,) array a ledger)."""
+
+    stats: StreamStats
+    pipeline: ServingPipeline
+    ledgers: dict
+    budgets: np.ndarray
+    scales: np.ndarray | None
+    ci: dict
+    report: str
+
+    @property
+    def total_revenue(self) -> float:
+        return self.stats.total_revenue
+
+    @property
+    def total_flops(self) -> float:
+        return float(sum(float(r.flops) for r in self.stats.windows))
+
+
+def build_ci_trace(args) -> IntensityTrace:
+    """The grid-intensity trace of ``--ci-csv`` or ``--ci-trace`` at
+    ``--ci-mean``."""
+    if args.ci_csv:
+        return load_ci_csv(args.ci_csv)
+    if args.ci_trace == "diurnal":
+        return diurnal_trace(mean=args.ci_mean)
+    if args.ci_trace == "duck":
+        return solar_duck_trace(mean=args.ci_mean)
+    return constant_trace(args.ci_mean)
+
+
+def _report_path(args, name: str) -> str:
+    return os.path.abspath(args.carbon_report
+                           or os.path.join(RESULTS, name))
+
+
+def _day_sizes(args) -> list[int]:
+    return scenario_sizes(args.scenario, args.windows, args.requests,
+                          tenants=args.tenants, spike=args.spike)
+
+
+def tenant_spread(args) -> float:
+    """``--tenant-spread``; by default 4 for ``geotenants`` (the JAX
+    CLI's) and 1 for ``tenants``."""
+    if args.tenant_spread is not None:
+        return args.tenant_spread
+    return 4.0 if args.scenario == "geotenants" else 1.0
+
+
+def _embodied(args) -> float:
+    return (DEFAULT_EMBODIED_G_PER_DEVICE_H
+            if args.embodied_g_per_device_h is None
+            else args.embodied_g_per_device_h)
+
+
+def ledger_block(rep: dict, devices: int) -> list[str]:
+    """The ledger's report as the JAX CLI prints it after a carbon day:
+    realized and all-max-chain energy and carbon, embodied carbon, the
+    daily savings, FLOPs by stage and by model."""
+    lines = [
+        f"    realized      {rep['kwh']:.4e} kWh  {rep['gco2e']:.4e} gCO2e",
+        f"    all-max base  {rep['baseline_kwh']:.4e} kWh  "
+        f"{rep['baseline_gco2e']:.4e} gCO2e",
+        f"    embodied      {rep['embodied_gco2e']:.4e} gCO2e "
+        f"({devices} device(s) amortized)  total "
+        f"{rep['total_gco2e']:.4e} gCO2e",
+        f"    daily savings {rep['daily_saved_kwh']:.4e} kWh/day  "
+        f"{rep['daily_saved_tco2e']:.4e} tCO2e/day (vs all-max-chain)"]
+    lines += [f"    stage {s:10s} {v:.4e} FLOPs"
+              for s, v in rep["stage_flops"].items()]
+    lines += [f"    model {m:10s} {v:.4e} FLOPs"
+              for m, v in rep["model_flops"].items()]
+    return lines
+
+
+def carbon_day(stack: ServeStack, args, *, source=None,
+               obs=None) -> CarbonDay:
+    """The carbon-budgeted day: diurnal traffic (``--windows`` spanning
+    24 h) priced against the grid-intensity trace, per-window gCO2e
+    budgets and kappa * CI(t) cost scales through ``run_stream``
+    (``--carbon-pricing carbon``) or the effective-FLOPs-budget
+    reduction (``flops``); ``--ci-forecast`` aims each nearline update at
+    the next window's intensity.  A ``CarbonLedger`` attached to the
+    pipeline meters every window lazily and writes ``--carbon-report``.
+    ``source`` defaults to the stack's."""
+    src = stack.source if source is None else source
+    sizes = _day_sizes(args)
+    chains = stack.source.chains
+    trace = build_ci_trace(args)
+    window_s = DAY_S / len(sizes)
+    cb = CarbonBudget.from_flops(stack.budget, trace, window_s=window_s,
+                                 phase_s=args.ci_phase_h * 3600.0)
+    ledger = CarbonLedger(chains, trace, window_s=window_s,
+                          phase_s=cb.phase_s,
+                          embodied_g_per_device_h=_embodied(args),
+                          n_devices=args.devices, obs=obs)
+    print(f"[serve] carbon day: {len(sizes)} windows x "
+          f"{window_s / 3600.0:.2f} h, CI '{trace.name}' mean "
+          f"{trace.mean():.0f} g/kWh, budget {cb.grams_per_window:.3e} "
+          f"g/window ({args.carbon_pricing} pricing)")
+    sched = cb.schedule(len(sizes))
+    pipe = ServingPipeline(stack.source.universe, stack.reward_params,
+                           stack.reward_cfg, cb.flops_ref, ledger=ledger,
+                           obs=obs, device=stack.device)
+    if args.carbon_pricing == "carbon":
+        budgets, scales = sched["grams"], sched["scale"]
+    else:
+        budgets, scales = sched["flops_budget"], None
+    with torch.no_grad():
+        st = run_stream(pipe, sizes, src, budget_trace=budgets,
+                        scale_trace=scales, forecast=args.ci_forecast,
+                        prefetch=args.prefetch, obs=obs,
+                        sync=_sync(stack))
+    print(f"{'win':>4} {'n':>5} {'ci_g/kwh':>9} {'spend/budget':>13} "
+          f"{'lam':>12} {'downgraded':>10} {'revenue':>9} "
+          f"{'dispatch_ms':>11} {'cap':>3}")
+    for t, r in enumerate(st.windows):
+        print(f"{t:>4} {r.n_valid:>5} {sched['ci'][t]:>9.1f} "
+              f"{float(r.spend) / r.budget:>13.3f} "
+              f"{float(r.lam_after):>12.3e} {int(r.downgraded):>10d} "
+              f"{float(np.sum(r.revenue_np)):>9.1f} "
+              f"{st.dispatch_ms[t]:>11.2f} {r.compiles:>3d}")
+    print(f"[serve] {len(sizes)} windows in {st.wall_s:.2f}s "
+          f"({len(sizes) / st.wall_s:.1f} win/s)")
+    path = _report_path(args, "carbon_report.csv")
+    ledger.to_csv(path)
+    print(f"\n[serve] carbon ledger -> {path}")
+    for line in ledger_block(ledger.report(), args.devices):
+        print(line)
+    return CarbonDay(st, pipe, {ledger.name: ledger}, np.asarray(budgets),
+                     None if scales is None else np.asarray(scales),
+                     {ledger.name: sched["ci"]}, path)
+
+
+def _print_geo_ledgers(ledgers: dict, path: str, devices: int) -> None:
+    print(f"\n[serve] per-region carbon ledger -> {path}")
+    for name, led in ledgers.items():
+        rep = led.report()
+        print(f"    {name}: {rep['gco2e']:.4e} g operational + "
+              f"{rep['embodied_gco2e']:.4e} g embodied = "
+              f"{rep['total_gco2e']:.4e} gCO2e ({rep['n_requests']} "
+              f"requests)")
+        for line in ledger_block(rep, devices):
+            print("  " + line)
+
+
+def _region_rows(st: StreamStats, names: list, ci_w: dict) -> list[str]:
+    """The georegions window table: the split, each region's CI and
+    spend/budget."""
+    header = " ".join(f"{'ci_' + r[-1]:>6} {'spd/bud_' + r[-1]:>9}"
+                      for r in names)
+    lines = [f"{'win':>4} {'n':>5} {'split':>12} {header} {'revenue':>9} "
+             f"{'dispatch_ms':>11} {'cap':>3}"]
+    for t, r in enumerate(st.windows):
+        split = np.bincount(r.regions_np, minlength=len(names)).tolist()
+        spends = r.region_spend.cpu().numpy()
+        cols = " ".join(f"{ci_w[name][t]:>6.0f} "
+                        f"{spends[k] / r.k_budget[k]:>9.3f}"
+                        for k, name in enumerate(names))
+        lines.append(f"{t:>4} {r.n_valid:>5} {str(split):>12} {cols} "
+                     f"{float(np.sum(r.revenue_np)):>9.1f} "
+                     f"{st.dispatch_ms[t]:>11.2f} {r.compiles:>3d}")
+    return lines
+
+
+def _tenant_region_rows(st: StreamStats, names: list, tenant_g: np.ndarray,
+                        region_g: np.ndarray) -> list[str]:
+    """The geotenants window table: the split, each tenant's and each
+    region's spend/budget."""
+    t_n, r_n = len(tenant_g), len(region_g)
+    t_hdr = " ".join(f"{'t' + str(k) + ' s/b':>8}" for k in range(t_n))
+    r_hdr = " ".join(f"{'r_' + r[-1] + ' s/b':>8}" for r in names)
+    lines = [f"{'win':>4} {'n':>5} {'split':>12} {t_hdr} {r_hdr} "
+             f"{'revenue':>9} {'dispatch_ms':>11} {'cap':>3}"]
+    for t, r in enumerate(st.windows):
+        split = np.bincount(r.regions_np, minlength=r_n).tolist()
+        tr = r.tr_spend.cpu().numpy()
+        t_cols = " ".join(f"{tr[k].sum() / tenant_g[k]:>8.3f}"
+                          for k in range(t_n))
+        r_cols = " ".join(f"{tr[:, k].sum() / region_g[k]:>8.3f}"
+                          for k in range(r_n))
+        lines.append(f"{t:>4} {r.n_valid:>5} {str(split):>12} {t_cols} "
+                     f"{r_cols} {float(np.sum(r.revenue_np)):>9.1f} "
+                     f"{st.dispatch_ms[t]:>11.2f} {r.compiles:>3d}")
+    return lines
+
+
+def region_day(stack: ServeStack, args, *, source=None,
+               obs=None) -> CarbonDay:
+    """The two-region days, region CI days ``--geo-offset-h`` apart and
+    kappa * CI_r(t) cost scales, the region split ``--geo-split``, with a
+    ledger a region merged into one CSV with a ``region`` column.
+    ``--scenario georegions``: (R,) gram budgets through the router
+    (``[RegionAxis(2), GlobalAxis(pricing="carbon")]``).  ``--scenario
+    geotenants``: ``--tenants`` gram budgets spread ``--tenant-spread`` x
+    and per-region gram caps of ``--region-cap-frac`` of their total,
+    priced in one window pass (``[TenantAxis, RegionAxis(2),
+    GlobalAxis(pricing="carbon")]``; a tenant-t request pays
+    (lam_tenant[t] + lam_region[r]) * c_{j,r} when ``--tenant-mode
+    priced``).  ``source`` defaults to the stack's."""
+    tenants = args.scenario == "geotenants"
+    if tenants and args.tenant_mode == "independent":
+        raise SystemExit("--scenario geotenants composes tenants and "
+                         "regions in ONE pipeline; --tenant-mode "
+                         "independent contradicts that (use shared or "
+                         "priced)")
+    src = stack.source if source is None else source
+    sizes = _day_sizes(args)
+    n_w = len(sizes)
+    traces = two_region_traces(mean=args.ci_mean,
+                               offset_h=args.geo_offset_h)
+    names = list(traces)
+    r_n = len(names)
+    window_s = DAY_S / n_w
+    phase_s = args.ci_phase_h * 3600.0
+    ci_w = {r: traces[r].resample(n_w, window_s, phase_s=phase_s)
+            for r in names}
+    scales = np.stack([grams_per_flop(1.0) * ci_w[r] for r in names],
+                      axis=1)
+    g_total = stack.budget * grams_per_flop(1.0) * args.ci_mean
+    regions = RegionAxis(r_n, names=tuple(names), split=args.geo_split)
+    if tenants:
+        w = np.linspace(1.0, tenant_spread(args), args.tenants)
+        tenant_g = (g_total * w / w.sum()).astype(np.float64)
+        region_g = np.full(r_n, args.region_cap_frac * g_total)
+        budgets = np.tile(np.concatenate([tenant_g, region_g]), (n_w, 1))
+        axes = [TenantAxis(tuple(tenant_g),
+                           priced=args.tenant_mode == "priced"),
+                regions, GlobalAxis(pricing="carbon")]
+        report = "carbon_report_geotenants.csv"
+        print(f"[serve] geotenants day: {n_w} windows x "
+              f"{window_s / 3600.0:.2f} h, {args.tenants} tenants x {r_n} "
+              f"regions (offset {args.geo_offset_h:.0f} h), tenant grams "
+              + "/".join(f"{g:.2e}" for g in tenant_g)
+              + f", region cap {region_g[0]:.2e} g "
+              f"({args.region_cap_frac:.0%} of total), split "
+              f"{args.geo_split}, tenant-mode {args.tenant_mode}")
+    else:
+        budgets = np.full((n_w, r_n), g_total / r_n)
+        axes = [regions, GlobalAxis(budget=float(stack.budget),
+                                    pricing="carbon")]
+        report = "carbon_report_geo.csv"
+        print(f"[serve] geo day: {n_w} windows x {window_s / 3600.0:.2f} h, "
+              f"regions {names} offset {args.geo_offset_h:.0f} h, "
+              f"{g_total / r_n:.3e} g/window/region, split "
+              f"{args.geo_split}")
+    pipe = ServingPipeline.from_spec(
+        stack.source.universe, stack.reward_params, stack.reward_cfg,
+        ConstraintSpec(axes), obs=obs,
+        dual_cfg=DualDescentConfig(max_iters=300, step_decay=0.98),
+        device=stack.device)
+    with torch.no_grad():
+        st = run_stream(pipe, sizes, src, budget_trace=budgets,
+                        scale_trace=scales, forecast=args.ci_forecast,
+                        prefetch=args.prefetch, obs=obs,
+                        sync=_sync(stack))
+    rows = (_tenant_region_rows(st, names, tenant_g, region_g) if tenants
+            else _region_rows(st, names, ci_w))
+    for line in rows:
+        print(line)
+    print(f"[serve] {n_w} windows in {st.wall_s:.2f}s "
+          f"({n_w / st.wall_s:.1f} win/s)")
+    if tenants:
+        spent = sum((r.tr_spend.cpu().numpy().sum(axis=1)
+                     for r in st.windows), np.zeros(len(tenant_g)))
+        print("[serve] day totals, per tenant (spend_g / budget_g): "
+              + " ".join(f"t{k}={spent[k] / (n_w * g):.3f}"
+                         for k, g in enumerate(tenant_g)))
+    # one ledger a region, each window's decisions metered in the region
+    # that served them, at that region's CI
+    ledgers = {
+        r: CarbonLedger(stack.source.chains, traces[r], window_s=window_s,
+                        phase_s=phase_s, name=r, obs=obs,
+                        embodied_g_per_device_h=_embodied(args),
+                        n_devices=args.devices)
+        for r in names}
+    for t, r in enumerate(st.windows):
+        served, dec = r.regions_np, r.decisions_np
+        for k, name in enumerate(names):
+            ledgers[name].record(dec[served == k], t=t, ci=ci_w[name][t])
+    path = _report_path(args, report)
+    geo_report_csv(ledgers, path)
+    _print_geo_ledgers(ledgers, path, args.devices)
+    return CarbonDay(st, pipe, ledgers, budgets, scales, ci_w, path)
+
+
+DAYS = {"carbon": carbon_day, "georegions": region_day,
+        "geotenants": region_day}
+
+
+# -- the command line ---------------------------------------------------------
+
+
+def parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(
         description="GreenFlow streaming serving on PyTorch/CUDA")
     ap.add_argument("--source", default="generated", choices=("generated",),
@@ -247,12 +615,15 @@ def main(argv=None) -> int:
                     help="size of the streamed user universe")
     ap.add_argument("--scenario", default="constant",
                     choices=tuple(SCENARIOS))
+    ap.add_argument("--spike", type=float, default=3.0,
+                    help="traffic multiplier on the spike windows")
     ap.add_argument("--tenants", type=int, default=4)
     ap.add_argument("--tenant-mode", default="shared",
                     choices=("shared", "priced", "independent"))
-    ap.add_argument("--tenant-spread", type=float, default=1.0,
-                    help="--scenario tenants: budget ratio of the loosest "
-                         "to the tightest tenant")
+    ap.add_argument("--tenant-spread", type=float, default=None,
+                    help="budget ratio of the loosest to the tightest "
+                         "tenant (default 1 for --scenario tenants, 4 "
+                         "for geotenants)")
     ap.add_argument("--budget-frac", type=float, default=0.6)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--small", action="store_true",
@@ -260,20 +631,94 @@ def main(argv=None) -> int:
     ap.add_argument("--prefetch", type=int, default=2,
                     help="window-prep prefetch queue depth (0 = the "
                          "sequential double-buffered reference path)")
-    args = ap.parse_args(argv)
+    ap.add_argument("--ci-trace", default="diurnal",
+                    choices=("diurnal", "duck", "constant"),
+                    help="grid-intensity shape for --scenario carbon")
+    ap.add_argument("--ci-csv", default=None,
+                    help="load the intensity trace from an exported CSV "
+                         "(ichnos parse_ci_intervals layouts)")
+    ap.add_argument("--ci-mean", type=float, default=450.0,
+                    help="mean grid intensity, gCO2e/kWh")
+    ap.add_argument("--ci-phase-h", type=float, default=0.0,
+                    help="hours the intensity day leads the traffic day")
+    ap.add_argument("--carbon-pricing", default="carbon",
+                    choices=("carbon", "flops"))
+    ap.add_argument("--carbon-report", default=None,
+                    help="CSV path for the carbon ledger (default: "
+                         "results/torch/carbon_report.csv, "
+                         "carbon_report_geo.csv for georegions, "
+                         "carbon_report_geotenants.csv for geotenants)")
+    ap.add_argument("--ci-forecast", action="store_true",
+                    help="aim the nearline dual at the NEXT window's "
+                         "known CI (the carbon days)")
+    ap.add_argument("--geo-offset-h", type=float, default=8.0,
+                    help="hours region b's CI peak trails region a's")
+    ap.add_argument("--geo-split", default="flow",
+                    choices=("flow", "argmax"),
+                    help="region-tie rounding: 'flow' = exact "
+                         "proportional flow split of the degenerate "
+                         "window, 'argmax' = the knife edge")
+    ap.add_argument("--region-cap-frac", type=float, default=0.6,
+                    help="geotenants: each region's per-window gram cap "
+                         "as a fraction of the total tenant grams")
+    ap.add_argument("--embodied-g-per-device-h", type=float, default=None,
+                    help="embodied-carbon amortization per device-hour "
+                         "(default: the ichnos-style server constant; "
+                         "0 disables the ledger line)")
+    ap.add_argument("--devices", type=int, default=1,
+                    help="devices metered for embodied carbon (per "
+                         "region in georegions)")
+    ap.add_argument("--metrics-out", default=None,
+                    help="write a Prometheus-text metrics snapshot here "
+                         "at exit (plus a JSON snapshot at PATH.json and "
+                         "the per-window JSONL flight log at "
+                         "PATH.windows.jsonl)")
+    ap.add_argument("--trace-out", default=None,
+                    help="write the host span trace as Chrome "
+                         "trace-event JSON (open in ui.perfetto.dev; the "
+                         "producer and serving threads land on separate "
+                         "tracks)")
+    ap.add_argument("--obs-interval", type=int, default=0,
+                    help=">0: print a compact live telemetry line every "
+                         "N windows")
+    ap.add_argument("--profile-dir", default=None,
+                    help="run under torch.profiler (CPU and CUDA "
+                         "activities) and write its Chrome trace here; "
+                         "host spans become record_function ranges")
+    return ap
+
+
+def _make_obs(args):
+    """The telemetry bundle the obs flags ask for (None: off)."""
+    if not (args.metrics_out or args.trace_out or args.obs_interval
+            or args.profile_dir):
+        return None
+    events = (WindowEventLog(args.metrics_out + ".windows.jsonl")
+              if args.metrics_out else None)
+    return Obs(events=events, interval=args.obs_interval,
+               annotate=bool(args.profile_dir))
+
+
+def _run(args, obs) -> tuple[float, float]:
+    """Build the stack and serve the scenario; returns the run's
+    (revenue, FLOPs)."""
     stack = build_stack(users=args.users, requests=args.requests,
                         windows=args.windows, scenario=args.scenario,
                         budget_frac=args.budget_frac, seed=args.seed,
                         small=args.small, tenants=args.tenants,
                         tenant_mode=args.tenant_mode,
-                        tenant_spread=args.tenant_spread,
-                        device=args.device)
+                        tenant_spread=tenant_spread(args),
+                        spike=args.spike,
+                        obs=obs, device=args.device)
     print(f"[serve] device {stack.device}, {len(stack.sizes)} windows, "
           f"U={args.users:,}, budget {stack.budget:.4e} FLOPs/window")
+    if args.scenario in DAYS:
+        day = DAYS[args.scenario](stack, args, obs=obs)
+        return day.total_revenue, day.total_flops
     if len(stack.pipelines) == 1:
-        runs = [serve(stack, prefetch=args.prefetch)]
+        runs = [serve(stack, prefetch=args.prefetch, obs=obs)]
     else:
-        runs = [serve(stack, prefetch=args.prefetch, pipeline=p)
+        runs = [serve(stack, prefetch=args.prefetch, pipeline=p, obs=obs)
                 for p in stack.pipelines]
     c_min = float(stack.source.chains.costs.min())
     for k, st in enumerate(runs):
@@ -284,6 +729,40 @@ def main(argv=None) -> int:
         print(f"[serve] {len(st.sizes)} windows in {st.wall_s:.2f}s, worst "
               f"overshoot vs cap: {st.overshoot(c_min) * 100:.3f}%, "
               f"revenue {st.total_revenue:.1f}")
+    flops = sum(float(r.flops) for st in runs for r in st.windows)
+    return sum(st.total_revenue for st in runs), flops
+
+
+def main(argv=None) -> int:
+    args = parser().parse_args(argv)
+    obs = _make_obs(args)
+    if args.profile_dir:
+        acts = [ProfilerActivity.CPU]
+        if args.device != "cpu":
+            acts.append(ProfilerActivity.CUDA)
+        with profile(activities=acts) as prof:
+            total_rev, total_flops = _run(args, obs)
+        os.makedirs(args.profile_dir, exist_ok=True)
+        path = os.path.join(args.profile_dir, "trace.json")
+        prof.export_chrome_trace(path)
+        print(f"[obs] torch.profiler trace -> {path}")
+    else:
+        total_rev, total_flops = _run(args, obs)
+    print("\n[serve] PFEC (GreenFlow serving run):")
+    for k, v in pfec_report(clicks=total_rev,
+                            flops=total_flops).as_row().items():
+        print(f"    {k:14s} {v}")
+    if obs is not None:
+        if args.metrics_out:
+            prom, js = obs.export(args.metrics_out)
+            print(f"[obs] metrics -> {prom} (+ {os.path.basename(js)})")
+            if obs.events is not None:
+                print(f"[obs] window log -> {obs.events.path} "
+                      f"({obs.events.rows_written} rows)")
+        if args.trace_out:
+            path = obs.tracer.write(args.trace_out)
+            print(f"[obs] trace -> {path} ({len(obs.tracer.events)} spans; "
+                  f"open in ui.perfetto.dev)")
     return 0
 
 

@@ -76,6 +76,7 @@ from repro_torch.core.reward_model import (RewardModelConfig,
                                            reward_matrix_grouped)
 from repro_torch.device import resolve_device
 from repro_torch.graphs import Program, consume, record_event, side_stream
+from repro_torch.obs import get_obs
 from repro_torch.serving.guard import downgrade_guard, downgrade_guard_chain
 from repro_torch.serving.spec import ConstraintSpec, spec_from_legacy
 
@@ -276,6 +277,12 @@ class ServingPipeline:
     without one.  ``graphs`` (default) captures each bucket's window
     program as CUDA graphs on the card; ``graphs=False`` runs the same
     programs eagerly (the reference).
+
+    ``ledger`` (a ``carbon.CarbonLedger``) parks every served
+    ``WindowResult`` for lazy metering; ``obs`` (a ``repro_torch.obs.Obs``)
+    records the host spans ``h2d``, ``dispatch`` and ``dual_update``
+    around the window's loads and graph launches.  Neither reads a
+    device value inside the window, and neither changes a number.
     """
 
     def __init__(self, server, reward_params: dict,
@@ -285,8 +292,10 @@ class ServingPipeline:
                  tenant_budgets=None, tenant_mode: str = "shared",
                  n_regions: int | None = None,
                  spec: ConstraintSpec | None = None, graphs: bool = True,
-                 device=None):
+                 ledger=None, obs=None, device=None):
         self.device = dev = resolve_device(device)
+        self.ledger = ledger
+        self.obs = get_obs(obs)
         if spec is None:
             spec = spec_from_legacy(
                 float(budget_per_window), tenant_budgets=tenant_budgets,
@@ -694,6 +703,8 @@ class ServingPipeline:
                           if cs.mode == "geotenants" else None),
                 k_budget=k_budget)
             self.stats.append(res)
+            if self.ledger is not None:
+                self.ledger.record_result(res)
             return res
         chunked = self._stream_only
         run_tables = None
@@ -724,13 +735,16 @@ class ServingPipeline:
         knobs = [b_knob, s_knob,
                  b_knob if dual_budget is None else dual_budget,
                  s_knob if dual_cost_scale is None else dual_cost_scale]
-        h2d = prog.load(ctx_p, rows_p, valid, k_of, knobs, run_tables,
-                        self.lam if lam is None else lam)
+        with self.obs.span("h2d", n=n, b=b):
+            h2d = prog.load(ctx_p, rows_p, valid, k_of, knobs, run_tables,
+                            self.lam if lam is None else lam)
         lam_before = prog.lam.clone()
-        with record_function("window/main"):
+        with self.obs.span("dispatch", n=n, b=b), \
+                record_function("window/main"):
             out = prog.main()
         prog.rewards.copy_(out["rewards"])
-        with record_function("window/dual"):
+        with self.obs.span("dual_update", n=n, b=b), \
+                record_function("window/dual"):
             lam_new = prog.dual()["lam"]
         if update_lam:
             self.lam.copy_(lam_new)  # in place: the price buffer is reused
@@ -751,6 +765,8 @@ class ServingPipeline:
             k_budget=k_budget, compiles=self.compile_count() - c0,
             bucket=key, h2d_bytes=int(h2d))
         self.stats.append(res)
+        if self.ledger is not None:  # parks the record: no device read
+            self.ledger.record_result(res)
         return res
 
     def spend_trace(self) -> np.ndarray:

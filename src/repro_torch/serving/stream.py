@@ -30,6 +30,7 @@ import numpy as np
 import torch
 
 from repro_torch.graphs import side_stream
+from repro_torch.obs import MS_EDGES, get_obs, log2_edges
 from repro_torch.serving.pipeline import ServingPipeline, WindowResult
 
 
@@ -207,8 +208,8 @@ class StreamStats:
 
 def run_stream(pipeline: ServingPipeline, sizes: list[int], source, *,
                lam_trace=None, budget_trace=None, scale_trace=None,
-               forecast: bool = False, prefetch: int = 2, clock=None,
-               sync=None) -> StreamStats:
+               forecast: bool = False, prefetch: int = 2, obs=None,
+               clock=None, sync=None) -> StreamStats:
     """Serve ``sizes`` windows from ``source``: a ``RequestSource``
     (anything with ``window(t, n) -> WindowChunk``, whose chunk tables
     the windows gather), or a callable ``sample_window(t, n) -> (ctx,
@@ -232,47 +233,93 @@ def run_stream(pipeline: ServingPipeline, sizes: list[int], source, *,
     thread's wait for it) and ``submit_ms`` (``serve_window``).  Without
     ``sync`` the serving thread goes on while the device still runs;
     with ``sync`` (e.g. ``torch.cuda.synchronize``) it is called after
-    every window, so ``submit_ms`` and ``wall_s`` cover the device work
-    too."""
+    every window, so ``submit_ms`` covers the device work too.  Either
+    way the run ends by waiting for the card (the drain), so ``wall_s``
+    covers every window's device work.
+
+    ``obs`` (a ``repro_torch.obs.Obs``, default off) records spans
+    (``prep`` on the producer thread, ``stall`` and ``serve`` on the
+    serving thread, ``block_until_ready`` around the drain) and the
+    per-window metrics, from host values only; after the drain it sets
+    the price, spend and budget gauges and writes the JSONL flight log
+    (``Obs.flush_stream``), the only device reads it makes.  Telemetry
+    changes no number: runs with it on are bitwise runs with it off."""
     clock = clock or time.perf_counter
+    obs = get_obs(obs)
     streaming = hasattr(source, "window")
     submit_ms: list[float] = []
     results: list[WindowResult] = []
     last = len(sizes) - 1
+    m = obs.metrics
+    windows_c = m.counter("greenflow_windows_total",
+                          "serving windows completed")
+    reqs_c = m.counter("greenflow_requests_total",
+                       "requests served across windows")
+    size_h = m.histogram("greenflow_window_size", "requests per window",
+                         "1", log2_edges(1.0, float(1 << 22)))
+    prep_h = m.histogram("greenflow_prep_ms", "host chunk production time",
+                         "ms", MS_EDGES)
+    stall_h = m.histogram("greenflow_stall_ms",
+                          "serving-thread wait for an unready chunk", "ms",
+                          MS_EDGES)
+    submit_h = m.histogram("greenflow_submit_ms",
+                           "serve_window dispatch time", "ms", MS_EDGES)
+    h2d_c = m.counter("greenflow_h2d_bytes_total",
+                      "host->device bytes uploaded", "bytes")
+    compiles_c = m.counter("greenflow_compiles_total",
+                           "window program captures")
+    bucket_c = m.counter("greenflow_bucket_windows_total",
+                         "windows served per padding bucket")
 
     def prep(t: int, n: int):
-        p0 = clock()
-        if streaming:
-            chunk = source.window(t, n)
-            item = (chunk.ctx, chunk.rows, chunk.tables,
-                    getattr(chunk, "ready", None), int(chunk.h2d_bytes))
-        else:
-            ctx, rows = source(t, n)
-            item = (ctx, rows, None, None, 0)
-        return item, (clock() - p0) * 1e3
+        with obs.span("prep", t=t, n=n):
+            p0 = clock()
+            if streaming:
+                chunk = source.window(t, n)
+                item = (chunk.ctx, chunk.rows, chunk.tables,
+                        getattr(chunk, "ready", None), int(chunk.h2d_bytes))
+            else:
+                ctx, rows = source(t, n)
+                item = (ctx, rows, None, None, 0)
+            return item, (clock() - p0) * 1e3
 
     def serve(t: int, item, stall: float) -> None:
         (ctx, rows, tables, ready, h2d), prep_ms = item
         t_next = min(t + 1, last)  # the last window has nothing to aim at
         d0 = clock()
-        res = pipeline.serve_window(
-            ctx, rows, tables=tables, ready=ready,
-            lam=None if lam_trace is None else lam_trace[t],
-            budget=None if budget_trace is None else budget_trace[t],
-            cost_scale=None if scale_trace is None else scale_trace[t],
-            dual_budget=(budget_trace[t_next]
-                         if forecast and budget_trace is not None
-                         else None),
-            dual_cost_scale=(scale_trace[t_next]
-                             if forecast and scale_trace is not None
-                             else None))
-        if sync is not None:
-            sync()
-        submit_ms.append((clock() - d0) * 1e3)
+        with obs.span("serve", t=t, n=sizes[t]):
+            res = pipeline.serve_window(
+                ctx, rows, tables=tables, ready=ready,
+                lam=None if lam_trace is None else lam_trace[t],
+                budget=None if budget_trace is None else budget_trace[t],
+                cost_scale=None if scale_trace is None else scale_trace[t],
+                dual_budget=(budget_trace[t_next]
+                             if forecast and budget_trace is not None
+                             else None),
+                dual_cost_scale=(scale_trace[t_next]
+                                 if forecast and scale_trace is not None
+                                 else None))
+            if sync is not None:
+                sync()
+        submit = (clock() - d0) * 1e3
+        submit_ms.append(submit)
         res.prep_ms += prep_ms
         res.stall_ms += stall
         res.h2d_bytes += h2d
         results.append(res)
+        # per-window host-side metrics (never reads a device tensor)
+        windows_c.inc()
+        reqs_c.inc(sizes[t])
+        size_h.observe(sizes[t])
+        prep_h.observe(res.prep_ms)
+        stall_h.observe(res.stall_ms)
+        submit_h.observe(submit)
+        h2d_c.inc(int(res.h2d_bytes))
+        compiles_c.inc(int(res.compiles))
+        if res.bucket is not None:
+            bucket_c.labels(bucket=res.bucket).inc()
+        if obs.interval > 0 and t % obs.interval == 0:
+            print(obs.live_line(t, res, submit), flush=True)
 
     t0 = clock()
     if prefetch > 0:
@@ -293,7 +340,8 @@ def run_stream(pipeline: ServingPipeline, sizes: list[int], source, *,
         try:
             for t in range(len(sizes)):
                 s0 = clock()
-                item = q.get()
+                with obs.span("stall", t=t):
+                    item = q.get()
                 stall = (clock() - s0) * 1e3
                 if isinstance(item, BaseException):
                     raise item
@@ -311,8 +359,17 @@ def run_stream(pipeline: ServingPipeline, sizes: list[int], source, *,
             serve(t, nxt, 0.0)
             if t + 1 < len(sizes):  # prep t+1 while the device runs t
                 nxt = prep(t + 1, sizes[t + 1])
-    return StreamStats(windows=results, sizes=list(sizes),
-                       submit_ms=submit_ms, wall_s=clock() - t0)
+    dev = getattr(pipeline, "device", None)
+    with obs.span("block_until_ready", windows=len(results)):
+        if dev is not None and dev.type == "cuda":  # drain the card
+            torch.cuda.synchronize(dev)
+    stats = StreamStats(windows=results, sizes=list(sizes),
+                        submit_ms=submit_ms, wall_s=clock() - t0)
+    # gauges and the JSONL flight log: only after the drain, so their
+    # device reads can no longer hold up the serving path
+    obs.flush_stream(stats, cs=getattr(pipeline, "_cs", None),
+                     ledger=getattr(pipeline, "ledger", None))
+    return stats
 
 
 def window_table(stats: StreamStats) -> list[str]:

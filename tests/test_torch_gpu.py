@@ -647,3 +647,58 @@ def test_cascade_server_serve_launches_truncation(cuda):
     assert ops.LAUNCHES["cascade_truncate"] == before + 1
     np.testing.assert_array_equal(rev, host.serve(rows, dec)[0])
     np.testing.assert_array_equal(flops, chains.costs[dec])
+
+
+def test_carbon_window_with_ledger_and_obs_graphs_bitwise_eager(cuda):
+    """A carbon day's pipeline with a ``CarbonLedger`` and an ``Obs``
+    attached: the captured windows equal ``graphs=False`` bit for bit on
+    each window's gram budget and kappa * CI scale, each pipeline on its
+    own nearline price; a warm window is served under
+    set_sync_debug_mode("error"); both ledgers meter the same entries."""
+    import dataclasses
+
+    from repro_torch.carbon.controller import CarbonBudget
+    from repro_torch.carbon.intensity import diurnal_trace
+    from repro_torch.carbon.ledger import CarbonLedger
+    from repro_torch.obs import Obs
+    from repro_torch.serving.pipeline import ServingPipeline
+
+    stack = _small_stack(scenario="carbon")
+    src = stack.source
+    cb = CarbonBudget.from_flops(stack.budget, diurnal_trace(),
+                                 window_s=86400.0 / 4)
+    sched = cb.schedule(4)
+    pipes, obs = [], []
+    for graphs in (True, False):
+        obs.append(Obs())
+        led = CarbonLedger(src.chains, cb.trace, window_s=cb.window_s,
+                           obs=obs[-1])
+        pipes.append(ServingPipeline(
+            src.universe, stack.reward_params, stack.reward_cfg,
+            cb.flops_ref, ledger=led, obs=obs[-1], graphs=graphs,
+            device=cuda))
+    compiles = []
+    for t in range(4):
+        c = src.window(t, 64)
+        torch.cuda.synchronize()
+        kw = dict(tables=c.tables, ready=c.ready,
+                  budget=sched["grams"][t], cost_scale=sched["scale"][t])
+        if t == 3:  # the bucket is warm
+            torch.cuda.set_sync_debug_mode("error")
+        try:
+            got = pipes[0].serve_window(c.ctx, c.rows, **kw)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        want = pipes[1].serve_window(c.ctx, c.rows, **kw)
+        torch.cuda.synchronize()
+        compiles.append(got.compiles)
+        for name in ("decisions", "revenue", "spend", "downgraded", "flops",
+                     "lam_before", "lam_after"):
+            assert torch.equal(getattr(got, name), getattr(want, name)), \
+                (t, name)
+    assert compiles == [2, 0, 0, 0]
+    a, b = (p.ledger.entries for p in pipes)
+    assert [dataclasses.asdict(e) for e in a] == [dataclasses.asdict(e)
+                                                  for e in b]
+    assert len(a) == 4 and {e[0] for e in obs[0].tracer.events} >= {
+        "h2d", "dispatch", "dual_update", "ledger"}

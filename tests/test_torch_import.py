@@ -41,6 +41,39 @@ def test_import_with_jax_and_repro_poisoned():
     assert int(out.stdout.strip()) >= 20  # every module was walked
 
 
+def test_carbon_and_obs_import_with_jax_and_repro_poisoned():
+    """The carbon package's lazy exports and the flight recorder resolve
+    with ``jax`` and ``repro`` poisoned, and pull neither in."""
+    code = textwrap.dedent("""
+        import sys
+        sys.modules["jax"] = None
+        sys.modules["repro"] = None
+        import repro_torch.carbon as carbon
+        import repro_torch.obs as obs
+        for name in carbon.__all__:
+            getattr(carbon, name)
+        for name in obs.__all__:
+            getattr(obs, name)
+        from repro_torch.obs import env
+        assert "jax" not in env.env_info()
+        mods = sorted(k for k, v in sys.modules.items() if v is not None
+                      and k.startswith(("repro_torch.carbon.",
+                                        "repro_torch.obs.")))
+        assert not any(k == "jax" or k.startswith(("jax.", "repro."))
+                       for k, v in sys.modules.items() if v is not None)
+        print(" ".join(mods))
+    """)
+    env = dict(os.environ, PYTHONPATH=SRC)
+    out = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.split() == [
+        "repro_torch.carbon.controller", "repro_torch.carbon.intensity",
+        "repro_torch.carbon.ledger", "repro_torch.obs.env",
+        "repro_torch.obs.events", "repro_torch.obs.metrics",
+        "repro_torch.obs.trace"]
+
+
 def _imported_roots(path):
     tree = ast.parse(open(path).read(), path)
     for node in ast.walk(tree):
