@@ -5,7 +5,7 @@
 
 In order, it
   1. prints the card's name and power limit (nvidia-smi);
-  2. builds the seven CUDA kernels and their PyTorch binding from
+  2. builds the nine CUDA kernels and their PyTorch binding from
      ``src/repro_torch/kernels/csrc`` with ``torch.utils.cpp_extension``
      (ninja compiles the sources in parallel);
   3. holds every kernel against its plain-torch version on the card, at
@@ -23,7 +23,9 @@ In order, it
      f32 flash attention and f32 dot interaction (mma.sync) compute
      their products in f32 as 3xTF32 on the tensor cores, so their bound
      counts those flops at 495/3 TFLOP/s and the rest at the f32 peak
-     (the log lines of CIN, target attention and flash attention give
+     (target attention's backward, f32 FMA on the CUDA cores for now, is
+     bounded the same way; the log lines of CIN, target attention, its
+     backward and flash attention give
      the bound with all flops at the f32 peak beside it); bf16 dot
      interaction runs bf16 mma.sync; CIN logs B = 512 beside B = 4,096;
      the truncation kernel is checked exact also at C = 257 and 260
@@ -34,7 +36,15 @@ In order, it
      replayed after a warm replay), beside ``F.embedding_bag`` both ways
      and the launch floor (the same timing of a one-element ``add_``),
      since eager back-to-back calls time the host's dispatch as much as
-     the kernel;
+     the kernel; and the two backward kernels against their plain
+     versions, with bitwise repeats: ``target_attention_bwd`` (relative
+     to each gradient's largest magnitude, 5e-5) at small shapes, the
+     experiment's DIN width (B = 48, T = 10, d = 16, h 16-8) and DIN's
+     train_batch (B = 65,536, N = 1, T = 100, d = 36, h 80-40), where the
+     forward kernel is also checked at N = 1; ``embedding_bag_bwd`` (1e-5,
+     its index preparation a stable sort) at small shapes, YDNN's
+     experiment width and the window's shape, timed beside the backward
+     of ``F.embedding_bag``;
   4. serves full-width ``GeneratedSource`` windows through
      ``repro_torch.launch.serve`` (100k-user world, 4000-item corpus,
      paper chains, stage and reward models at full width, random
@@ -130,7 +140,24 @@ In order, it
      check's two f32 prefills, whose wall times it prints); the profiled
      prefill prints the wgmma kernel's share of device busy; then gemma2
      smoke_config on the card against the CPU;
-  9. prints the ``kernels`` JSON line, the card line and, last, the
+  9. trains on the card.  9a: DIN's train_batch cell at
+     ``full_config()`` (10 M items, B = 65,536) through
+     ``configs.get_arch("din").make_cell("train_batch")``, one warm and
+     5 timed steps: ms a step, model TFLOP/s, peak memory, exactly one
+     ``target_attention`` and one ``target_attention_bwd`` launch a step
+     and nothing else, finite losses and a finite gradient on every
+     leaf.  9b: the paper's offline experiment at tests/conftest.py's
+     ``system_exp`` config (``experiments.build_experiment`` and
+     ``train_reward_model``): ``target_attention_bwd`` launched once a
+     DIN step (240), ``embedding_bag_bwd`` once a YDNN step (120); the
+     claims of tests/test_system.py on the card-trained experiment;
+     then the trained models and reward model serve 4 windows of 512
+     through ``GeneratedSource`` over a 100,000-user ``StreamingWorld``
+     (the JAX CLI's ``--source generated``) within budget at the eager
+     launch counts; last, DIN's smoke config trained 3 steps from one
+     init on the card and on the CPU, parameters within 1e-5;
+ 10. prints the ``kernels`` JSON line (the backward kernels' launches
+     are the training paths'), the card line and, last, the
      ``{"ok": true, ...}`` line.
 
 Any failed check raises and the script exits non-zero without the last
@@ -429,6 +456,194 @@ def check_embedding_bag(gen, dev, hist_ids, hist_mask, n_items, dim):
             "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": by,
             "library_ms": lib_ms, "library_device_ms": lib_device_ms,
             "shape": f"V={n_items} D={dim} B={b} L={bag}"}
+
+
+def attention_inputs(gen, dev, b, n, t, d, h1, h2, *, full=False):
+    """Target attention's inputs and an upstream gradient dOut: q and keys
+    at the models' scale, the mask full (``full``, as DIN's train_batch
+    cell draws it) or with about 30 % of the steps padded."""
+    import torch
+
+    def r(*s, scale=1.0):
+        return (scale * torch.randn(*s, generator=gen)).to(dev)
+    q, keys = r(b, n, d, scale=0.3), r(b, t, d, scale=0.3)
+    mask = (torch.ones(b, t) if full
+            else (torch.rand(b, t, generator=gen) > 0.3).float()).to(dev)
+    ws = []
+    for di, do in ((4 * d, h1), (h1, h2), (h2, 1)):
+        ws += [r(di, do, scale=di ** -0.5), r(do, scale=0.1)]
+    return r(b, n, d), (q, keys, mask, *ws)
+
+
+GRAD_NAMES = ("dq", "dkeys", "dW1", "db1", "dW2", "db2", "dW3", "db3")
+# the backward against its plain version, relative to each gradient's
+# largest magnitude: the weight gradients are f32 sums over every pair
+# (6.5 M at DIN's train_batch), taken in another order than the plain
+# version's (a first card run of the kernel: at most 5.3e-6)
+BWD_TOL = 5e-5
+
+
+def close_grads(got, want, what: str) -> tuple[float, float]:
+    """(the largest error of the eight gradients relative to each one's
+    largest magnitude, the largest absolute error); raises when the first
+    is above ``BWD_TOL``."""
+    import torch
+    torch.cuda.synchronize()
+    rel_worst = abs_worst = 0.0
+    for name, g, w in zip(GRAD_NAMES, got, want):
+        if g.shape != w.shape or not torch.isfinite(g).all():
+            raise AssertionError(f"{what}: {name} {tuple(g.shape)} vs "
+                                 f"{tuple(w.shape)}, or not finite")
+        err = float((g.double() - w.double()).abs().max())
+        rel = err / (float(w.abs().max()) or 1.0)
+        if rel > BWD_TOL:
+            raise AssertionError(f"{what}: {name} off by {rel:.3e} of its "
+                                 f"largest magnitude (tol {BWD_TOL})")
+        rel_worst, abs_worst = max(rel_worst, rel), max(abs_worst, err)
+    return rel_worst, abs_worst
+
+
+def attention_bwd_bound(mask, n, d, h1, h2, nbytes
+                        ) -> tuple[float, str, float]:
+    """The least time of the backward, and the same bound with every flop
+    at the f32 peak of the CUDA cores.  W1's row blocks fold into one
+    (d, h1) matrix a candidate, M = (Wk - Wd) + diag(q) Wp, so that per
+    unmasked pair the products are 2 d h1 for the pre-activation k M,
+    2 d h1 for dkeys = dz1 M^T and 2 d h1 for G = sum_t k (x) dz1, from
+    which dW1's four blocks and dq follow once a candidate; 2 h1 h2 each
+    for a2, dz1 and dW2.  Those 6 d h1 + 6 h1 h2 product flops are counted
+    as 3xTF32 on the tensor cores (as the forward's are), the elementwise
+    terms at the f32 peak; the work once a candidate is left out."""
+    pairs = float((mask != 0).sum()) * n
+    products = pairs * (6 * d * h1 + 6 * h1 * h2)
+    rest = pairs * (4 * h1 + 6 * h2 + 12 * d)
+    b_ms, by = bound(nbytes, rest, tf32x3_ops=products)
+    return b_ms, by, bound(nbytes, products + rest)[0]
+
+
+def check_target_attention_bwd(gen, dev):
+    """The backward kernel against ``ref.target_attention_bwd_ref``: small
+    shapes with padded histories and several candidates a user, the
+    experiment's DIN (d = 16, h 16-8, T = 10, N = 1, B = 48) and DIN's
+    train_batch (B = 65,536, N = 1, T = 100, d = 36, h 80-40, full
+    histories), where the forward kernel is also checked at N = 1; a
+    bitwise repeat at each."""
+    import torch
+    from repro_torch.kernels import ops, ref
+
+    def check(shape, **kw):
+        dout, args = attention_inputs(gen, dev, *shape, **kw)
+        got = ops.target_attention_bwd(dout, *args)
+        errs = close_grads(got, ref.target_attention_bwd_ref(dout, *args),
+                           f"target_attention_bwd {shape}")
+        again = ops.target_attention_bwd(dout, *args)
+        if not all(torch.equal(a, b) for a, b in zip(got, again)):
+            raise AssertionError(f"target_attention_bwd {shape} is not "
+                                 f"bitwise repeatable")
+        return errs, dout, args
+
+    for shape in ((3, 2, 7, 8, 12, 6), (5, 3, 40, 16, 16, 8),
+                  (2, 1, 33, 64, 128, 64), (1, 1, 1, 4, 3, 2)):
+        check(shape)
+    (exp_err, _), dout, args = check((48, 1, 10, 16, 16, 8))
+    exp_ms = cuda_ms(lambda: ops.target_attention_bwd(dout, *args), reps=20)
+    log(f"target_attention_bwd [experiment's DIN: B=48 N=1 T=10 d=16 h1=16 "
+        f"h2=8]: rel err {exp_err:.3e}, {exp_ms:.4f} ms (one launch of "
+        f"the pair kernel and one of the partials' sum)")
+    b, n, t, d, h1, h2 = 65_536, 1, 100, 36, 80, 40
+    (err, abs_err), dout, args = check((b, n, t, d, h1, h2), full=True)
+    fwd_err = close(ops.target_attention(*args),
+                    ref.target_attention_ref(*args), 2e-5)
+    # the forward kernel is built for many candidates a user (a block
+    # serves 128 of one user's); training calls it with one a row
+    fwd_ms = cuda_ms(lambda: ops.target_attention(*args), reps=2, warm=1)
+    fwd_plain_ms = cuda_ms(lambda: ref.target_attention_ref(*args), reps=2,
+                           warm=1)
+    ms = cuda_ms(lambda: ops.target_attention_bwd(dout, *args), reps=3,
+                 warm=1)
+    plain_ms = cuda_ms(lambda: ref.target_attention_bwd_ref(dout, *args),
+                       reps=1, warm=1)
+    n_w = 4 * d * h1 + h1 + h1 * h2 + 2 * h2 + 1
+    nbytes = 4 * (2 * b * n * d + b * t * d + b * t + n_w  # dout, q; keys
+                  + b * n * d + b * t * d + n_w)  # dq, dkeys, dW
+    b_ms, by, f32_ms = attention_bwd_bound(args[2], n, d, h1, h2, nbytes)
+    shape = f"B={b} N={n} T={t} d={d} h1={h1} h2={h2}"
+    log(f"target_attention_bwd [{shape}, DIN's train_batch]: error "
+        f"{err:.3e} of the largest magnitude (tol {BWD_TOL}), max abs err "
+        f"{abs_err:.3e}, bitwise repeat; {ms:.4f} ms (plain "
+        f"{plain_ms:.4f}, bound {b_ms:.4f} by {by}, all in f32 "
+        f"{f32_ms:.4f}); the forward kernel "
+        f"at N = 1: max abs err {fwd_err:.3e} (tol 2e-5), {fwd_ms:.4f} ms "
+        f"(plain {fwd_plain_ms:.4f})")
+    return {"max_abs_err": abs_err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": b_ms, "bound_by": by, "library_ms": None,
+            "shape": shape}
+
+
+def check_embedding_bag_bwd(gen, dev, hist_ids, hist_mask, n_items, dim):
+    """The backward kernel (with its index preparation, a stable sort)
+    against ``ref.embedding_bag_bwd_ref``: small shapes (a pass of 128
+    columns and more, one id a bag, plain sums), the window's shape (a
+    real slab's ids and mask / count into a (4000, 32) table) and YDNN's
+    experiment width (V = 200, D = 8, B = 48, L = 10); bitwise repeats;
+    beside the backward of ``F.embedding_bag(mode="sum",
+    per_sample_weights=...)``."""
+    import torch
+    from repro_torch.kernels import ops, ref
+
+    def check(dout, ids, w, v):
+        got = ops.embedding_bag_bwd(dout, ids, w, v)
+        err = close(got, ref.embedding_bag_bwd_ref(dout, ids, w, v), 1e-5)
+        if not torch.equal(got, ops.embedding_bag_bwd(dout, ids, w, v)):
+            raise AssertionError("embedding_bag_bwd is not bitwise "
+                                 "repeatable")
+        return err
+
+    for v, d, b, l in ((7, 3, 4, 5), (50, 300, 9, 70), (60, 1, 3, 1),
+                       (1000, 64, 200, 300)):
+        ids = torch.randint(0, v, (b, l), generator=gen).to(dev)
+        w = (torch.rand(b, l, generator=gen)
+             * (torch.rand(b, l, generator=gen) > 0.3)).to(dev)
+        dout = torch.randn(b, d, generator=gen).to(dev)
+        for weights in (w, None):
+            check(dout, ids, weights, v)
+    hist = torch.randint(0, 200, (48, 10), generator=gen).int().to(dev)
+    mask = (torch.rand(48, 10, generator=gen) > 0.3).float().to(dev)
+    _, _, w_exp = window_bag_inputs(gen, dev, hist, mask, 200, 8)
+    d_exp = torch.randn(48, 8, generator=gen).to(dev)
+    exp_err = check(d_exp, hist, w_exp, 200)
+    exp_ms = cuda_ms(lambda: ops.embedding_bag_bwd(d_exp, hist, w_exp, 200),
+                     reps=50)
+    log(f"embedding_bag_bwd [YDNN's experiment width: V=200 D=8 B=48 "
+        f"L=10]: max abs err {exp_err:.3e}, {exp_ms:.4f} ms (the sort and "
+        f"the kernel)")
+    table, ids, w = window_bag_inputs(gen, dev, hist_ids, hist_mask,
+                                      n_items, dim)
+    b, bag = ids.shape
+    dout = torch.randn(b, dim, generator=gen).to(dev)
+    err = check(dout, ids, w, n_items)
+    ms = cuda_ms(lambda: ops.embedding_bag_bwd(dout, ids, w, n_items),
+                 reps=100)
+    plain_ms = cuda_ms(lambda: ref.embedding_bag_bwd_ref(dout, ids, w,
+                                                         n_items), reps=50)
+    tab = table.clone().requires_grad_(True)
+    y = library_bag(tab, ids, w)
+    close(torch.autograd.grad(y, tab, dout, retain_graph=True)[0],
+          ops.embedding_bag_bwd(dout, ids, w, n_items), 1e-5)
+    lib_ms = cuda_ms(lambda: torch.autograd.grad(y, tab, dout,
+                                                 retain_graph=True),
+                     reps=100)
+    nnz = float((w != 0).sum())
+    nbytes = (b * dim * 4 + b * bag * (ids.element_size() + 4)
+              + n_items * dim * 4)
+    b_ms, by = bound(nbytes, 2 * nnz * dim)
+    shape = f"V={n_items} D={dim} B={b} L={bag}"
+    log(f"embedding_bag_bwd [{shape}]: max abs err {err:.3e}, bitwise "
+        f"repeat; {ms:.4f} ms (plain {plain_ms:.4f}, bound {b_ms:.5f} by "
+        f"{by}, F.embedding_bag's backward {lib_ms:.4f})")
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": b_ms, "bound_by": by, "library_ms": lib_ms,
+            "shape": shape}
 
 
 def check_dot_interact(dev):
@@ -1943,6 +2158,261 @@ def lm_parity(seed: int) -> None:
         f"decode steps): max abs err {err:.3e} (tol 1e-5)")
 
 
+# -- phase 9: training on the card ------------------------------------------
+
+TRAIN_STEPS = 5  # timed DIN train_batch steps, after one warm step
+EXP_CFG = dict(world=dict(n_users=800, n_items=200, hist_len=10, seed=3),
+               expose=8, n_scales=4, cascade_steps=120, reward_steps=300,
+               batch=48)  # tests/conftest.py's system_exp
+TRAINED_WINDOWS, TRAINED_REQUESTS = 4, 512
+
+
+def train_din_full(seed: int) -> dict:
+    """Phase 9a: DIN's train_batch cell at ``full_config()`` (10 M items,
+    100 k categories, 1 M user rows, embed 18, T = 100, attention 80-40,
+    MLP 200-80, B = 65,536): one warm step and ``TRAIN_STEPS`` timed
+    ones, the counters reset before and read after (one
+    ``target_attention`` and one ``target_attention_bwd`` a step, nothing
+    else); finite losses; then, outside the count, every leaf's gradient
+    at the trained state, finite and from the graph (none unused), the
+    attention MLP's nonzero."""
+    import torch
+    from repro_torch import configs
+    from repro_torch.kernels import ops
+    from repro_torch.models.recsys import din
+    from repro_torch.tree import leaves_with_paths, unflatten
+
+    mod = configs.get_arch("din")
+    cfg = mod.full_config()
+    cell = mod.make_cell("train_batch", cfg)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state, batch = cell.make_args(seed, "cuda")
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    state, loss = cell.fn(state, batch)  # warm step
+    losses, times = [float(loss)], []
+    for _ in range(TRAIN_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, loss = cell.fn(state, batch)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(loss))
+    got = dict(ops.LAUNCHES)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    steps = 1 + TRAIN_STEPS
+    want = {k: 0 for k in got}
+    want["target_attention"] = want["target_attention_bwd"] = steps
+    if got != want:
+        raise AssertionError(f"din train_batch: launches {got}, want {want}")
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"din train_batch: losses {losses}")
+    profile_call("din x train_batch, one step (outside the count)",
+                 lambda: cell.fn(state, batch), rows=12,
+                 kernel="target_attention_bwd_kernel")
+    paths, flat = zip(*leaves_with_paths(state.params))
+    req = [p.detach().requires_grad_(True) for p in flat]
+    tree = unflatten(state.params, req)
+    grads = torch.autograd.grad(din.loss_fn(tree, cfg, batch), req)
+    for path, g in zip(paths, grads):
+        if not torch.isfinite(g).all():
+            raise AssertionError(f"din train_batch: gradient of {path} is "
+                                 f"not finite")
+        if path.startswith("attn/") and not float(g.abs().max()) > 0:
+            raise AssertionError(f"din train_batch: gradient of {path} is 0")
+    gflop = cell.meta["model_flops"] / 1e9
+    log(f"din x train_batch (B=65536, full_config): set-up {setup_s:.2f} s; "
+        f"steps {', '.join(f'{t:.3f}' for t in times)} ms; "
+        f"{gflop / (min(times) * 1e-3) / 1e3:.3f} model TFLOP/s at the "
+        f"fastest ({gflop:.1f} GFLOP a step, 3 x forward); peak memory "
+        f"{peak_gb:.2f} GB; losses {[round(x, 6) for x in losses]}; "
+        f"launches {got['target_attention']} target_attention, "
+        f"{got['target_attention_bwd']} target_attention_bwd; every one "
+        f"of {len(grads)} leaves has a finite gradient (outside the count)")
+    return {k: got[k] for k in ("target_attention", "target_attention_bwd")}
+
+
+def din_card_vs_cpu(seed: int) -> None:
+    """DIN's smoke config trained from one init on the card and on the
+    CPU, 3 steps on the same batches: SGD (momentum 0.9, lr 0.1, clip 1)
+    is linear in the gradient, so the parameters differ by the gradients'
+    own difference (kernels against plain versions), held to 1e-5."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import din_arch
+    from repro_torch.kernels import ops
+    from repro_torch.models import layers as L
+    from repro_torch.training.optimizer import SGD, constant_schedule
+    from repro_torch.training.trainer import build_train_step, init_state
+    from repro_torch.tree import leaves_with_paths
+
+    cfg = din_arch.smoke_config()
+    params = din_arch.init_smoke(torch.Generator().manual_seed(seed), cfg,
+                                 "cpu")
+    states = {dev: init_state(L.to_device(params, dev), SGD())
+              for dev in ("cpu", "cuda")}
+    step = build_train_step(lambda p, b: din_arch.smoke_loss(p, cfg, b),
+                            SGD(), constant_schedule(0.1))
+    rng = np.random.default_rng(seed)
+    ops.reset_launches()
+    for _ in range(3):
+        batch = din_arch.smoke_batch(rng, cfg)
+        for dev in states:
+            states[dev], _ = step(states[dev], L.to_device(batch, dev))
+    if ops.LAUNCHES["target_attention_bwd"] != 3:
+        raise AssertionError(f"card steps launched {ops.LAUNCHES}")
+    err = 0.0
+    for (path, a), (_, b) in zip(leaves_with_paths(states["cuda"].params),
+                                 leaves_with_paths(states["cpu"].params)):
+        err = max(err, close(a, b.cuda(), 1e-5))
+    log(f"din smoke_config, 3 SGD steps card vs cpu from one init: max abs "
+        f"err {err:.3e} over every parameter (tol 1e-5)")
+
+
+def train_experiment(seed: int) -> dict:
+    """Phase 9b: the paper's offline experiment on the card at
+    tests/conftest.py's ``system_exp`` config - the four cascade models
+    trained (DIN's and YDNN's gradients through the backward kernels),
+    every chain simulated, the reward model trained - with the counters
+    reset before the build and read after it; the claims of
+    tests/test_system.py on the card-trained experiment; then the trained
+    models and reward model serve ``TRAINED_WINDOWS`` windows through
+    ``GeneratedSource`` over a 100,000-user ``StreamingWorld`` of the
+    experiment's world and a ``ServingPipeline`` (the JAX CLI's
+    ``--source generated``), on the experiment's scaled chains."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from repro_torch import experiments as E
+    from repro_torch.core.baselines import StageActionSpace, cras_allocation
+    from repro_torch.data.request_source import GeneratedSource
+    from repro_torch.data.synthetic import StreamingWorld, WorldConfig
+    from repro_torch.kernels import ops
+    from repro_torch.serving.pipeline import ServingPipeline
+    from repro_torch.serving.stream import run_stream, window_table
+
+    cfg = E.ExperimentConfig(**{**EXP_CFG, "world": WorldConfig(
+        **EXP_CFG["world"])})
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    exp = E.build_experiment(cfg, device="cuda")
+    t1 = time.perf_counter()
+    params, rcfg = E.train_reward_model(exp)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    got = dict(ops.LAUNCHES)
+    steps = cfg.cascade_steps
+    blocks = -(-cfg.world.n_items // 256)  # score_corpus's item blocks
+    want = {k: 0 for k in got}
+    # training, then precompute_stage_scores over the eval and reward users
+    want.update(target_attention=2 * steps + 2 * blocks,
+                target_attention_bwd=2 * steps,
+                embedding_bag=steps + 2, embedding_bag_bwd=steps)
+    if got != want:
+        raise AssertionError(f"experiment launches {got}, want {want}")
+    log(f"experiment on the card (U={cfg.world.n_users} I="
+        f"{cfg.world.n_items} J={exp.chains.n_chains}): cascade models, "
+        f"scoring and simulation {t1 - t0:.2f} s, reward model "
+        f"({cfg.reward_steps} steps) {t2 - t1:.2f} s; launches {got}; "
+        f"final step losses " + ", ".join(
+            f"{k} {np.mean(v[-10:]):.4f}" for k, v in exp.history.items()))
+
+    pred = E.predicted_rewards(exp, params, rcfg, exp.ctx_eval)
+    stage = E.cras_stage_rewards(exp)
+    rows = E.evaluate_methods(exp, budgets_frac=(0.4, 0.5, 0.6, 0.8),
+                              rewards_pred=pred, stage_rewards=stage)
+    spaces = [StageActionSpace.from_chains(exp.chains, k)
+              for k in range(exp.chains.n_stages)]
+    for row in rows:
+        best_equal = max(row["equal_din"], row["equal_dien"])
+        cras = cras_allocation(stage, spaces, exp.chains, row["budget_flops"])
+        cras_spend = float(exp.chains.costs[cras].sum())
+        checks = {
+            "oracle >= EQUAL": row["oracle"] >= best_equal,
+            "oracle within budget":
+                row["oracle_spend"] <= row["budget_flops"] * 1.001,
+            "GreenFlow within budget":
+                row["greenflow_spend"] <= row["budget_flops"] * 1.001,
+            "GreenFlow >= 0.95 EQUAL": row["greenflow"] >= 0.95 * best_equal,
+            # tests/test_system.py holds CRAS to running (>= 0): its
+            # per-stage budget shares do not bound the total (a stage of
+            # one action, recall, spends its fixed cost whatever its share)
+            "CRAS runs": min(row["cras_din"], row["cras_dien"],
+                             row["cras_both"]) >= 0,
+            "GreenFlow >= EQUAL at mid budget":
+                row["budget_frac"] != 0.5 or row["greenflow"] >= best_equal}
+        bad = [k for k, ok in checks.items() if not ok]
+        if bad:
+            raise AssertionError(f"experiment claims fail at budget "
+                                 f"{row['budget_frac']}: {bad}; {row}")
+        log(f"budget {row['budget_frac']}: oracle {row['oracle']:.0f}, "
+            f"GreenFlow {row['greenflow']:.0f} (spend/budget "
+            f"{row['greenflow_spend'] / row['budget_flops']:.4f}), EQUAL "
+            f"DIN/DIEN {row['equal_din']:.0f}/{row['equal_dien']:.0f}, CRAS "
+            f"DIN/DIEN/both {row['cras_din']:.0f}/{row['cras_dien']:.0f}/"
+            f"{row['cras_both']:.0f} (spend/budget "
+            f"{cras_spend / row['budget_flops']:.4f})")
+    m = E.reward_model_metrics(exp, params, rcfg)
+    const = float(np.mean((exp.revenue_eval - exp.revenue_reward.mean())
+                          ** 2))
+    if not m["mse"] < const:
+        raise AssertionError(f"reward model mse {m['mse']} >= constant "
+                             f"predictor's {const}")
+    log(f"reward model: mse {m['mse']:.4f} (constant predictor "
+        f"{const:.4f}), field-RCE {m['field_rce']:.4f}")
+
+    world = StreamingWorld.build(dataclasses.replace(cfg.world,
+                                                     n_users=100_000))
+    t0 = time.perf_counter()
+    source = GeneratedSource(world, exp.models, exp.chains,
+                             expose=cfg.expose, seed=seed,
+                             chunk=TRAINED_REQUESTS, device="cuda")
+    c_max = float(exp.chains.costs.max())
+    c_min = float(exp.chains.costs.min())
+    budget = 0.6 * c_max * TRAINED_REQUESTS
+    pipe = ServingPipeline(source.universe, params, rcfg, budget,
+                           device="cuda")
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    ops.reset_launches()
+    with torch.no_grad():
+        st = run_stream(pipe, [TRAINED_REQUESTS] * TRAINED_WINDOWS, source,
+                        prefetch=2, sync=torch.cuda.synchronize)
+    served = dict(ops.LAUNCHES)
+    for line in window_table(st):
+        log(line)
+    for t, r in enumerate(st.windows):
+        spend, rev = float(r.spend), float(r.revenue_np.sum())
+        cap = max(r.budget, r.n_valid * c_min)
+        if not (spend <= cap + c_max and rev > 0
+                and math.isfinite(float(r.lam_after))):
+            raise AssertionError(f"trained window {t}: spend {spend} (cap "
+                                 f"{cap} + {c_max}), revenue {rev}, lambda "
+                                 f"{float(r.lam_after)}")
+    want = {k: 0 for k in served}
+    n_blocks = -(-cfg.world.n_items // source.item_block)
+    want.update(cascade_truncate=TRAINED_WINDOWS,
+                target_attention=n_blocks * TRAINED_WINDOWS,
+                embedding_bag=TRAINED_WINDOWS)
+    if served != want or st.steady_compiles:
+        raise AssertionError(f"trained windows: launches {served}, want "
+                             f"{want}; captures {st.compiles}")
+    log(f"trained stack: source and pipeline built in {build_s:.2f} s; "
+        f"{TRAINED_WINDOWS} windows of {TRAINED_REQUESTS} (scaled chains, "
+        f"J = {exp.chains.n_chains}) in {st.wall_s * 1e3:.3f} ms, within "
+        f"budget; launches == the eager counts {served}; captures "
+        f"{st.compiles}")
+    return {**{k: got[k] for k in ("target_attention", "embedding_bag",
+                                   "target_attention_bwd",
+                                   "embedding_bag_bwd")},
+            "served": {k: served[k] for k in WINDOW_KERNELS}}
+
+
 def window_inputs(seed: int, dev):
     """The window's history slab (512 users of the full-width world), the
     CompactPlan layout of its chains, and the world's config."""
@@ -2005,6 +2475,9 @@ def main(argv=None) -> int:
         "dot_interact": check_dot_interact(dev),
         "cin_layer": check_cin(dev),
         **check_flash(dev),
+        "target_attention_bwd": check_target_attention_bwd(gen, dev),
+        "embedding_bag_bwd": check_embedding_bag_bwd(
+            gen, dev, hist_ids, hist_mask, wcfg.n_items, 32),
     }
     for name, r in results.items():
         log(f"{name} [{r['shape']}]: max_abs_err {r['max_abs_err']:.3e}, "
@@ -2036,6 +2509,13 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     lm_launches += serve_lm_cells(args.seed)
     lm_parity(args.seed)
+    gc.collect()
+    torch.cuda.empty_cache()
+    din_train = train_din_full(args.seed)
+    gc.collect()
+    torch.cuda.empty_cache()
+    experiment = train_experiment(args.seed)
+    din_card_vs_cpu(args.seed)
 
     window_path = (f"serving window ({n_windows} windows); "
                    + "; ".join(f"{name} window ({len(GEO_CI)} windows)"
@@ -2055,6 +2535,27 @@ def main(argv=None) -> int:
     launches.update(zoo_launches)
     launches[BF16_FLASH] = lm_launches
     launches[F32_FLASH] = f32_launches
+    # the training paths (phase 9): DIN's train_batch steps, the offline
+    # experiment's training and scoring, the trained stack's windows
+    train_counts = {
+        "target_attention_bwd": {
+            "din train_batch": din_train["target_attention_bwd"],
+            "offline experiment": experiment["target_attention_bwd"]},
+        "embedding_bag_bwd": {
+            "offline experiment": experiment["embedding_bag_bwd"]},
+        "target_attention": {
+            "din train_batch": din_train["target_attention"],
+            "offline experiment": experiment["target_attention"]},
+        "embedding_bag": {
+            "offline experiment": experiment["embedding_bag"]}}
+    for k in WINDOW_KERNELS:
+        train_counts.setdefault(k, {})["trained stack windows"] = \
+            experiment["served"][k]
+    for k, counts in train_counts.items():
+        by_path.setdefault(k, {}).update(counts)
+        launches[k] = sum(by_path[k].values())
+        paths[k] = "; ".join([p for p in (paths.get(k),) if p]
+                             + list(counts))
     tpu = "src/repro/kernels/{}"
     replaces = {"cascade_truncate": tpu.format("cascade_truncate.py:34"),
                 "target_attention": tpu.format("target_attention.py:46"),
@@ -2062,7 +2563,11 @@ def main(argv=None) -> int:
                 "dot_interact": tpu.format("dot_interact.py:34"),
                 "cin_layer": tpu.format("cin.py:34"),
                 "flash_attention": tpu.format("flash_attention.py:94"),
-                "flash_attention_wgmma": tpu.format("flash_attention.py:94")}
+                "flash_attention_wgmma": tpu.format("flash_attention.py:94"),
+                "target_attention_bwd": "src/repro/models/recsys/din.py:65 "
+                                        "attention_pool (jax.grad)",
+                "embedding_bag_bwd": "src/repro/models/embedding.py:58 "
+                                     "fixed_bag (jax.grad)"}
     line = {"kernels": [
         {"name": name, "route": "cuda",
          "source": f"src/repro_torch/kernels/csrc/{build.KERNELS[name]}",

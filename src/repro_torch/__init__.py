@@ -1,13 +1,15 @@
 """GreenFlow serving on PyTorch and CUDA (NVIDIA Hopper).
 
-A second implementation of the ``repro`` package's online path: the
-streamed serving window (reward scoring -> Eq. 10 allocation ->
-downgrade guard -> CompactPlan cascade execution -> nearline dual
-update) over a ``GeneratedSource`` request stream, with hand-written
-CUDA kernels for the three hot spots the JAX package wrote in Pallas
+A second implementation of the ``repro`` package: the streamed serving
+window (reward scoring -> Eq. 10 allocation -> downgrade guard ->
+CompactPlan cascade execution -> nearline dual update) over a
+``GeneratedSource`` request stream, the model zoo's cells, and the
+training path (the train step, checkpoints, the offline experiment),
+with hand-written CUDA kernels for every kernel the JAX package wrote
+in Pallas and backward kernels where training needs them
 (``kernels/csrc``).  The layout mirrors ``repro``: ``core/``,
-``cascade/``, ``models/``, ``data/``, ``serving/``, ``kernels/``,
-``launch/``.
+``cascade/``, ``models/``, ``data/``, ``serving/``, ``training/``,
+``kernels/``, ``launch/``, ``experiments.py``.
 
 Every entry point takes an explicit ``device`` and defaults to CUDA; it
 raises when no card is present unless the caller asked for the CPU,

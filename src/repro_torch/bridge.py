@@ -135,18 +135,26 @@ def _unflatten(flat: dict):
     return listify(root)
 
 
-def load_checkpoint(ckpt_dir: str, *, step: int | None = None):
-    """Read a ``training/checkpoint.save`` directory -> (nested tree,
-    manifest).  Leaves are numpy arrays, except those the manifest names
+def checkpoint_steps(ckpt_dir: str) -> list:
+    """The steps of the committed checkpoints under ``ckpt_dir`` (a save
+    in flight is a ``.step_*.tmp.*`` directory and does not count)."""
+    if not os.path.isdir(ckpt_dir):
+        return []
+    return sorted(int(d.split("_")[1]) for d in os.listdir(ckpt_dir)
+                  if d.startswith("step_") and ".tmp" not in d)
+
+
+def read_checkpoint(ckpt_dir: str, *, step: int | None = None):
+    """Read a checkpoint directory -> ({"/"-joined path: leaf}, manifest).
+    Leaves are numpy arrays, except those the manifest names
     ``bfloat16``: numpy has no such type, so they come back as CPU
-    ``torch.bfloat16`` tensors with the saved bits.  ``step`` defaults
-    to the latest one."""
+    ``torch.bfloat16`` tensors with the saved bits.  ``step`` defaults to
+    the latest one."""
     if step is None:
-        steps = [int(d.split("_")[1]) for d in os.listdir(ckpt_dir)
-                 if d.startswith("step_") and ".tmp" not in d]
+        steps = checkpoint_steps(ckpt_dir)
         if not steps:
             raise FileNotFoundError(f"no checkpoints under {ckpt_dir}")
-        step = max(steps)
+        step = steps[-1]
     path = os.path.join(ckpt_dir, f"step_{step:010d}")
     with open(os.path.join(path, "manifest.json")) as f:
         manifest = json.load(f)
@@ -158,4 +166,12 @@ def load_checkpoint(ckpt_dir: str, *, step: int | None = None):
                     and arr.dtype.itemsize == 2:
                 arr = _bf16_tensor(arr)
             flat[e["key"]] = arr
+    return flat, manifest
+
+
+def load_checkpoint(ckpt_dir: str, *, step: int | None = None):
+    """Read a ``training/checkpoint.save`` directory (of either package)
+    -> (nested tree, manifest); leaves as ``read_checkpoint`` gives
+    them."""
+    flat, manifest = read_checkpoint(ckpt_dir, step=step)
     return _unflatten(flat), manifest

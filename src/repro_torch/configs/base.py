@@ -8,9 +8,8 @@ package's configs::
     full_config() / smoke_config()        model config objects
     make_cell(shape, cfg=None) -> Cell    (cfg defaults to full_config())
     init_smoke(gen, cfg, device) / smoke_batch(rng, cfg, device)
-                                          (recsys; the LM has lm.init and
-                                          no training batch until training
-                                          is ported)
+                                          (recsys; the LM has lm.init)
+    smoke_loss(params, cfg, batch)        (an arch that trains: din)
 
 A ``Cell`` is one (architecture x shape) on one card: a function and a
 way to make its arguments.  It is the single-card counterpart of the JAX
@@ -33,6 +32,7 @@ _MODULES = {
     "dlrm-rm2": "repro_torch.configs.dlrm_rm2",
     "xdeepfm": "repro_torch.configs.xdeepfm_arch",
     "gemma2-2b": "repro_torch.configs.gemma2_2b",
+    "din": "repro_torch.configs.din_arch",
 }
 
 _MOE = "the MoE FFN (ROADMAP queue A item 16: _moe_ref, then EP)"
@@ -41,7 +41,6 @@ _WAITING = {
     "granite-moe-1b-a400m": _MOE, "olmoe-1b-7b": _MOE, "glm4-9b": _LM_CFG,
     "minicpm-2b": _LM_CFG,
     "schnet": "the model zoo (ROADMAP queue A item 13: models/gnn)",
-    "din": "the model zoo (ROADMAP queue A item 13: configs/din_arch)",
     "bst": "the model zoo (ROADMAP queue A item 13: models/recsys/bst)",
     "greenflow-cascade": "the model zoo (ROADMAP queue A item 13: "
                          "configs/greenflow_cascade)",
@@ -52,8 +51,10 @@ _WAITING = {
 class Cell:
     arch_id: str
     shape_name: str
-    kind: str  # serve | retrieval | prefill | decode
-    fn: Callable  # fn(*make_args(seed, device)) -> (B,) or (B, V) logits
+    kind: str  # serve | retrieval | prefill | decode | train
+    # fn(*make_args(seed, device)) -> (B,) or (B, V) logits; a train
+    # cell's fn(state, batch) -> (state, loss)
+    fn: Callable
     make_args: Callable  # (seed, device) -> tuple of tensors / dicts
     meta: dict = field(default_factory=dict)  # model_flops etc.
 

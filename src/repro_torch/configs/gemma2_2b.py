@@ -24,7 +24,8 @@ ARCH_ID = "gemma2-2b"
 FAMILY = "lm"
 SHAPES = ("train_4k", "prefill_32k", "decode_32k", "long_500k")
 SKIPPED_SHAPES = {
-    "train_4k": "training is not ported yet (ROADMAP queue A item 11)",
+    "train_4k": "training waits for the backward kernels of both flash "
+                "attention kernels (ROADMAP queue A item 25)",
     "long_500k": "the 524,288-position decode is not ported yet (ROADMAP "
                  "queue A item 18: a 55.8 GB bf16 cache at B = 1)",
 }

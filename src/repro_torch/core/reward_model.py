@@ -1,4 +1,5 @@
-"""Personalized reward model (paper §4.2), inference side.
+"""Personalized reward model (paper §4.2): inference, and the loss,
+label normalization and calibration metric of its training.
 
 Recursive multi-stage design:  R_ij = sum_k dr_k with
     (dr_k, h_k) = g_k(h_{k-1}, f_i, m_k, n_k)
@@ -142,6 +143,36 @@ def reward_matrix(params: dict, cfg: RewardModelConfig, raw_context,
     return total
 
 
+@torch.no_grad()
+def reward_matrix_chunked(params: dict, cfg: RewardModelConfig, raw_context,
+                          chain_model_onehot, chain_scale_multihot, *,
+                          chunk: int = 2048) -> np.ndarray:
+    """``reward_matrix`` over ``chunk`` requests at a time -> (I, J) NumPy:
+    peak memory O(chunk * J) however many requests.  The last chunk is
+    padded to ``chunk`` rows and sliced back, as the JAX package pads it,
+    so every call has one shape.  Runs on the parameters' device."""
+    dev = params["encoder"]["layers"][0]["w"].device
+    ctx = np.asarray(raw_context, np.float32)
+    mo = torch.as_tensor(np.asarray(chain_model_onehot), device=dev)
+    sh = torch.as_tensor(np.asarray(chain_scale_multihot), device=dev)
+
+    def run(c):
+        return reward_matrix(params, cfg, torch.from_numpy(c).to(dev), mo,
+                             sh).cpu().numpy()
+
+    if ctx.shape[0] <= chunk:
+        return run(ctx)
+    parts = []
+    for lo in range(0, ctx.shape[0], chunk):
+        sl = ctx[lo:lo + chunk]
+        pad = chunk - sl.shape[0]
+        if pad:
+            sl = np.concatenate([sl, np.zeros((pad, sl.shape[1]),
+                                              np.float32)])
+        parts.append(run(sl)[:chunk - pad])
+    return np.concatenate(parts, axis=0)
+
+
 # ---------------------------------------------------------------------------
 # Model-prefix grouped scoring (the serving window's hot path)
 # ---------------------------------------------------------------------------
@@ -233,3 +264,49 @@ def denormalize_rewards(params: dict, r):
     if norm is None:
         return r
     return r * norm[None, :]
+
+
+# ---------------------------------------------------------------------------
+# Per-chain label normalization, the training loss, the calibration metric
+# ---------------------------------------------------------------------------
+#
+# The multi-basis head is non-negative and monotone by construction, so the
+# trainer fits the ratio y_uj = rev_uj / mean_u(rev_uj): the per-chain mean
+# curve is stored in params["label_norm"] and predictions de-normalize
+# back to revenue units (``denormalize_rewards``).
+
+
+def chain_label_norm(revenue: np.ndarray, floor: float = 1e-3) -> np.ndarray:
+    """Per-chain mean revenue over training users -> (J,) norm vector."""
+    return np.maximum(np.asarray(revenue).mean(axis=0), floor) \
+        .astype(np.float32)
+
+
+def reward_loss(params: dict, cfg: RewardModelConfig, batch: dict):
+    """MSE on realized chain rewards.  batch = {context (B, dc),
+    model_onehot (B, K, M), scale_multihot (B, K, Q), label (B,),
+    [weight (B,)]}."""
+    pred = reward_apply(params, cfg, batch["context"], batch["model_onehot"],
+                        batch["scale_multihot"])
+    err = torch.square(pred - batch["label"])
+    w = batch.get("weight")
+    if w is None:
+        return torch.mean(err)
+    return torch.mean(err * w) / torch.clamp(torch.mean(w), min=1e-8)
+
+
+def field_rce(y_true: np.ndarray, y_pred: np.ndarray,
+              field_values: np.ndarray) -> float:
+    """Field-level relative calibration error (paper Eq. 12, Pan et al.):
+    (1/|D|) sum_f |sum_{i in D_f} (y_i - yhat_i)| / mean_{i in D_f} y_i."""
+    y_true = np.asarray(y_true, np.float64)
+    y_pred = np.asarray(y_pred, np.float64)
+    field_values = np.asarray(field_values)
+    total = 0.0
+    for f in np.unique(field_values):
+        m = field_values == f
+        mean_y = y_true[m].mean()
+        if mean_y <= 0:
+            continue
+        total += abs((y_true[m] - y_pred[m]).sum()) / mean_y
+    return float(total / max(1, len(y_true)))

@@ -1,4 +1,6 @@
-"""Synthetic Ali-CCP-style click log: the streamed request world.
+"""Synthetic Ali-CCP-style click log: the materialized world of the
+offline experiment (``build_world``, the user split, CTR batches) and
+the streamed request world of serving (``StreamingWorld``).
 
 A latent-utility model generates structurally-faithful traffic:
 
@@ -76,6 +78,10 @@ class World:
         logits = sharp * aff + pop + act + cfg.click_bias
         return 1.0 / (1.0 + np.exp(-logits))
 
+    def sample_clicks(self, users, items, rng: np.random.Generator):
+        return (rng.random(items.shape) < self.click_prob(users, items)) \
+            .astype(np.float32)
+
     def reward_context(self, users: np.ndarray) -> np.ndarray:
         """Per-request context features f_i for the reward model:
         activity (log + saturating tanh, the preference-sharpness driver),
@@ -91,6 +97,45 @@ class World:
     @property
     def d_context(self) -> int:
         return 3 + self.cfg.n_user_fields + self.cfg.d_latent
+
+
+def build_world(cfg: WorldConfig = WorldConfig()) -> World:
+    rng = np.random.default_rng(cfg.seed)
+    z_user = rng.normal(size=(cfg.n_users, cfg.d_latent)) / np.sqrt(cfg.d_latent)
+    z_item = rng.normal(size=(cfg.n_items, cfg.d_latent)) / np.sqrt(cfg.d_latent)
+    activity = rng.lognormal(mean=0.0, sigma=1.0, size=cfg.n_users)
+    popularity = -np.log(1.0 + np.arange(cfg.n_items) / 50.0)
+    popularity = popularity - popularity.mean()
+    rng.shuffle(popularity)
+
+    # categories = k-means-ish hash of item latents
+    proto = rng.normal(size=(cfg.n_cats, cfg.d_latent))
+    item_cat = np.argmax(z_item @ proto.T, axis=1).astype(np.int64)
+
+    # user categorical fields: quantized random projections of taste
+    proj = rng.normal(size=(cfg.d_latent, cfg.n_user_fields))
+    q = z_user @ proj
+    ranks = np.argsort(np.argsort(q, axis=0), axis=0) / cfg.n_users
+    user_fields = np.minimum((ranks * cfg.user_field_vocab).astype(np.int64),
+                             cfg.user_field_vocab - 1)
+    # field id spaces are disjoint per field
+    user_fields += np.arange(cfg.n_user_fields) * cfg.user_field_vocab
+
+    # histories: affinity-proportional sampling, length ~ activity
+    aff = z_user @ z_item.T + popularity[None, :]
+    hist_ids = np.zeros((cfg.n_users, cfg.hist_len), np.int64)
+    hist_mask = np.zeros((cfg.n_users, cfg.hist_len), np.float32)
+    lengths = np.clip((activity / activity.max() * cfg.hist_len * 2).astype(int),
+                      3, cfg.hist_len)
+    gumbel = rng.gumbel(size=aff.shape)
+    order = np.argsort(-(aff * 3.0 + gumbel), axis=1)
+    for u in range(cfg.n_users):
+        t = lengths[u]
+        hist_ids[u, :t] = order[u, :t]
+        hist_mask[u, :t] = 1.0
+
+    return World(cfg, z_user, z_item, activity, popularity, item_cat,
+                 user_fields, hist_ids, hist_mask)
 
 
 # ---------------------------------------------------------------------------
@@ -260,3 +305,55 @@ class StreamingWorld:
         out = np.zeros((pad_rows, cfg.n_items), np.float32)
         np.less(u, p, out=out[:n])
         return out
+
+
+# ---------------------------------------------------------------------------
+# Paper split (§5.1): 50% cascade-model train / 25% validation /
+# 22.5% reward-model sample generation / 2.5% final eval.  At mini scale
+# a 2.5% eval slice is a handful of users and the realized-revenue
+# comparisons drown in click noise, so ``fracs`` is configurable; the
+# experiment harness shifts mass from validation (unused offline) to the
+# final-eval slice (as the JAX package does).
+# ---------------------------------------------------------------------------
+
+
+@dataclass
+class UserSplit:
+    cascade_train: np.ndarray
+    validation: np.ndarray
+    reward_train: np.ndarray
+    final_eval: np.ndarray
+
+
+PAPER_SPLIT = (0.5, 0.25, 0.225, 0.025)
+
+
+def split_users(world: World, seed: int = 1,
+                fracs: tuple = PAPER_SPLIT) -> UserSplit:
+    if len(fracs) != 4 or abs(sum(fracs) - 1.0) > 1e-6:
+        raise ValueError(f"fracs must be 4 fractions summing to 1: {fracs}")
+    rng = np.random.default_rng(seed)
+    perm = rng.permutation(world.cfg.n_users)
+    n = world.cfg.n_users
+    a = int(fracs[0] * n)
+    b = a + int(fracs[1] * n)
+    c = b + int(fracs[2] * n)
+    return UserSplit(perm[:a], perm[a:b], perm[b:c], perm[c:])
+
+
+def ctr_batch(world: World, users: np.ndarray, rng: np.random.Generator,
+              batch: int) -> dict:
+    """Pointwise CTR training batch (for DIN/DIEN/BST-style rankers)."""
+    u = rng.choice(users, size=batch)
+    items = rng.integers(0, world.cfg.n_items, size=batch)
+    y = world.sample_clicks(u, items, rng)
+    return {
+        "user_fields": world.user_fields[u].astype(np.int32),
+        "hist_ids": world.hist_ids[u].astype(np.int32),
+        "hist_cats": world.item_cat[world.hist_ids[u]].astype(np.int32),
+        "hist_mask": world.hist_mask[u],
+        "item_id": items.astype(np.int32),
+        "item_cat": world.item_cat[items].astype(np.int32),
+        "label": y,
+        "users": u,
+    }

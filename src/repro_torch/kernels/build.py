@@ -24,7 +24,9 @@ KERNELS = {"cascade_truncate": "cascade_truncate.cu",
            "dot_interact": "dot_interact.cu",
            "cin_layer": "cin.cu",
            "flash_attention": "flash_attention.cu",
-           "flash_attention_wgmma": "flash_attention_wgmma.cu"}
+           "flash_attention_wgmma": "flash_attention_wgmma.cu",
+           "target_attention_bwd": "target_attention_bwd.cu",
+           "embedding_bag_bwd": "embedding_bag_bwd.cu"}
 CUDA_FLAGS = ["-gencode=arch=compute_90a,code=sm_90a", "-O3"]
 
 _LOCK = threading.Lock()

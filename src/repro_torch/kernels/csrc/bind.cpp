@@ -34,6 +34,18 @@ int target_attention_launch(const float* q, long long q_bstride,
 int embedding_bag_launch(const float* table, long long ld, const int* ids,
                          const float* weights, float* out, int B, int D,
                          int L, void* stream);
+long long target_attention_bwd_scratch_floats(int B, int d, int h1, int h2);
+int target_attention_bwd_launch(const float* dout, const float* q,
+                                const float* keys, const float* mask,
+                                const float* w1, const float* b1,
+                                const float* w2, const float* b2,
+                                const float* w3, const float* b3, float* dq,
+                                float* dk, float* scratch, int B, int N,
+                                int T, int d, int h1, int h2, void* stream);
+int embedding_bag_bwd_launch(const int64_t* keys, const int64_t* perm,
+                             const float* weights, const float* dout,
+                             float* dtable, long long n, int D, int L,
+                             long long V, void* stream);
 int dot_interact_launch(const void* feats, void* out, int B, int F, int D,
                         int bf16, void* stream);
 int cin_layer_launch(const float* w, const float* x_prev, const float* x0,
@@ -210,6 +222,127 @@ torch::Tensor embedding_bag(const torch::Tensor& table,
                                     out.data_ptr<float>(), b, as_int(d, "D"),
                                     as_int(ids.size(1), "L"), stream()),
                "embedding_bag");
+  return out;
+}
+
+// The backward of target_attention: dout (B, N, d) and the forward's
+// inputs -> [dq (B, N, d), dkeys (B, T, d), dW1, db1, dW2, db2, dW3, db3]
+// shaped like their inputs.  The weight gradients are views of one
+// (nW,) buffer, copied out of the end of the kernel's scratch.
+std::vector<torch::Tensor> target_attention_bwd(
+    const torch::Tensor& dout, const torch::Tensor& q,
+    const torch::Tensor& keys, const torch::Tensor& mask,
+    const torch::Tensor& w1, const torch::Tensor& b1, const torch::Tensor& w2,
+    const torch::Tensor& b2, const torch::Tensor& w3,
+    const torch::Tensor& b3) {
+  same_device("target_attention_bwd", dout, {&q, &keys, &mask, &w1, &b1, &w2,
+                                             &b2, &w3, &b3});
+  TORCH_CHECK(q.dim() == 3 && keys.dim() == 3 && mask.dim() == 2 &&
+                  dout.sizes() == q.sizes(),
+              "want dout and q (B, N, d), keys (B, T, d), mask (B, T)");
+  const int64_t bsz = q.size(0), n = q.size(1), d = q.size(2);
+  const int64_t t = keys.size(1);
+  TORCH_CHECK(keys.size(0) == bsz && keys.size(2) == d &&
+                  mask.size(0) == bsz && mask.size(1) == t,
+              "keys/mask shapes do not match q");
+  TORCH_CHECK(w1.dim() == 2 && w2.dim() == 2, "W1 and W2 must be matrices");
+  const int64_t h1 = w1.size(1), h2 = w2.size(1);
+  TORCH_CHECK(w1.size(0) == 4 * d && b1.numel() == h1 && w2.size(0) == h1 &&
+                  b2.numel() == h2 && w3.numel() == h2 && b3.numel() == 1,
+              "attention MLP weights must be (4d, h1), (h1, h2), (h2, 1) "
+              "with matching biases");
+  TORCH_CHECK(d <= 64 && h1 <= 128 && h2 <= 64,
+              "the kernel supports d <= 64, h1 <= 128 and h2 <= 64, got d = ",
+              num(d), ", h1 = ", num(h1), ", h2 = ", num(h2));
+  for (const torch::Tensor* x : std::initializer_list<const torch::Tensor*>{
+           &dout, &q, &keys, &mask, &w1, &b1, &w2, &b2, &w3, &b3})
+    TORCH_CHECK(x->scalar_type() == torch::kFloat32, "inputs must be f32");
+  const c10::cuda::CUDAGuard guard(q.device());
+  const auto g = dout.contiguous(), qc = q.contiguous();
+  const auto k = keys.contiguous(), m = mask.contiguous();
+  const auto w1c = w1.contiguous(), b1c = b1.contiguous();
+  const auto w2c = w2.contiguous(), b2c = b2.contiguous();
+  const auto w3c = w3.contiguous(), b3c = b3.contiguous();
+  const int bi = as_int(bsz, "B"), di = as_int(d, "d");
+  const int h1i = as_int(h1, "h1"), h2i = as_int(h2, "h2");
+  const int64_t n_w = 4 * d * h1 + h1 + h1 * h2 + 2 * h2 + 1;
+  auto dq = torch::empty({bsz, n, d}, q.options());
+  auto dk = torch::empty({bsz, t, d}, q.options());
+  torch::Tensor dw;
+  if (bsz == 0 || n == 0) {
+    dq.zero_();
+    dk.zero_();
+    dw = torch::zeros({n_w}, q.options());
+  } else {
+    as_int(bsz * n * d, "B*N*d");
+    as_int(bsz * t, "B*T");
+    auto scratch = torch::empty(
+        {target_attention_bwd_scratch_floats(bi, di, h1i, h2i)},
+        q.options());
+    check_launch(
+        target_attention_bwd_launch(
+            g.data_ptr<float>(), qc.data_ptr<float>(), k.data_ptr<float>(),
+            m.data_ptr<float>(), w1c.data_ptr<float>(),
+            b1c.data_ptr<float>(), w2c.data_ptr<float>(),
+            b2c.data_ptr<float>(), w3c.data_ptr<float>(),
+            b3c.data_ptr<float>(), dq.data_ptr<float>(), dk.data_ptr<float>(),
+            scratch.data_ptr<float>(), bi, as_int(n, "N"), as_int(t, "T"), di,
+            h1i, h2i, stream()),
+        "target_attention_bwd");
+    dw = scratch.narrow(0, scratch.numel() - n_w, n_w).clone();
+  }
+  std::vector<torch::Tensor> out{dq, dk};
+  int64_t o = 0;
+  for (const torch::Tensor* like : {&w1, &b1, &w2, &b2, &w3, &b3}) {
+    out.push_back(dw.narrow(0, o, like->numel()).view(like->sizes()));
+    o += like->numel();
+  }
+  return out;
+}
+
+// The backward of embedding_bag into the table: dout (B, D), ids (B, L),
+// weights (B, L) or none -> the dense (V, D) gradient.  The order of each
+// row's sum is built here as index preparation: a stable sort of the
+// flat ids, with ids of weight exactly 0 keyed V (after every row, and
+// skipped); the kernel adds each row's terms in that order.
+torch::Tensor embedding_bag_bwd(const torch::Tensor& dout,
+                                const torch::Tensor& ids,
+                                const std::optional<torch::Tensor>& weights,
+                                int64_t num_rows) {
+  if (weights)
+    same_device("embedding_bag_bwd", dout, {&ids, &*weights});
+  else
+    same_device("embedding_bag_bwd", dout, {&ids});
+  TORCH_CHECK(dout.dim() == 2 && ids.dim() == 2 &&
+                  ids.size(0) == dout.size(0),
+              "want dout (B, D) and ids (B, L)");
+  TORCH_CHECK(dout.scalar_type() == torch::kFloat32, "dout must be f32");
+  TORCH_CHECK(num_rows >= 0, "the table's row count must be >= 0");
+  const c10::cuda::CUDAGuard guard(dout.device());
+  const int64_t d = dout.size(1), l = ids.size(1);
+  auto out = torch::zeros({num_rows, d}, dout.options());
+  const int64_t n = ids.numel();
+  if (n == 0 || d == 0 || num_rows == 0) return out;
+  auto flat = ids.reshape({-1}).to(torch::kLong);
+  torch::Tensor w;
+  if (weights) {
+    TORCH_CHECK(weights->sizes() == ids.sizes() &&
+                    weights->scalar_type() == torch::kFloat32,
+                "weights must be f32 and shaped like ids");
+    w = weights->contiguous();
+    flat = torch::where(w.reshape({-1}) != 0, flat,
+                        torch::full({}, num_rows, flat.options()));
+  }
+  const auto sorted = flat.sort(/*stable=*/true, 0, false);
+  const auto keys = std::get<0>(sorted).contiguous();
+  const auto perm = std::get<1>(sorted).contiguous();
+  const auto g = dout.contiguous();
+  check_launch(embedding_bag_bwd_launch(
+                   keys.data_ptr<int64_t>(), perm.data_ptr<int64_t>(),
+                   weights ? w.data_ptr<float>() : nullptr,
+                   g.data_ptr<float>(), out.data_ptr<float>(), n,
+                   as_int(d, "D"), as_int(l, "L"), num_rows, stream()),
+               "embedding_bag_bwd");
   return out;
 }
 
@@ -413,6 +546,10 @@ PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
         "DIN target attention, candidate form");
   m.def("embedding_bag", &embedding_bag,
         "(weighted) embedding bag sums");
+  m.def("target_attention_bwd", &target_attention_bwd,
+        "DIN target attention's backward: dq, dkeys and the MLP's grads");
+  m.def("embedding_bag_bwd", &embedding_bag_bwd,
+        "embedding bag's backward: the dense (V, D) table gradient");
   m.def("dot_interact", &dot_interact,
         "DLRM dot interaction: strictly-lower-triangle pairwise dots");
   m.def("cin_layer", &cin_layer, "xDeepFM CIN layer");

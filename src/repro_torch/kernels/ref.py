@@ -118,3 +118,46 @@ def flash_attention_ref(q, k, v, *, causal=True, window=-1, softcap=None,
     p = torch.softmax(logits, dim=-1).to(v.dtype)
     out = torch.einsum("bkgts,bskd->btkgd", p, v)
     return out.reshape(b, t, h, dh)
+
+
+def target_attention_bwd_ref(dout, q, keys, mask, w1, b1, w2, b2, w3, b3):
+    """The backward of ``target_attention_ref``: dout (B, N, d) -> dq
+    (B, N, d), dkeys (B, T, d) and the MLP's dW1, db1, dW2, db2, dW3, db3,
+    each shaped like its input.  The forward is recomputed and the chain
+    rule written out, as the kernel does; the (B, N, T, 4d) features are
+    formed whole (3.8 GB at DIN's train_batch, B = 65,536, T = 100)."""
+    b, n, d = q.shape
+    t = keys.shape[1]
+    qb = q[:, :, None, :].expand(b, n, t, d)
+    kb = keys[:, None, :, :].expand(b, n, t, d)
+    feat = torch.cat([qb, kb, qb - kb, qb * kb], dim=-1)
+    a1 = torch.sigmoid(feat @ w1 + b1)
+    a2 = torch.sigmoid(a1 @ w2 + b2)
+    w = (a2 @ w3 + b3)[..., 0]  # (B, N, T)
+    m = mask[:, None, :]
+    ds = m * torch.einsum("bnd,btd->bnt", dout, keys)
+    dz2 = ds[..., None] * w3[:, 0] * a2 * (1 - a2)
+    dz1 = (dz2 @ w2.T) * a1 * (1 - a1)
+    f0, f1, f2, f3 = (dz1 @ w1.T).split(d, dim=-1)
+    dq = (f0 + f2 + kb * f3).sum(dim=2)
+    dk = (torch.einsum("bnt,bnd->btd", w * m, dout)
+          + (f1 - f2 + qb * f3).sum(dim=1))
+    h1, h2 = w1.shape[1], w2.shape[1]
+    dw1 = feat.reshape(-1, 4 * d).T @ dz1.reshape(-1, h1)
+    dw2 = a1.reshape(-1, h1).T @ dz2.reshape(-1, h2)
+    dw3 = (a2 * ds[..., None]).reshape(-1, h2).sum(dim=0)
+    return (dq, dk, dw1, dz1.reshape(-1, h1).sum(dim=0).reshape(b1.shape),
+            dw2, dz2.reshape(-1, h2).sum(dim=0).reshape(b2.shape),
+            dw3.reshape(w3.shape), ds.sum().reshape(b3.shape))
+
+
+def embedding_bag_bwd_ref(dout, ids, weights, num_rows: int):
+    """The backward of ``embedding_bag_ref`` into the table: dout (B, D),
+    ids (B, L), weights (B, L) or None -> the dense (num_rows, D)
+    gradient, dtable[v] = sum over ids[b, l] = v of w[b, l] dout[b]."""
+    d = dout.shape[1]
+    g = dout[:, None, :].expand(-1, ids.shape[1], -1)
+    if weights is not None:
+        g = g * weights[..., None]
+    out = dout.new_zeros((num_rows, d))
+    return out.index_add_(0, ids.reshape(-1).long(), g.reshape(-1, d))

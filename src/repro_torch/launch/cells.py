@@ -4,6 +4,7 @@
         [--preset smoke|full] [--calls 3] [--device cpu] [--seed 0]
     python -m repro_torch.launch.cells --arch gemma2-2b \\
         --shape prefill_32k|decode_32k [--preset smoke|full] ...
+    python -m repro_torch.launch.cells --arch din --shape train_batch ...
 
 builds the cell (``configs.get_arch(arch).make_cell(shape)``), draws its
 weights and inputs from ``--seed`` on the device, calls it ``--calls``
@@ -11,6 +12,9 @@ times and prints, for each call, its synchronised time in ms and the
 checksum (sum) of its logits.  It is the single-card counterpart of the
 JAX package's ``launch/dryrun.py --arch/--shape`` selection: the cell
 runs for real instead of being lowered.
+
+A ``train_batch`` cell (DIN's) is a train step: each call takes the
+state the last one returned and prints its loss instead of a checksum.
 
 ``--preset full`` is the published width (DLRM-RM2's table is 10.0 GB;
 gemma2-2b's cells hold 5.2 GB of bf16 weights and a 14.0 GB or 27.9 GB
@@ -71,6 +75,14 @@ def main(argv=None) -> int:
         out = cell.fn(*fargs)
         _sync(device)
         ms = (time.perf_counter() - t0) * 1e3
+        if cell.kind == "train":
+            state, loss = out
+            fargs = (state, *fargs[1:])
+            if not torch.isfinite(loss):
+                raise RuntimeError(f"call {i}: the loss is not finite")
+            print(f"call {i}: {ms:.3f} ms, step {int(state.step)} loss "
+                  f"{float(loss):.6f}")
+            continue
         if not torch.isfinite(out).all():
             raise RuntimeError(f"call {i}: logits are not finite")
         print(f"call {i}: {ms:.3f} ms, logits {tuple(out.shape)} checksum "

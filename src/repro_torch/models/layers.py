@@ -19,6 +19,8 @@ from typing import Callable, Sequence
 import torch
 import torch.nn.functional as F
 
+from repro_torch.tree import leaves
+
 Params = dict
 
 
@@ -143,6 +145,14 @@ def prelu_apply(params: Params, x):
     return torch.where(x >= 0, x, params["alpha"] * x)
 
 
+def sigmoid_bce(logits, labels):
+    """Mean binary cross-entropy of logits, in the JAX package's form
+    max(s, 0) - s y + log1p(exp(-|s|))."""
+    y = labels.to(logits.dtype)
+    return torch.mean(torch.clamp(logits, min=0) - logits * y
+                      + torch.log1p(torch.exp(-logits.abs())))
+
+
 # -- norms -------------------------------------------------------------------
 
 
@@ -161,3 +171,20 @@ def rmsnorm_apply(params: Params, x, *, eps: float = 1e-6,
     if zero_centered:
         scale = 1.0 + scale
     return (y * scale).to(x.dtype)
+
+
+# -- misc -------------------------------------------------------------------
+
+
+def count_params(params) -> int:
+    return sum(int(p.numel()) for p in leaves(params))
+
+
+def global_norm(tree):
+    """sqrt of the sum of the leaves' f32 squares, summed in JAX's leaf
+    order (``repro_torch.tree``)."""
+    return torch.sqrt(sum(p.float().square().sum() for p in leaves(tree)))
+
+
+def param_bytes(params) -> int:
+    return sum(int(p.numel() * p.element_size()) for p in leaves(params))

@@ -139,6 +139,11 @@ def score(params, cfg: DIENConfig, batch: dict, cand_ids, cand_cats):
     return L.mlp_apply(params["mlp"], x, act="relu")[..., 0]
 
 
+def loss_fn(params, cfg: DIENConfig, batch: dict):
+    """Mean BCE of ``forward``'s logits against ``batch["label"]``."""
+    return L.sigmoid_bce(forward(params, cfg, batch), batch["label"])
+
+
 def flops_per_item(cfg: DIENConfig) -> float:
     d = cfg.d_item
     gru1 = gru_flops(cfg.seq_len, d, d)  # amortizable but paper bills per item

@@ -114,6 +114,28 @@ def score(params, cfg: DINConfig, batch: dict, cand_ids, cand_cats):
     return _head(params, prof, pooled, q)
 
 
+def loss_fn(params, cfg: DINConfig, batch: dict):
+    """Mean BCE of ``forward``'s logits against ``batch["label"]``; its
+    gradient runs the ``target_attention`` kernel's backward."""
+    return L.sigmoid_bce(forward(params, cfg, batch), batch["label"])
+
+
+def score_candidates_chunked(params, cfg: DINConfig, batch: dict, cand_ids,
+                             cand_cats, *, n_chunks: int = 16):
+    """retrieval_cand: ONE request (a batch of 1) against N candidates,
+    cand_ids/cand_cats (N,) -> (N,) scores, in ``n_chunks`` equal chunks
+    (N must divide by it).  Each chunk is one kernel call with the
+    chunk's candidates as the user's N."""
+    n = cand_ids.shape[0]
+    if n % n_chunks:
+        raise ValueError(f"{n} candidates do not divide into {n_chunks} "
+                         f"chunks")
+    c = n // n_chunks
+    return torch.cat([score(params, cfg, batch, cand_ids[None, i:i + c],
+                            cand_cats[None, i:i + c])[0]
+                      for i in range(0, n, c)])
+
+
 def flops_per_item(cfg: DINConfig) -> float:
     """Score one candidate for one user (paper Table 1 grain)."""
     d = cfg.d_item

@@ -702,3 +702,159 @@ def test_carbon_window_with_ledger_and_obs_graphs_bitwise_eager(cuda):
                                                   for e in b]
     assert len(a) == 4 and {e[0] for e in obs[0].tracer.events} >= {
         "h2d", "dispatch", "dual_update", "ledger"}
+
+
+# -- the backward kernels and training on the card ---------------------------
+
+# backward against its plain version, relative to each gradient's largest
+# magnitude: the weight gradients are f32 sums over every (b, n, t) pair
+# in another order than the plain version's
+BWD_TOL = 5e-5
+
+
+def _attention_bwd_args(cuda, b, n, t, d, h1, h2):
+    gen = _gen()
+
+    def r(*s, scale=1.0):
+        return (scale * torch.randn(*s, generator=gen)).to(cuda)
+    mask = (torch.rand(b, t, generator=gen) > 0.3).float().to(cuda)
+    ws = []
+    for di, do in ((4 * d, h1), (h1, h2), (h2, 1)):
+        ws += [r(di, do, scale=di ** -0.5), r(do, scale=0.1)]
+    return r(b, n, d), (r(b, n, d, scale=0.3), r(b, t, d, scale=0.3), mask,
+                        *ws)
+
+
+@pytest.mark.parametrize("b,n,t,d,h1,h2", [
+    (3, 2, 7, 8, 12, 6), (48, 1, 10, 16, 16, 8), (5, 3, 40, 16, 16, 8),
+    (300, 1, 100, 36, 80, 40), (2, 1, 33, 64, 128, 64), (4, 2, 1, 4, 3, 2),
+    (3, 1, 0, 4, 3, 2)])
+def test_target_attention_bwd_kernel(cuda, b, n, t, d, h1, h2):
+    dout, args = _attention_bwd_args(cuda, b, n, t, d, h1, h2)
+    ops.reset_launches()
+    got = ops.target_attention_bwd(dout, *args)
+    again = ops.target_attention_bwd(dout, *args)
+    want = ref.target_attention_bwd_ref(dout, *args)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["target_attention_bwd"] == 2
+    for g, a, w in zip(got, again, want):
+        assert g.shape == w.shape and torch.equal(g, a)
+        if w.numel():  # dkeys is empty at T = 0 (dq and the rest are 0)
+            scale = float(w.abs().max()) or 1.0
+            assert float((g - w).abs().max()) <= BWD_TOL * scale
+
+
+@pytest.mark.parametrize("v,d,b,l,weighted", [
+    (7, 3, 4, 5, True), (4000, 32, 512, 100, True), (200, 8, 48, 10, True),
+    (50, 300, 9, 70, True), (60, 1, 3, 1, False), (1000, 64, 200, 300,
+                                                   False)])
+def test_embedding_bag_bwd_kernel(cuda, v, d, b, l, weighted):
+    gen = _gen()
+    ids = torch.randint(0, v, (b, l), generator=gen)
+    w = None
+    if weighted:  # padded entries: weight 0 on id 0, as in the histories
+        w = torch.rand(b, l, generator=gen) * (
+            torch.rand(b, l, generator=gen) > 0.4)
+        ids = torch.where(w > 0, ids, torch.zeros_like(ids)).to(cuda)
+        w = w.to(cuda)
+    ids = ids.to(cuda)
+    dout = torch.randn(b, d, generator=gen).to(cuda)
+    ops.reset_launches()
+    got = ops.embedding_bag_bwd(dout, ids, w, v)
+    assert torch.equal(got, ops.embedding_bag_bwd(dout, ids, w, v))
+    assert ops.LAUNCHES["embedding_bag_bwd"] == 2
+    torch.testing.assert_close(got, ref.embedding_bag_bwd_ref(dout, ids, w,
+                                                              v),
+                               rtol=1e-5, atol=1e-5)
+
+
+def _grads_on(device, loss_fn, params, batch):
+    from repro_torch.models import layers as L
+    from repro_torch.training.trainer import value_and_grad
+
+    return value_and_grad(loss_fn, L.to_device(params, device),
+                          L.to_device(batch, device))
+
+
+@pytest.mark.parametrize("model", ["DIN", "YDNN"])
+def test_every_leaf_gets_its_gradient_on_the_card(cuda, model):
+    """DIN's and YDNN's losses on the card (forward and backward kernels)
+    against the CPU (plain versions) from the same weights and batch:
+    the loss and every leaf's gradient within 1e-5, none left without
+    one, the kernels' backward launched once."""
+    import numpy as np
+
+    from repro_torch import experiments as E
+    from repro_torch.data.synthetic import WorldConfig, build_world, ctr_batch
+    from repro_torch.models.recsys import din, ydnn
+    from repro_torch.tree import leaves_with_paths
+
+    world = build_world(WorldConfig(n_users=300, n_items=80, hist_len=10,
+                                    seed=3))
+    cfgs = dict(zip(("DSSM", "YDNN", "DIN", "DIEN"), E.stage_configs(world)))
+    mod, loss = {"DIN": (din, din.loss_fn), "YDNN": (ydnn, E.ydnn_loss)}[model]
+    params = mod.init(torch.Generator().manual_seed(0), cfgs[model])
+    batch = ctr_batch(world, np.arange(300), np.random.default_rng(0), 64)
+    batch.pop("users")
+    batch = {k: torch.from_numpy(v) for k, v in batch.items()}
+    fn = E._bind_cfg(loss, cfgs[model])
+    ops.reset_launches()
+    l_card, g_card = _grads_on(cuda, fn, params, batch)
+    kernel = {"DIN": "target_attention_bwd", "YDNN": "embedding_bag_bwd"}
+    assert ops.LAUNCHES[kernel[model]] == 1
+    l_cpu, g_cpu = _grads_on("cpu", fn, params, batch)
+    torch.testing.assert_close(l_card.cpu(), l_cpu, rtol=1e-5, atol=1e-5)
+    card = dict(leaves_with_paths(g_card))
+    for path, g in leaves_with_paths(g_cpu):
+        torch.testing.assert_close(card[path].cpu(), g, rtol=1e-5,
+                                   atol=1e-5, msg=path)
+        assert float(g.abs().max()) > 0 or path.startswith("out_emb"), path
+
+
+def test_trained_stack_windows_graphs_bitwise_eager(cuda):
+    """Stage and reward models trained on the card (a few steps each)
+    serve through the CUDA graphs exactly as ``graphs=False``, and no
+    backward kernel launches while serving: the autograd wrappers change
+    nothing on the serving path."""
+    import dataclasses
+
+    from repro_torch import experiments as E
+    from repro_torch.data.request_source import GeneratedSource
+    from repro_torch.data.synthetic import StreamingWorld, WorldConfig
+    from repro_torch.serving.pipeline import ServingPipeline
+    from repro_torch.tree import leaves
+
+    cfg = E.ExperimentConfig(
+        world=WorldConfig(n_users=300, n_items=80, hist_len=10, seed=3),
+        expose=4, n_scales=3, cascade_steps=4, reward_steps=4, batch=32)
+    exp = E.build_experiment(cfg, device=cuda)
+    params, rcfg = E.train_reward_model(exp)
+    assert not any(p.requires_grad for p in leaves(exp.models.din_params))
+    src = GeneratedSource(
+        StreamingWorld.build(dataclasses.replace(cfg.world,
+                                                 n_users=20_000)),
+        exp.models, exp.chains, expose=cfg.expose, chunk=64, device=cuda)
+    budget = 0.6 * float(exp.chains.costs.max()) * 64
+    pipes = [ServingPipeline(src.universe, params, rcfg, budget,
+                             graphs=g, device=cuda) for g in (True, False)]
+    ops.reset_launches()
+    for t in range(3):
+        c = src.window(t, 64)
+        got, want = (p.serve_window(c.ctx, c.rows, tables=c.tables,
+                                    lam=1e-9 * t, ready=c.ready)
+                     for p in pipes)
+        torch.cuda.synchronize()
+        for name in ("decisions", "revenue", "spend", "downgraded", "flops",
+                     "lam_before", "lam_after"):
+            assert torch.equal(getattr(got, name), getattr(want, name)), \
+                (t, name)
+    assert ops.LAUNCHES["target_attention_bwd"] == 0
+    assert ops.LAUNCHES["embedding_bag_bwd"] == 0
+
+
+def test_kernels_without_backward_raise_on_cuda_inputs_needing_grads(cuda):
+    x = torch.randn(4, 5, 8, device=cuda, requires_grad=True)
+    with pytest.raises(NotImplementedError, match="item 25"):
+        ops.dot_interact(x)
+    with torch.no_grad():
+        assert ops.dot_interact(x).shape == (4, 10)

@@ -74,6 +74,50 @@ def test_carbon_and_obs_import_with_jax_and_repro_poisoned():
         "repro_torch.obs.trace"]
 
 
+def test_training_modules_import_with_jax_and_repro_poisoned():
+    """The training path - optimizers, trainer, checkpoints, the batch
+    pipeline, the experiment, DIN's config and the training CLI - stands
+    alone: imported with ``jax`` and ``repro`` poisoned, it pulls in
+    neither."""
+    code = textwrap.dedent("""
+        import sys
+        sys.modules["jax"] = None
+        sys.modules["repro"] = None
+        import repro_torch.training.optimizer
+        import repro_torch.training.trainer
+        import repro_torch.training.checkpoint
+        import repro_torch.experiments
+        import repro_torch.data.pipeline
+        import repro_torch.configs.din_arch
+        import repro_torch.launch.train
+        assert not any(k == "jax" or k.startswith(("jax.", "repro."))
+                       for k, v in sys.modules.items() if v is not None)
+        print(" ".join(sorted(k for k, v in sys.modules.items()
+                              if v is not None and k.startswith(
+                                  "repro_torch.training."))))
+    """)
+    env = dict(os.environ, PYTHONPATH=SRC)
+    out = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.split() == ["repro_torch.training.checkpoint",
+                                  "repro_torch.training.optimizer",
+                                  "repro_torch.training.trainer"]
+
+
+def test_training_entry_points_raise_without_a_card(monkeypatch):
+    from repro_torch import experiments
+    from repro_torch.launch import train
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        train.main(["--arch", "din", "--steps", "1"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        experiments.build_experiment()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        experiments.build_serving_stack(small=True, cache=False)
+
+
 def _imported_roots(path):
     tree = ast.parse(open(path).read(), path)
     for node in ast.walk(tree):
@@ -141,8 +185,9 @@ def test_kernel_build_compiles_every_source_for_sm90a(monkeypatch,
         seen["extra_cuda_cflags"]
     assert sorted(os.path.basename(s) for s in seen["sources"]) == [
         "bind.cpp", "cascade_truncate.cu", "cin.cu", "dot_interact.cu",
-        "embedding_bag.cu", "flash_attention.cu", "flash_attention_wgmma.cu",
-        "target_attention.cu"]
+        "embedding_bag.cu", "embedding_bag_bwd.cu", "flash_attention.cu",
+        "flash_attention_wgmma.cu", "target_attention.cu",
+        "target_attention_bwd.cu"]
     assert all(os.path.exists(s) for s in seen["sources"])
     assert seen["build_directory"] == str(tmp_path / "b")
 

@@ -378,7 +378,7 @@ def test_registry_returns_gemma_and_names_what_waits():
     for arch in ("glm4-9b", "minicpm-2b"):
         with pytest.raises(NotImplementedError, match="item 17"):
             get_arch(arch)
-    for shape, item in (("train_4k", "item 11"), ("long_500k", "item 18")):
+    for shape, item in (("train_4k", "item 25"), ("long_500k", "item 18")):
         with pytest.raises(NotImplementedError, match=item):
             gemma2_2b.make_cell(shape)
 

@@ -275,7 +275,7 @@ def test_registry_names_what_waits():
         get_arch("bst")
     with pytest.raises(KeyError):
         get_arch("nope")
-    with pytest.raises(NotImplementedError, match="queue A item 11"):
+    with pytest.raises(NotImplementedError, match="queue A item 25"):
         dlrm_rm2.make_cell("train_batch")
 
 
