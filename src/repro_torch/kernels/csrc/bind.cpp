@@ -34,18 +34,21 @@ int target_attention_launch(const float* q, long long q_bstride,
 int embedding_bag_launch(const float* table, long long ld, const int* ids,
                          const float* weights, float* out, int B, int D,
                          int L, void* stream);
-long long target_attention_bwd_scratch_floats(int B, int d, int h1, int h2);
+long long target_attention_bwd_scratch_floats(int B, int N, int d, int h1,
+                                              int h2);
 int target_attention_bwd_launch(const float* dout, const float* q,
                                 const float* keys, const float* mask,
                                 const float* w1, const float* b1,
                                 const float* w2, const float* b2,
                                 const float* w3, const float* b3, float* dq,
-                                float* dk, float* scratch, int B, int N,
-                                int T, int d, int h1, int h2, void* stream);
-int embedding_bag_bwd_launch(const int64_t* keys, const int64_t* perm,
+                                float* dk, float* dw, float* scratch, int B,
+                                int N, int T, int d, int h1, int h2,
+                                void* stream);
+long long embedding_bag_bwd_scratch_ints(long long n, long long V);
+int embedding_bag_bwd_launch(const void* ids, int ids64,
                              const float* weights, const float* dout,
-                             float* dtable, long long n, int D, int L,
-                             long long V, void* stream);
+                             float* dtable, int* scratch, long long n, int D,
+                             int L, long long V, void* stream);
 int dot_interact_launch(const void* feats, void* out, int B, int F, int D,
                         int bf16, void* stream);
 int cin_layer_launch(const float* w, const float* x_prev, const float* x0,
@@ -228,7 +231,7 @@ torch::Tensor embedding_bag(const torch::Tensor& table,
 // The backward of target_attention: dout (B, N, d) and the forward's
 // inputs -> [dq (B, N, d), dkeys (B, T, d), dW1, db1, dW2, db2, dW3, db3]
 // shaped like their inputs.  The weight gradients are views of one
-// (nW,) buffer, copied out of the end of the kernel's scratch.
+// (nW,) buffer the kernels write.
 std::vector<torch::Tensor> target_attention_bwd(
     const torch::Tensor& dout, const torch::Tensor& q,
     const torch::Tensor& keys, const torch::Tensor& mask,
@@ -277,8 +280,10 @@ std::vector<torch::Tensor> target_attention_bwd(
     as_int(bsz * n * d, "B*N*d");
     as_int(bsz * t, "B*T");
     auto scratch = torch::empty(
-        {target_attention_bwd_scratch_floats(bi, di, h1i, h2i)},
+        {target_attention_bwd_scratch_floats(bi, as_int(n, "N"), di, h1i,
+                                             h2i)},
         q.options());
+    dw = torch::empty({n_w}, q.options());
     check_launch(
         target_attention_bwd_launch(
             g.data_ptr<float>(), qc.data_ptr<float>(), k.data_ptr<float>(),
@@ -286,10 +291,9 @@ std::vector<torch::Tensor> target_attention_bwd(
             b1c.data_ptr<float>(), w2c.data_ptr<float>(),
             b2c.data_ptr<float>(), w3c.data_ptr<float>(),
             b3c.data_ptr<float>(), dq.data_ptr<float>(), dk.data_ptr<float>(),
-            scratch.data_ptr<float>(), bi, as_int(n, "N"), as_int(t, "T"), di,
-            h1i, h2i, stream()),
+            dw.data_ptr<float>(), scratch.data_ptr<float>(), bi,
+            as_int(n, "N"), as_int(t, "T"), di, h1i, h2i, stream()),
         "target_attention_bwd");
-    dw = scratch.narrow(0, scratch.numel() - n_w, n_w).clone();
   }
   std::vector<torch::Tensor> out{dq, dk};
   int64_t o = 0;
@@ -300,11 +304,13 @@ std::vector<torch::Tensor> target_attention_bwd(
   return out;
 }
 
-// The backward of embedding_bag into the table: dout (B, D), ids (B, L),
-// weights (B, L) or none -> the dense (V, D) gradient.  The order of each
-// row's sum is built here as index preparation: a stable sort of the
-// flat ids, with ids of weight exactly 0 keyed V (after every row, and
-// skipped); the kernel adds each row's terms in that order.
+// The backward of embedding_bag into the table: dout (B, D), ids (B, L)
+// int32 or int64, weights (B, L) or none -> the dense (V, D) gradient.
+// The kernels order the ids themselves (a counting sort by row, in flat
+// order within a row) and write every row, so nothing runs on the device
+// but their two launches: the gradient and their int32 scratch are one
+// torch::empty, the scratch after the (V, D) rows (from a 16-byte
+// boundary).
 torch::Tensor embedding_bag_bwd(const torch::Tensor& dout,
                                 const torch::Tensor& ids,
                                 const std::optional<torch::Tensor>& weights,
@@ -317,30 +323,34 @@ torch::Tensor embedding_bag_bwd(const torch::Tensor& dout,
                   ids.size(0) == dout.size(0),
               "want dout (B, D) and ids (B, L)");
   TORCH_CHECK(dout.scalar_type() == torch::kFloat32, "dout must be f32");
+  TORCH_CHECK(ids.scalar_type() == torch::kInt32 ||
+                  ids.scalar_type() == torch::kInt64,
+              "ids must be int32 or int64");
   TORCH_CHECK(num_rows >= 0, "the table's row count must be >= 0");
   const c10::cuda::CUDAGuard guard(dout.device());
   const int64_t d = dout.size(1), l = ids.size(1);
-  auto out = torch::zeros({num_rows, d}, dout.options());
   const int64_t n = ids.numel();
-  if (n == 0 || d == 0 || num_rows == 0) return out;
-  auto flat = ids.reshape({-1}).to(torch::kLong);
+  if (n == 0 || d == 0 || num_rows == 0)
+    return torch::zeros({num_rows, d}, dout.options());
   torch::Tensor w;
   if (weights) {
     TORCH_CHECK(weights->sizes() == ids.sizes() &&
                     weights->scalar_type() == torch::kFloat32,
                 "weights must be f32 and shaped like ids");
     w = weights->contiguous();
-    flat = torch::where(w.reshape({-1}) != 0, flat,
-                        torch::full({}, num_rows, flat.options()));
   }
-  const auto sorted = flat.sort(/*stable=*/true, 0, false);
-  const auto keys = std::get<0>(sorted).contiguous();
-  const auto perm = std::get<1>(sorted).contiguous();
+  const auto i = ids.contiguous();
   const auto g = dout.contiguous();
+  const int64_t cells = num_rows * d;
+  const int64_t at = (cells + 3) / 4 * 4;  // the scratch, 16-byte aligned
+  auto buf = torch::empty({at + embedding_bag_bwd_scratch_ints(n, num_rows)},
+                          dout.options());
+  auto out = buf.narrow(0, 0, cells).view({num_rows, d});
   check_launch(embedding_bag_bwd_launch(
-                   keys.data_ptr<int64_t>(), perm.data_ptr<int64_t>(),
+                   i.data_ptr(), i.scalar_type() == torch::kInt64 ? 1 : 0,
                    weights ? w.data_ptr<float>() : nullptr,
-                   g.data_ptr<float>(), out.data_ptr<float>(), n,
+                   g.data_ptr<float>(), out.data_ptr<float>(),
+                   reinterpret_cast<int*>(buf.data_ptr<float>() + at), n,
                    as_int(d, "D"), as_int(l, "L"), num_rows, stream()),
                "embedding_bag_bwd");
   return out;

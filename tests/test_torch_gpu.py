@@ -768,6 +768,88 @@ def test_embedding_bag_bwd_kernel(cuda, v, d, b, l, weighted):
                                rtol=1e-5, atol=1e-5)
 
 
+def _check_attention_bwd(dout, args):
+    got = ops.target_attention_bwd(dout, *args)
+    again = ops.target_attention_bwd(dout, *args)
+    want = ref.target_attention_bwd_ref(dout, *args)
+    torch.cuda.synchronize()
+    for g, a, w in zip(got, again, want):
+        assert g.shape == w.shape and torch.equal(g, a)
+        assert torch.isfinite(g).all()
+        scale = float(w.abs().max()) or 1.0
+        assert float((g - w).abs().max()) <= BWD_TOL * scale
+
+
+@pytest.mark.parametrize("b,n,t,d,h1,h2,masked", [
+    (37, 1, 100, 36, 80, 40, False),  # 3,700 pairs: the last round part-full
+    (5, 1, 100, 36, 80, 40, False),  # B below the grid: a user a block
+    (300, 1, 100, 36, 80, 40, True),  # users with every step masked
+    (6, 2, 17, 36, 80, 40, False),  # N = 2: dkeys over rounds, in order n
+    (4096, 1, 100, 36, 80, 40, False)])  # DIN's width, many rounds a block
+def test_target_attention_bwd_kernel_tiling_edges(cuda, b, n, t, d, h1, h2,
+                                                  masked):
+    """The tiling's edges: pairs packed across users in rounds of 128,
+    rounds that end inside a candidate, tiles with no unmasked pair (they
+    add exactly 0 and are skipped) and a user's candidates in different
+    rounds; the kernel within BWD_TOL of its plain version, bit for bit
+    the same twice."""
+    dout, args = _attention_bwd_args(cuda, b, n, t, d, h1, h2)
+    if masked:
+        mask = args[2]
+        mask[:3] = 0.0  # three users in a row: whole tiles masked
+        mask[10] = 0.0
+        mask[11, :50] = 0.0
+    _check_attention_bwd(dout, args)
+
+
+def _bag_bwd_case(cuda, v, d, b, l, *, dtype, weighted, skew=0.0):
+    """ids of ``dtype``; with ``skew``, that share of the positions on id 3
+    and dyadic data (weights in quarters, dOut small integers), so every
+    sum is exact in any order: a 46,000-term f32 sum of unit-scale terms
+    is beyond 1e-5 in any order, and the check is then on the ordering."""
+    gen = _gen()
+    ids = torch.randint(0, v, (b, l), generator=gen)
+    if skew:
+        hot = torch.rand(b, l, generator=gen) < skew
+        ids = torch.where(hot, torch.full_like(ids, 3), ids)
+        w = torch.randint(0, 5, (b, l), generator=gen).float() / 4
+        dout = torch.randint(-4, 5, (b, d), generator=gen).float()
+    else:
+        w = torch.rand(b, l, generator=gen) * (
+            torch.rand(b, l, generator=gen) > 0.4)
+        dout = torch.randn(b, d, generator=gen)
+    if not weighted:
+        w = None
+    return dout.to(cuda), ids.to(dtype).to(cuda), (
+        None if w is None else w.to(cuda)), v
+
+
+@pytest.mark.parametrize("v,d,b,l,dtype,weighted,skew", [
+    (4000, 32, 512, 100, torch.int32, True, 0.0),
+    (4000, 32, 512, 100, torch.int64, True, 0.0),
+    (4000, 32, 512, 100, torch.int32, True, 0.9),  # one id, 90 % of them
+    (4000, 32, 512, 100, torch.int64, False, 0.9),
+    (1_000_000, 32, 512, 100, torch.int64, True, 0.0),  # V >> ids
+    (1_000_000, 32, 512, 100, torch.int32, False, 0.0),
+    (200, 8, 48, 10, torch.int32, False, 0.0)])  # weights=None
+def test_embedding_bag_bwd_kernel_ids_and_runs(cuda, v, d, b, l, dtype,
+                                               weighted, skew):
+    """int32 and int64 ids as they come, a skewed id holding 90 % of the
+    positions (one long run), a million rows for 51,200 ids (most rows
+    written as zero) and plain sums; within 1e-5 of the plain version,
+    bit for bit the same twice, one launch counted a call."""
+    dout, ids, w, v = _bag_bwd_case(cuda, v, d, b, l, dtype=dtype,
+                                    weighted=weighted, skew=skew)
+    ops.reset_launches()
+    got = ops.embedding_bag_bwd(dout, ids, w, v)
+    assert torch.equal(got, ops.embedding_bag_bwd(dout, ids, w, v))
+    assert ops.LAUNCHES["embedding_bag_bwd"] == 2
+    want = ref.embedding_bag_bwd_ref(dout, ids, w, v)
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+    if skew:
+        assert torch.equal(got, want)
+
+
 def _grads_on(device, loss_fn, params, batch):
     from repro_torch.models import layers as L
     from repro_torch.training.trainer import value_and_grad

@@ -9,7 +9,12 @@ a_lo b_hi + a_hi b_lo + a_hi b_hi is summed.  Target attention first
 splits W1's row blocks: feat W1 = q (Wq + Wd) + k (Wk - Wd) + (q*k) Wp,
 with only (q*k) Wp and . W2 on the tensor cores.  Flash attention takes
 Q K^T and P V that way, with the softmax in f32 between them; dot
-interaction takes the Gram matrix X X^T.
+interaction takes the Gram matrix X X^T.  Target attention's backward
+(``target_attention_bwd.cu``) takes X = [k, q*k] against Wx = [Wk - Wd;
+Wp], the second layer, dz2 W2^T, dz1 Wx^T and the weight gradients
+X^T dz1 and a1^T dz2 that way; it is held against ``jax.grad`` of the
+JAX attention pool at the card's 5e-5 of each gradient's largest
+magnitude.
 
 Here that arithmetic is written in plain torch (products of TF32 values
 are exact in f32; the sums are f32) and held, at the cards' gates (CIN
@@ -36,6 +41,7 @@ from repro.kernels import ops as jops
 from repro.kernels.dot_interact import dot_interact as jax_dot
 from repro.kernels.flash_attention import flash_attention as jax_flash
 from repro.kernels.target_attention import target_attention as jax_ta
+from repro.models.recsys import din as jdin
 from repro_torch.kernels import ref
 
 CIN_TOL = dict(rtol=1e-4, atol=1e-4)
@@ -87,6 +93,44 @@ def ta_emulated(q, keys, mask, w1, b1, w2, b2, w3, b3, mode):
     h = torch.sigmoid(b2 + mm(h, w2, mode))
     w = (h @ w3 + b3)[..., 0] * mask[:, None, :]
     return torch.einsum("bnt,btd->bnd", w, keys)
+
+
+def ta_bwd_emulated(dout, q, keys, mask, w1, b1, w2, b2, w3, b3, mode):
+    """The backward kernel's algebra (csrc/target_attention_bwd.cu): with
+    X = [k, q*k] and Wx = [Wk - Wd; Wp], z1 = Aq + X Wx (Aq = q (Wq + Wd)
+    + b1 once a candidate), z2 = a1 W2 + b2, dz1 = (dz2 W2^T) . a1 (1 -
+    a1) and P = dz1 Wx^T as ``mode`` products; dq = sum_t k . P2 +
+    s (Wq + Wd)^T with s = sum_t dz1; the weight gradients X^T dz1 and
+    a1^T dz2 as ``mode`` products over all pairs, dWq = sum_n q (x) s and
+    dWd = dWq - dWk; the rest in f32."""
+    b, n, d = q.shape
+    t = keys.shape[1]
+    h1 = w1.shape[1]
+    wq, wk, wd, wp = w1[:d], w1[d:2 * d], w1[2 * d:3 * d], w1[3 * d:]
+    wx = torch.cat([wk - wd, wp])  # (2d, h1)
+    aq = q @ (wq + wd) + b1  # (B, N, h1), once per candidate
+    kb = keys[:, None].expand(b, n, t, d)
+    qb = q[:, :, None].expand(b, n, t, d)
+    x = torch.cat([kb, qb * kb], dim=-1)  # (B, N, T, 2d)
+    a1 = torch.sigmoid(aq[:, :, None] + mm(x, wx, mode))
+    a2 = torch.sigmoid(b2 + mm(a1, w2, mode))
+    m = mask[:, None, :]
+    w = (a2 @ w3 + b3)[..., 0] * m
+    ds = m * torch.einsum("bnd,btd->bnt", dout, keys)
+    dz2 = ds[..., None] * w3[:, 0] * a2 * (1 - a2)
+    dz1 = mm(dz2, w2.T, mode) * a1 * (1 - a1)
+    p1, p2 = mm(dz1, wx.T, mode).split(d, dim=-1)
+    dk = (p1 + qb * p2 + w[..., None] * dout[:, :, None]).sum(dim=1)
+    s = dz1.sum(dim=2)  # (B, N, h1)
+    dq = (kb * p2).sum(dim=2) + s @ (wq + wd).T
+    gw = mm(x.reshape(-1, 2 * d).T, dz1.reshape(-1, h1), mode)
+    dwk, dwp = gw[:d], gw[d:]
+    dwq = q.reshape(-1, d).T @ s.reshape(-1, h1)
+    dw1 = torch.cat([dwq, dwk, dwq - dwk, dwp])
+    dw2 = mm(a1.reshape(-1, h1).T, dz2.reshape(-1, w2.shape[1]), mode)
+    dw3 = (ds[..., None] * a2).reshape(-1, w2.shape[1]).sum(dim=0)
+    return (dq, dk, dw1, s.sum(dim=(0, 1)), dw2, dz2.sum(dim=(0, 1, 2)),
+            dw3[:, None], ds.sum().reshape(1))
 
 
 def _t(x):
@@ -279,3 +323,86 @@ def test_one_tf32_pass_misses_the_f32_gate(kernel):
     past = np.abs(one - plain) > F32_TOL["atol"] + F32_TOL["rtol"] * \
         np.abs(plain)
     assert past.sum() > 100
+
+
+# The backward against its plain version on the card, relative to each
+# gradient's largest magnitude (tests/test_torch_gpu.py, chip_smoke.py)
+BWD_TOL = 5e-5
+
+
+def _ta_bwd_inputs(b, n, t, d=36, h1=80, h2=40):
+    """DIN's attention widths, padded histories (one user with none, one
+    with all 100 steps), q and keys at the models' scale, dOut ~ N(0, 1)."""
+    rng = np.random.default_rng(100 + n)
+    f = np.float32
+    q = (0.3 * rng.normal(size=(b, n, d))).astype(f)
+    keys = (0.3 * rng.normal(size=(b, t, d))).astype(f)
+    mask = (np.arange(t)[None] < rng.integers(1, t + 1, (b, 1))).astype(f)
+    mask[0] = 0.0
+    mask[1] = 1.0
+    ws = []
+    for di, do in ((4 * d, h1), (h1, h2), (h2, 1)):
+        ws.append((di ** -0.5 * rng.normal(size=(di, do))).astype(f))
+        ws.append((0.1 * rng.normal(size=(do,))).astype(f))
+    dout = rng.normal(size=(b, n, d)).astype(f)
+    return dout, q, keys, mask, ws
+
+
+def _ta_bwd_jax(dout, q, keys, mask, ws):
+    """jax.grad of sum(dOut * pool) through the JAX package's
+    ``din.attention_pool`` (each user's keys broadcast over its N
+    candidates): (dq, dkeys, dW1, db1, dW2, db2, dW3, db3)."""
+    import jax
+
+    b, n, d = q.shape
+    t = keys.shape[1]
+
+    def loss(attn, qq, kk):
+        kb = jnp.broadcast_to(kk[:, None], (b, n, t, d))
+        mb = jnp.broadcast_to(jnp.asarray(mask)[:, None], (b, n, t))
+        return jnp.sum(jdin.attention_pool({"attn": attn}, qq, kb, mb) * dout)
+
+    attn = {"layers": [{"w": jnp.asarray(ws[2 * i]),
+                        "b": jnp.asarray(ws[2 * i + 1])} for i in range(3)]}
+    ga, gq, gk = jax.grad(loss, argnums=(0, 1, 2))(attn, jnp.asarray(q),
+                                                   jnp.asarray(keys))
+    lay = ga["layers"]
+    return [np.asarray(x) for x in (gq, gk, lay[0]["w"], lay[0]["b"],
+                                    lay[1]["w"], lay[1]["b"], lay[2]["w"],
+                                    lay[2]["b"])]
+
+
+def _ta_bwd_errors(mode, case):
+    dout, q, keys, mask, ws = _ta_bwd_inputs(*case)
+    got = ta_bwd_emulated(*map(_t, (dout, q, keys, mask, *ws)), mode)
+    want = _ta_bwd_jax(dout, q, keys, mask, ws)
+    errs = []
+    for g, w in zip(got, want):
+        g = g.numpy()
+        assert g.shape == w.shape
+        scale = float(np.abs(w).max()) or 1.0
+        errs.append(float(np.abs(g - w).max()) / scale)
+    return errs
+
+
+TA_BWD_CASES = {"din-n1": (6, 1, 100), "n3": (3, 3, 20)}
+
+
+@pytest.mark.parametrize("case", list(TA_BWD_CASES))
+def test_target_attention_bwd_3xtf32_meets_the_gate(case):
+    """The backward kernel's algebra with 3xTF32 products against jax.grad
+    of the JAX attention pool at DIN's width (d = 36, h 80-40, T = 100, N
+    = 1, padded histories) and at N = 3: every gradient within BWD_TOL of
+    its largest magnitude (at most 7.3e-7 here).  One TF32 pass would not
+    meet it: its errors reach 8.5e-4 at DIN's width and 2.6e-4 at N = 3,
+    every gradient but db3 past the gate
+    (``test_target_attention_bwd_one_tf32_pass_misses_the_gate``)."""
+    errs = _ta_bwd_errors("3xtf32", TA_BWD_CASES[case])
+    assert max(errs) <= BWD_TOL, errs
+    assert max(_ta_bwd_errors("f32", TA_BWD_CASES[case])) <= BWD_TOL
+
+
+@pytest.mark.parametrize("case", list(TA_BWD_CASES))
+def test_target_attention_bwd_one_tf32_pass_misses_the_gate(case):
+    errs = _ta_bwd_errors("1xtf32", TA_BWD_CASES[case])
+    assert sum(e > BWD_TOL for e in errs) >= 5, errs
