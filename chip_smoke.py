@@ -102,15 +102,20 @@ In order, it
      an ``Obs`` attached (metrics, spans, the JSONL flight log), held to
      the first run bit for bit, and one more warm window of that
      pipeline, ledger and obs attached, under
-     ``torch.cuda.set_sync_debug_mode("error")``; last, the CLI itself
-     (``serve.main``, as ``python -m repro_torch.launch.serve --scenario
-     carbon`` runs it) builds a full-width stack of its own and serves
-     the carbon day with ``--metrics-out``, ``--trace-out`` and
-     ``--profile-dir``: its launches equal the eager counts (with the
-     scoring capture's warm-up on the zero batch), the metrics
-     count the table-cache misses, the flight log has a row a window, the
-     span trace holds ``chunk_tables`` and every serving span, and the
-     profiler's trace holds the three window kernels;
+     ``torch.cuda.set_sync_debug_mode("error")``; last, the CLI itself:
+     first its trained stack (``experiments.build_serving_stack(
+     serve_config())``: 2,000 users, 400 items, the four cascade models
+     and the reward model trained on the card, into this run's own
+     experiment cache; exactly the training's launches, timed), then
+     ``serve.main`` (as ``python -m repro_torch.launch.serve --source
+     generated --scenario carbon`` runs it) loads it, builds a
+     ``GeneratedSource`` over a 100,000-user world of it and serves the
+     carbon day with ``--metrics-out``, ``--trace-out`` and
+     ``--profile-dir``: its launches equal the eager counts (the server's
+     scores, the scoring capture's warm-up on the zero batch), the
+     metrics count the table-cache misses, the flight log has a row a
+     window, the span trace holds ``chunk_tables`` and every serving
+     span, and the profiler's trace holds the three window kernels;
   5. profiles one more full-width window (warm, through the graphs)
      under ``torch.profiler`` and prints its wall time, the device's busy
      time and idle share, each phase range's host and device span, the
@@ -160,7 +165,31 @@ In order, it
      (the JAX CLI's ``--source generated``) within budget at the eager
      launch counts; last, DIN's smoke config trained 3 steps from one
      init on the card and on the CPU, parameters within 1e-5;
- 10. prints the ``kernels`` JSON line (the backward kernels' launches
+ 10. serves the JAX package's CLI on the card, on the trained stack of
+     step 4c, each step's launches counted and held to its eager counts:
+     (a) ``serve.main([])``, the CLI's defaults (12 spike windows of 96
+     over ``--source table``); (b) the legacy host loop and the carbon
+     legacy loop on the same stack, and the legacy loop's full reward
+     matrix against the fused pass's grouped one within 1e-5, with equal
+     decisions, downgrades and revenue at the legacy controller's prices
+     when both score with the same matrix; (c) ``--source memmap`` twice
+     through the CLI (the first saves the universe); the warm windows'
+     host ms and CUDA-event span on the table, memmap and generated
+     sources and the legacy loop's ms, and one warm table window under
+     torch.profiler (device busy, idle share); (d) a 100,000-user universe of the stack's
+     streamed world (0.512 GB of tables) made by
+     ``GeneratedSource.window_for_users``, saved, loaded memmapped with
+     its tables on the device and on the host, each equal to
+     ``GeneratedSource``'s windows bit for bit, tables and served
+     results; (e) the three carbon days through ``serve.main --small``
+     at the commands of the committed ``results/carbon_report*.csv``,
+     writing ``results/torch/``, each column's largest difference from
+     the committed ledger printed (information: those came from
+     JAX-trained models); (f) the four greenflow-cascade cells at
+     ``full_config()``, 3 calls each, ms and model TFLOP/s, and
+     ``rank_serve``'s ``target_attention`` (B = 1,024 x N = 200) held to
+     its plain version on its first 64 users;
+ 11. prints the ``kernels`` JSON line (the backward kernels' launches
      are the training paths'), the card line and, last, the
      ``{"ok": true, ...}`` line.
 
@@ -350,6 +379,24 @@ def check_truncation(gen, dev, layout, expose):
             "shape": f"G={g_n} U=512 C={cap} B=512 expose={expose}"}
 
 
+def attention_bound(q, mask, h1: int, h2: int):
+    """The target attention's least time for candidates ``q`` (B, N, d)
+    (one list shared when its batch stride is 0) against ``mask`` (B, T):
+    ((bound ms, by), the bound with every flop at the f32 peak)."""
+    b, n, d = q.shape
+    t = mask.shape[1]
+    user_steps = float((mask != 0).sum())
+    steps = user_steps * n  # unmasked (b, n, t)
+    cands = n if q.stride(0) == 0 else b * n
+    products = steps * (2 * d * h1 + 2 * h1 * h2)
+    rest = (steps * (d + 2 * h1 + 2 * h2 + 2 * d)
+            + (cands + user_steps) * 2 * d * h1)
+    nbytes = 4 * (cands * d + b * t * d + b * t + 4 * d * h1 + h1 * h2
+                  + h1 + 2 * h2 + 1 + b * n * d)
+    return (bound(nbytes, rest, tf32x3_ops=products),
+            bound(nbytes, products + rest)[0])
+
+
 def check_target_attention(gen, dev, hist_mask):
     import torch
     from repro_torch.kernels import ops, ref
@@ -386,19 +433,11 @@ def check_target_attention(gen, dev, hist_mask):
     # terms, W2, W3 and the pooling are needed per unmasked (candidate,
     # step).  The kernel runs the two products, (q*k) Wp and . W2, in
     # 3xTF32 on the tensor cores, the rest in f32 on the CUDA cores.
-    user_steps = float((hist_mask != 0).sum())
-    steps = user_steps * n  # unmasked (b, n, t)
-    cands = n if full[0].stride(0) == 0 else b * n
-    products = steps * (2 * d * h1 + 2 * h1 * h2)
-    rest = (steps * (d + 2 * h1 + 2 * h2 + 2 * d)
-            + (cands + user_steps) * 2 * d * h1)
-    nbytes = 4 * (n * d + b * t * d + b * t + 4 * d * h1 + h1 * h2
-                  + h1 + 2 * h2 + 1 + b * n * d)
-    b_ms, by = bound(nbytes, rest, tf32x3_ops=products)
+    (b_ms, by), f32_ms = attention_bound(full[0], hist_mask, h1, h2)
     shape = f"B={b} N={n} T={t} d={d} h1={h1} h2={h2}"
     log(f"target_attention [{shape}]: max_abs_err {err:.3e}, {ms:.4f} ms "
         f"(plain {plain_ms:.4f}, bound {b_ms:.4f} by {by}, all in f32 "
-        f"{bound(nbytes, products + rest)[0]:.4f})")
+        f"{f32_ms:.4f})")
     return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": b_ms, "bound_by": by, "library_ms": None,
             "shape": shape}
@@ -1616,25 +1655,83 @@ def check_carbon_obs(stack, day, report_dir) -> None:
         f"the ledger and obs attached served with no host sync")
 
 
+def build_launches(cfg, item_block: int = 256) -> dict:
+    """The kernel launches of ``experiments.build_serving_stack(cfg)``
+    loading its experiment from the cache: the server's stage scores
+    over the evaluation users (DIN's item blocks, YDNN's bag)."""
+    return {"target_attention": -(-cfg.world.n_items // item_block),
+            "embedding_bag": 1}
+
+
+def train_launches(cfg, item_block: int = 256) -> dict:
+    """The kernel launches of training the experiment of ``cfg`` (a cold
+    cache), as phase 9b counts them: a forward and a backward attention
+    launch a DIN step, a bag and its backward a YDNN step, the stage
+    scores of the evaluation and reward users; and the server's scores."""
+    s, blocks = cfg.cascade_steps, -(-cfg.world.n_items // item_block)
+    return {"target_attention": 2 * s + 3 * blocks,
+            "target_attention_bwd": 2 * s, "embedding_bag": s + 3,
+            "embedding_bag_bwd": s}
+
+
+def build_trained_stack(small: bool = False) -> dict:
+    """The CLI's trained stack (``experiments.build_serving_stack(
+    serve_config(small=...))``) built on the card into the smoke's
+    experiment cache, the counters reset before and read after: the
+    launches equal ``train_launches`` (nothing else); returns them with
+    the build's wall seconds."""
+    import torch
+    from repro_torch import experiments as E
+    from repro_torch.kernels import ops
+
+    cfg = E.serve_config(small=small)
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    exp, server, _, _ = E.build_serving_stack(cfg, device="cuda")
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    got = {k: c for k, c in ops.LAUNCHES.items() if c}
+    want = train_launches(cfg)
+    if got != want:
+        raise AssertionError(f"trained stack (small={small}): launches "
+                             f"{got}, want {want}")
+    log(f"trained stack (serve_config(small={small}): U={cfg.world.n_users} "
+        f"I={cfg.world.n_items} J={exp.chains.n_chains}, cascade "
+        f"{cfg.cascade_steps} steps (DIN, DIEN {2 * cfg.cascade_steps}), "
+        f"reward model {cfg.reward_steps}) trained on the card in "
+        f"{build_s:.2f} s; launches {got}; server over "
+        f"{len(exp.ctx_eval)} evaluation users, tables "
+        f"{tuple(server.compact.p_sorted.shape)}")
+    return {"launches": got, "build_s": build_s}
+
+
 def check_cli_carbon_day(report_dir) -> dict:
     """The CLI's carbon day end to end, as ``python -m
-    repro_torch.launch.serve --scenario carbon`` serves it on the card:
-    ``serve.main`` builds a full-width stack of its own (its source
-    carries the ``Obs``, so the table-cache counters and ``chunk_tables``
-    spans are recorded), serves 4 diurnal windows with ``--metrics-out``,
-    ``--trace-out`` and ``--profile-dir`` (``torch.profiler`` around the
-    stack's graph captures and the day) and writes every file.  The
-    counters are reset just before and read just after; returns the
-    launches of the window kernels."""
+    repro_torch.launch.serve --source generated --scenario carbon`` serves
+    it on the card: the trained full-width stack is built first, into
+    the smoke's experiment cache (its training counted on its own); then
+    ``serve.main`` loads it from the cache, builds a ``GeneratedSource``
+    over a 100,000-user world of it (the source carries the ``Obs``, so
+    the table-cache counters and ``chunk_tables`` spans are recorded),
+    serves 4 diurnal windows with ``--metrics-out``, ``--trace-out`` and
+    ``--profile-dir`` (``torch.profiler`` around the stack's load, the
+    reward model's training, the scoring captures and the day) and writes
+    every file.  The counters are reset just before and read just after
+    each; returns both runs' launches."""
     import torch
+    from repro_torch import experiments as E
     from repro_torch.kernels import ops
     from repro_torch.launch import serve
 
+    built = build_trained_stack()
+    cfg = E.serve_config()
     out = os.path.join(report_dir, "cli")
     prom = os.path.join(out, "serve.prom")
     trace = os.path.join(out, "serve.trace.json")
     prof = os.path.join(out, "prof")
-    argv = ["--scenario", "carbon", "--windows", "4", "--requests", "512",
+    argv = ["--source", "generated", "--users", "100000", "--scenario",
+            "carbon", "--windows", "4", "--requests", "512",
             "--carbon-report", os.path.join(out, "carbon.csv"),
             "--metrics-out", prom, "--trace-out", trace, "--profile-dir",
             prof, "--obs-interval", "2"]
@@ -1648,11 +1745,14 @@ def check_cli_carbon_day(report_dir) -> dict:
     torch.cuda.empty_cache()
     sizes = serve.scenario_sizes("carbon", 4, 512)
     chunks = sum(-(-n // 512) for n in sizes)
-    # the CLI builds its source, whose scoring program runs once eagerly
-    # on the zero batch before it captures: one chunk more than served
-    want = {"cascade_truncate": len(sizes),
-            "target_attention": -(-serve.FULL_ITEMS // 256) * (chunks + 1),
-            "embedding_bag": chunks + 1}
+    blocks = -(-cfg.world.n_items // 256)
+    # the server's stage scores, then the source, whose scoring program
+    # runs once eagerly on the zero batch before it captures: one chunk
+    # more than served
+    want = build_launches(cfg)
+    want["target_attention"] += blocks * (chunks + 1)
+    want["embedding_bag"] += chunks + 1
+    want["cascade_truncate"] = len(sizes)
     if rc != 0 or any(c != want.get(k, 0) for k, c in launches.items()):
         raise AssertionError(f"CLI carbon day: exit {rc}, launches "
                              f"{launches}, eager counts {want}")
@@ -1686,15 +1786,18 @@ def check_cli_carbon_day(report_dir) -> dict:
             and all(seen.values())):
         raise AssertionError(f"CLI carbon day profile: ranges "
                              f"{sorted(ranges)[:20]}, kernels {seen}")
-    log(f"CLI carbon day (serve.main, full width, --metrics-out "
-        f"--trace-out --profile-dir): wall {wall_ms:.3f} ms with the stack "
-        f"build and the profiler; launches {launches} over {chunks} chunks "
-        f"and the capture's warm-up chunk (== eager); {len(rows)} "
-        f"flight-log rows, {chunks} table-cache misses, spans "
-        f"{sorted(spans)}; profiler trace: {len(events)} events, "
-        f"{len(kernels)} device kernels, window kernels {seen}, host ranges "
-        f"{sorted(ranges & need)}")
-    return {k: launches[k] for k in WINDOW_KERNELS}
+    log(f"CLI carbon day (serve.main --source generated, the trained "
+        f"full-width stack from the cache, --metrics-out --trace-out "
+        f"--profile-dir): wall {wall_ms:.3f} ms with the stack's load, the "
+        f"reward model's training and the profiler; launches {launches} "
+        f"over {chunks} chunks, the capture's warm-up chunk and the "
+        f"server's scores (== eager); {len(rows)} flight-log rows, {chunks} "
+        f"table-cache misses, spans {sorted(spans)}; profiler trace: "
+        f"{len(events)} events, {len(kernels)} device kernels, window "
+        f"kernels {seen}, host ranges {sorted(ranges & need)}")
+    return {"trained stack build": built["launches"],
+            "carbon CLI": {k: launches[k] for k in WINDOW_KERNELS},
+            "build_s": built["build_s"]}
 
 
 def serve_carbon_days(stack) -> dict:
@@ -1759,7 +1862,7 @@ def serve_carbon_days(stack) -> dict:
             "decisions exactly, gCO2e == kWh x CI, zero steady captures, "
             "launches == the eager counts, reports written")
         check_carbon_obs(stack, days["carbon"], report_dir)
-        out["carbon CLI"] = check_cli_carbon_day(report_dir)
+        out.update(check_cli_carbon_day(report_dir))
     return out
 
 
@@ -2497,6 +2600,549 @@ def train_experiment(seed: int) -> dict:
             "served": {k: served[k] for k in WINDOW_KERNELS}}
 
 
+# -- phase 10: the JAX CLI on the card --------------------------------------
+
+UNIVERSE_USERS = 100_000  # the JAX CLI's --users default
+UNIVERSE_STEP = 8192  # users a window_for_users call while building it
+UNIVERSE_WINDOWS = 4
+CASCADE_CALLS = 3  # calls a greenflow-cascade cell
+CASCADE_PARITY_USERS = 64  # rank_serve users held to the plain version
+LEGACY_TOL = 1e-5  # the legacy loop's full reward matrix vs the grouped
+# the committed ledgers of the JAX package and the CLI runs that make them
+# with the port (results/carbon_report.csv is bench_carbon.py's phase-0
+# ledger of 24 windows of 64, the others ci.yml's serving smokes)
+COMMITTED_DAYS = {
+    "carbon_report.csv": ["--scenario", "carbon", "--windows", "24",
+                          "--requests", "64"],
+    "carbon_report_geo.csv": ["--scenario", "georegions", "--windows", "6",
+                              "--ci-forecast"],
+    "carbon_report_geotenants.csv": [
+        "--scenario", "geotenants", "--tenants", "3", "--tenant-mode",
+        "priced", "--windows", "6", "--ci-forecast"],
+}
+
+
+class _Tee:
+    """stdout to the terminal and to a buffer."""
+
+    def __init__(self):
+        import io
+        self.buf = io.StringIO()
+
+    def write(self, text):
+        sys.__stdout__.write(text)
+        self.buf.write(text)
+
+    def flush(self):
+        sys.__stdout__.flush()
+
+
+def run_counted(label: str, fn, want: dict | None = None):
+    """``fn()`` with the counters reset just before and read just after,
+    its stdout kept; the launches must equal ``want`` (kernel -> count,
+    every other kernel 0) when given.  Returns (result, launches, wall
+    ms, stdout)."""
+    import contextlib
+
+    import torch
+    from repro_torch.kernels import ops
+
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    tee = _Tee()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(tee):
+        out = fn()
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    got = {k: c for k, c in ops.LAUNCHES.items() if c}
+    if want is not None and got != {k: c for k, c in want.items() if c}:
+        raise AssertionError(f"{label}: launches {got}, want {want}")
+    log(f"{label}: wall {wall_ms:.3f} ms, launches {got}")
+    return out, got, wall_ms, tee.buf.getvalue()
+
+
+def table_ms(text: str, header: str, column: int) -> list[float]:
+    """Column ``column`` of the window table printed after ``header``."""
+    lines = text.splitlines()
+    at = max(i for i, line in enumerate(lines) if line.split()[:3]
+             == header.split()[:3])
+    vals = []
+    for line in lines[at + 1:]:
+        cols = line.split()
+        if not cols or not cols[0].isdigit():
+            break
+        vals.append(float(cols[column]))
+    return vals
+
+
+def time_windows(label: str, pipe, source, sizes) -> dict:
+    """Serve ``sizes`` windows one at a time, synchronised: each window's
+    host ms (its chunk's production, then ``serve_window``) and event ms
+    (CUDA events recorded before and after ``serve_window``, so its host
+    preparation is inside the span: not device busy time); the medians
+    over the warm windows (no capture)."""
+    import numpy as np
+    import torch
+
+    host, dev, caps = [], [], []
+    streaming = hasattr(source, "window")
+    for t, n in enumerate(sizes):
+        h0 = time.perf_counter()
+        if streaming:
+            chunk = source.window(t, n)
+            args = (chunk.ctx, chunk.rows)
+            kw = dict(tables=chunk.tables, ready=chunk.ready)
+        else:
+            args, kw = source(t, n), {}
+        e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        e0.record()
+        res = pipe.serve_window(*args, **kw)
+        e1.record()
+        torch.cuda.synchronize()
+        host.append((time.perf_counter() - h0) * 1e3)
+        dev.append(e0.elapsed_time(e1))
+        caps.append(res.compiles)
+    warm = [i for i, c in enumerate(caps) if c == 0]
+    out = {"host_ms": float(np.median([host[i] for i in warm])),
+           "event_ms": float(np.median([dev[i] for i in warm])),
+           "windows": len(sizes), "captures": sum(caps)}
+    log(f"{label}: {len(sizes)} windows, warm medians host "
+        f"{out['host_ms']:.3f} ms, event span {out['event_ms']:.3f} ms a "
+        f"window (host {[round(x, 3) for x in host]}; event span "
+        f"{[round(x, 3) for x in dev]}; captures {caps})")
+    return out
+
+
+def profile_table_window(pipe, sample, t: int, n: int) -> None:
+    """One more warm window of ``n`` from the table source under
+    torch.profiler, outside the count: its wall time against the
+    device's busy time, idle share and cascade_truncate's share."""
+    ctx, rows = sample(t, n)
+    res = profile_call(f"table source, one warm window of {n} (outside "
+                       f"the count)",
+                       lambda: pipe.serve_window(ctx, rows, update_lam=False),
+                       kernel="cascade_truncate", warmup=True)
+    if res.compiles:
+        raise AssertionError("the profiled table window was not warm")
+
+
+def check_legacy_vs_fused(exp, server, params, rcfg, sizes) -> None:
+    """On the same trained stack and windows: the legacy scorer's full
+    reward matrix against the fused pass's grouped one within
+    ``LEGACY_TOL``; at a pinned price, the CLI's legacy window
+    (``make_legacy_window``: ``BudgetController``, then the server) and
+    the fused pipeline (eager, scoring with that same full matrix)
+    decide and downgrade the same, and serve the same revenue."""
+    import numpy as np
+    import torch
+    from repro_torch.launch import serve
+    from repro_torch.serving.pipeline import ServingPipeline
+
+    score = serve.make_legacy_scorer(exp, rcfg)
+    budget = 0.6 * float(exp.chains.costs.max()) * sizes[0]
+
+    class Fed(ServingPipeline):
+        def _rewards(self, ctx):
+            return score(params, ctx)
+
+    grouped = ServingPipeline(server, params, rcfg, budget, graphs=False)
+    fed = Fed(server, params, rcfg, budget, graphs=False)
+    ctl, window = serve.make_legacy_window(exp, server, params, rcfg,
+                                           budget)
+    sample = serve.table_sampler(exp, seed=1)
+    worst, downgraded = 0.0, 0
+    for t, n in enumerate(sizes):
+        ctx, rows = sample(t, n)
+        full = score(params, ctx)
+        with torch.no_grad():
+            got = grouped._rewards(torch.as_tensor(ctx,
+                                                   device=server.device))
+        worst = max(worst, float(torch.max(torch.abs(got - full)
+                                           / torch.clamp(torch.abs(full),
+                                                         min=1.0))))
+        lam = float(ctl.pd.lam)
+        res = fed.serve_window(ctx, rows, lam=lam)
+        dec, rev = window(ctx, rows)
+        if not (np.array_equal(res.decisions_np, dec)
+                and int(res.downgraded) == ctl.stats[-1].downgraded
+                and np.array_equal(res.revenue_np, rev)):
+            raise AssertionError(f"legacy vs fused window {t}: decisions "
+                                 f"or downgrades or revenue differ at the "
+                                 f"pinned price {lam}")
+        downgraded += ctl.stats[-1].downgraded
+    if worst > LEGACY_TOL:
+        raise AssertionError(f"legacy rewards vs the fused pass's: "
+                             f"{worst:.3e} > {LEGACY_TOL}")
+    log(f"legacy vs fused on the trained stack: rewards within {worst:.3e} "
+        f"(relative, floor 1); at the legacy controller's entry prices "
+        f"decisions, downgrades ({downgraded}) and revenue equal over "
+        f"{len(sizes)} windows")
+
+
+def check_universe(exp, params, rcfg, seed: int, root: str) -> dict:
+    """Phase 10(d): a ``UNIVERSE_USERS``-user universe of the trained
+    stack's streamed world, its tables made by ``GeneratedSource.
+    window_for_users`` in steps of ``UNIVERSE_STEP`` users, saved, loaded
+    memmapped with its tables on the device and without; each window's
+    users, contexts and tables equal ``GeneratedSource``'s bit for bit,
+    and so do the windows served from each (decisions, revenue, spend,
+    price).  Returns the launches, checked against the source's chunk
+    count, and the times."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from repro_torch.data.request_source import (GeneratedSource,
+                                                 TableReplaySource)
+    from repro_torch.data.synthetic import StreamingWorld
+    from repro_torch.kernels import ops
+    from repro_torch.serving.pipeline import ServingPipeline
+
+    dev = params["label_norm"].device
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    world = StreamingWorld.build(dataclasses.replace(
+        exp.cfg.world, n_users=UNIVERSE_USERS))
+    gen = GeneratedSource(world, exp.models, exp.chains,
+                          expose=exp.cfg.expose, seed=seed, device=dev)
+    lay = gen.universe.compact
+    g_n, cap, u_n = len(lay.p_sorted), lay.cap, UNIVERSE_USERS
+    ctx = np.empty((u_n, gen.d_context), np.float32)
+    p = np.empty((g_n, u_n, cap), np.int32)
+    ck = np.empty((g_n, u_n, cap), np.float32)
+    for lo in range(0, u_n, UNIVERSE_STEP):
+        hi = min(u_n, lo + UNIVERSE_STEP)
+        chunk = gen.window_for_users(np.arange(lo, hi))
+        if chunk.ready is not None:
+            chunk.ready.synchronize()
+        ctx[lo:hi] = chunk.ctx
+        p[:, lo:hi] = chunk.tables["p"].cpu().numpy()
+        ck[:, lo:hi] = chunk.tables["ck"].cpu().numpy()
+    build_s = time.perf_counter() - t0
+    path = os.path.join(root, "universe")
+    t0 = time.perf_counter()
+    TableReplaySource(ctx, p, ck, exp.chains, n_items=exp.cfg.world.n_items,
+                      expose=exp.cfg.expose, seed=seed,
+                      device=dev).save(path)
+    save_s = time.perf_counter() - t0
+    nbytes = p.nbytes + ck.nbytes
+    del ctx, p, ck
+    on = TableReplaySource.load(path, exp.chains, seed=seed,
+                                device_tables=True, device=dev)
+    off = TableReplaySource.load(path, exp.chains, seed=seed, device=dev)
+    if not (isinstance(on.p_sorted, np.memmap) and on.device_tables
+            and not off.device_tables and on.n_users == u_n):
+        raise AssertionError("the universe did not load memmapped")
+    n = 512
+    for t in range(UNIVERSE_WINDOWS):
+        want = gen.window(t, n)
+        if want.ready is not None:
+            want.ready.synchronize()
+        for name, src in (("device tables", on), ("host tables", off)):
+            got = src.window(t, n)
+            same = (np.array_equal(got.users, want.users)
+                    and np.array_equal(got.ctx, want.ctx)
+                    and all(torch.equal(torch.as_tensor(got.tables[k],
+                                                        device=dev),
+                                        want.tables[k])
+                            for k in ("p", "ck")))
+            if not same:
+                raise AssertionError(f"universe window {t} ({name}) differs "
+                                     f"from GeneratedSource's")
+    budget = 0.6 * float(exp.chains.costs.max()) * n
+    runs = {}
+    for name, src in (("generated", gen), ("device tables", on),
+                      ("host tables", off)):
+        pipe = ServingPipeline(src.universe, params, rcfg, budget)
+        runs[name] = [pipe.serve_window(c.ctx, c.rows, tables=c.tables,
+                                        ready=c.ready)
+                      for c in (src.window(100 + t, n)
+                                for t in range(UNIVERSE_WINDOWS))]
+    torch.cuda.synchronize()
+    for name in ("device tables", "host tables"):
+        for t, (a, b) in enumerate(zip(runs["generated"], runs[name])):
+            for f in ("decisions", "revenue", "spend", "lam_after",
+                      "downgraded"):
+                if not torch.equal(getattr(a, f), getattr(b, f)):
+                    raise AssertionError(f"universe window {100 + t} "
+                                         f"({name}): {f} differs from the "
+                                         f"generated window's")
+    got = {k: c for k, c in ops.LAUNCHES.items() if c}
+    # and on the card the capture's warm-up on the zero batch
+    chunks = gen.cache_misses + (dev.type == "cuda")
+    blocks = -(-exp.cfg.world.n_items // gen.item_block)
+    want = {"target_attention": blocks * chunks, "embedding_bag": chunks,
+            "cascade_truncate": 3 * UNIVERSE_WINDOWS}
+    if got != want:
+        raise AssertionError(f"universe: launches {got}, want {want}")
+    log(f"universe of {u_n:,} users (G = {g_n}, cap = {cap}, "
+        f"{nbytes / 1e9:.3f} GB of tables, {nbytes / u_n:.0f} bytes a "
+        f"user): scored and gathered in {build_s:.2f} s, saved in "
+        f"{save_s:.2f} s; memmapped windows with the tables on the device "
+        f"and on the host == GeneratedSource's bit for bit (users, ctx, "
+        f"tables) over {UNIVERSE_WINDOWS} windows of {n}, and so are the "
+        f"windows served from each (decisions, revenue, spend, price); "
+        f"launches {got}")
+    gen.close()
+    return {"launches": got, "build_s": build_s, "save_s": save_s,
+            "gb": nbytes / 1e9}
+
+
+def compare_committed(name: str, path: str) -> None:
+    """Each column's largest relative difference between the port's
+    ledger CSV and the JAX package's committed one (information: the
+    committed ledgers came from JAX-trained models)."""
+    import csv
+
+    with open(os.path.join(ROOT, "results", name)) as f:
+        want = list(csv.reader(f))
+    with open(path) as f:
+        got = list(csv.reader(f))
+    if got[0] != want[0]:
+        log(f"{name}: columns differ ({got[0]} vs {want[0]})")
+        return
+    worst = {}
+    for g_row, w_row in zip(got[1:], want[1:]):
+        for col, g, w in zip(want[0], g_row, w_row):
+            try:
+                g, w = float(g), float(w)
+            except ValueError:
+                continue
+            rel = abs(g - w) / max(abs(g), abs(w)) if g != w else 0.0
+            worst[col] = max(worst.get(col, 0.0), rel)
+    log(f"{name} vs the committed JAX ledger ({len(got) - 1} rows here, "
+        f"{len(want) - 1} there), largest |a - b| / max(|a|, |b|) a "
+        f"column: "
+        + ", ".join(f"{k} {v:.3g}" for k, v in worst.items()))
+
+
+def serve_cascade_cells(seed: int) -> dict:
+    """Phase 10(f): greenflow-cascade's four cells at ``full_config()``,
+    ``CASCADE_CALLS`` calls each, the counters reset before and read
+    after each cell (``rank_serve``: one ``target_attention`` launch a
+    call, at B = 1,024 x 200 candidates; the others no kernel of the
+    repository); ms a call and model TFLOP/s; then, outside the count,
+    ``rank_serve``'s kernel against its plain version on the first
+    ``CASCADE_PARITY_USERS`` users (its (B, N, T, 4d) features would take
+    5.9 GB at full B).  Returns the launches and the times."""
+    import torch
+    from repro_torch.configs import greenflow_cascade as gfc
+    from repro_torch.kernels import ops, ref
+    from repro_torch.models.recsys import din
+
+    out = {}
+    for shape in gfc.SHAPES:
+        cell = gfc.make_cell(shape)
+        args = cell.make_args(seed, "cuda")
+        torch.cuda.synchronize()
+        ops.reset_launches()
+        ms = []
+        for _ in range(CASCADE_CALLS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = cell.fn(*args)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+            if cell.kind == "train":
+                args = (res[0], *args[1:])
+            outs = res[1:] if cell.kind == "train" else (
+                res if isinstance(res, tuple) else (res,))
+            if not all(torch.isfinite(o.float()).all() for o in outs):
+                raise AssertionError(f"greenflow-cascade {shape}: not "
+                                     f"finite")
+        got = {k: c for k, c in ops.LAUNCHES.items() if c}
+        want = ({"target_attention": CASCADE_CALLS}
+                if shape == "rank_serve" else {})
+        if got != want:
+            raise AssertionError(f"greenflow-cascade {shape}: launches "
+                                 f"{got}, want {want}")
+        flops = cell.meta["model_flops"]
+        out[shape] = {"ms": ms, "tflops": flops / (min(ms) * 1e-3) / 1e12,
+                      "launches": got}
+        log(f"greenflow-cascade {shape} (full_config, {cell.meta}): ms a "
+            f"call {[round(x, 3) for x in ms]}, {out[shape]['tflops']:.3f} "
+            f"model TFLOP/s at the fastest; launches {got}; peak "
+            f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+        if shape == "rank_serve":
+            params, user, cid, ccat = args
+            m = CASCADE_PARITY_USERS
+            keys = din.embed_items(params, user["hist_ids"][:m],
+                                   user["hist_cats"][:m])
+            q = din.embed_candidates(params, cid[:m], ccat[:m])
+            ws = din._attn_weights(params)
+            with torch.no_grad():
+                got_k = ops.target_attention(q, keys, user["hist_mask"][:m],
+                                             *ws)
+                want_k = ref.target_attention_ref(q, keys,
+                                                  user["hist_mask"][:m], *ws)
+            err = close(got_k, want_k, 2e-5)
+            # the kernel alone at the cell's full shape, and its bound
+            keys = din.embed_items(params, user["hist_ids"],
+                                   user["hist_cats"])
+            q = din.embed_candidates(params, cid, ccat)
+            mask = user["hist_mask"]
+            with torch.no_grad():
+                k_ms = cuda_ms(lambda: ops.target_attention(q, keys, mask,
+                                                            *ws), reps=10)
+            (b_ms, by), f32_ms = attention_bound(q, mask, ws[0].shape[1],
+                                                 ws[2].shape[1])
+            out[shape].update(kernel_ms=k_ms, bound_ms=b_ms, max_abs_err=err)
+            log(f"rank_serve's target_attention on its first {m} users "
+                f"(N = {cid.shape[1]}, two candidate blocks of 128, the "
+                f"second partly empty) vs the plain version: max_abs_err "
+                f"{err:.3e} (tolerance 2e-5); the kernel alone at "
+                f"B = {q.shape[0]} x N = {q.shape[1]}: {k_ms:.4f} ms, bound "
+                f"{b_ms:.4f} ms by {by} ({b_ms / k_ms:.1%}; all in f32 "
+                f"{f32_ms:.4f})")
+        del cell, args, res
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def serve_trained_cli(seed: int, build_s: float) -> dict:
+    """Phase 10: the JAX package's serving CLI on the card, on the trained
+    stack of ``serve_config(small=False)`` (trained in phase 4c into the
+    smoke's experiment cache): (a) ``serve.main([])``, the CLI's defaults
+    (12 spike windows of 96 over ``--source table``); (b) the legacy host
+    loop and the carbon legacy loop on the same stack, and the legacy
+    rewards and decisions against the fused pass's; (c) ``--source
+    memmap`` twice through the CLI, the first saving the universe; timed
+    windows of the table, memmap and generated sources; (d) a
+    100,000-user universe (``check_universe``); (e) the three carbon days
+    through the CLI at the committed ledgers' commands (``--small``,
+    trained here), compared with them as information; (f) the four
+    greenflow-cascade cells.  Every step's launches are counted and
+    checked against its eager counts; returns the phase's launches."""
+    import tempfile
+
+    import numpy as np
+    import torch
+    from repro_torch import experiments as E
+    from repro_torch.launch import serve
+
+    t_phase = time.perf_counter()
+    cfg = E.serve_config()
+    sizes = serve.scenario_sizes("spike", 12, 96)
+    built = build_launches(cfg)
+    total: dict = {}
+
+    def add(got):
+        for k, c in got.items():
+            total[k] = total.get(k, 0) + c
+
+    with tempfile.TemporaryDirectory(prefix="cli-") as root:
+        # (a) the CLI's defaults
+        _, got, _, text = run_counted(
+            "(a) serve.main([]) (table source, 12 spike windows of 96)",
+            lambda: serve.main([]),
+            {**built, "cascade_truncate": len(sizes)})
+        add(got)
+        cli_ms = table_ms(text, "win n spend/budget", 6)
+        log(f"(a) the CLI's window ms (host, to the device's end): {cli_ms}")
+        # the stack itself, for (b), the timings and (d)
+        (exp, server, params, rcfg), got, _, _ = run_counted(
+            "the trained stack from the cache",
+            lambda: E.build_serving_stack(cfg, device="cuda"), built)
+        add(got)
+        # (b) the legacy loops on the same stack
+        budget = 0.6 * float(exp.chains.costs.max()) * 96
+        _, got, _, text = run_counted(
+            "(b) the legacy host loop (BudgetController, table source)",
+            lambda: serve._legacy_loop(exp, server, params, rcfg, sizes,
+                                       budget),
+            {"cascade_truncate": len(sizes)})
+        add(got)
+        legacy_ms = table_ms(text, "win n spend/budget", 6)
+        args = serve.parser().parse_args([
+            "--scenario", "carbon", "--legacy", "--carbon-report",
+            os.path.join(root, "legacy_carbon.csv")])
+        carbon = serve.trained_stack(exp, server, params, rcfg,
+                                     scenario="carbon")
+        _, got, _, _ = run_counted(
+            "(b) the carbon legacy loop (CarbonBudgetController, ledger)",
+            lambda: serve.legacy_carbon_day(carbon, args),
+            {"cascade_truncate": len(serve._day_sizes(args))})
+        add(got)
+        check_legacy_vs_fused(exp, server, params, rcfg, sizes)
+        # (c) the memmap replay through the CLI, twice
+        replay = os.path.join(root, "replay")
+        for k in range(2):
+            _, got, _, text = run_counted(
+                f"(c) serve.main --source memmap, run {k + 1}",
+                lambda: serve.main(["--source", "memmap", "--replay-dir",
+                                    replay]),
+                {**built, "cascade_truncate": len(sizes)})
+            add(got)
+            if ("saving replay universe" in text) != (k == 0):
+                raise AssertionError("the first memmap run saves, the "
+                                     "second loads")
+        # the windows' times on each source
+        timed = {}
+        for source in ("table", "memmap", "generated"):
+            stack = serve.trained_stack(exp, server, params, rcfg,
+                                        source=source, replay_dir=replay,
+                                        seed=seed)
+            misses = getattr(stack.source, "cache_misses", 0)
+            timed[source], got, _, _ = run_counted(
+                f"timed windows, {source} source",
+                lambda: time_windows(f"{source} source, 12 spike windows",
+                                     stack.pipeline, stack.source, sizes))
+            add(got)
+            # a generated source captured its scoring when it was built,
+            # before the count: each chunk served is one miss
+            chunks = getattr(stack.source, "cache_misses", 0) - misses
+            want = {"cascade_truncate": len(sizes),
+                    "target_attention": -(-cfg.world.n_items // 256) * chunks,
+                    "embedding_bag": chunks}
+            if {k: c for k, c in want.items() if c} != got:
+                raise AssertionError(f"timed {source} windows: launches "
+                                     f"{got}, want {want}")
+            if source == "table":
+                profile_table_window(stack.pipeline, stack.source,
+                                     len(sizes), max(sizes))
+            del stack
+        log(f"legacy loop ms a window (host, synchronous): {legacy_ms}; "
+            f"median {float(np.median(legacy_ms[1:])):.3f} against the "
+            f"fused table source's {timed['table']['host_ms']:.3f} host / "
+            f"{timed['table']['event_ms']:.3f} event span")
+        # (d) the 100,000-user universe
+        universe = check_universe(exp, params, rcfg, seed, root)
+        add(universe["launches"])
+        del exp, server, params
+        gc.collect()
+        torch.cuda.empty_cache()
+        # (e) the carbon days at the committed ledgers' commands
+        small = E.serve_config(small=True)
+        for k, (name, argv) in enumerate(COMMITTED_DAYS.items()):
+            path = os.path.join(serve.RESULTS, name)
+            n_w = int(argv[argv.index("--windows") + 1])
+            # the small stack trains in the first run, loads after
+            want = dict(train_launches(small) if k == 0
+                        else build_launches(small))
+            want["cascade_truncate"] = n_w
+            _, got, _, _ = run_counted(
+                f"(e) serve.main --small {' '.join(argv)}",
+                lambda: serve.main(["--small", *argv]), want)
+            add(got)
+            if not os.path.exists(path):
+                raise AssertionError(f"(e) no ledger at {path}")
+            compare_committed(name, path)
+        # (f) the greenflow-cascade cells
+        cells = serve_cascade_cells(seed)
+        for c in cells.values():
+            add(c["launches"])
+    log(f"phase 10: wall {time.perf_counter() - t_phase:.1f} s; launches "
+        f"{total}; the trained stack's training {build_s:.2f} "
+        f"s on the card (phase 4c); window ms (host / event span, warm "
+        f"medians): " + ", ".join(
+            f"{k} {v['host_ms']:.3f} / {v['event_ms']:.3f}"
+            for k, v in timed.items()))
+    return total
+
+
 def window_inputs(seed: int, dev):
     """The window's history slab (512 users of the full-width world), the
     CompactPlan layout of its chains, and the world's config."""
@@ -2542,6 +3188,13 @@ def main(argv=None) -> int:
     log(f"kernels built in {time.perf_counter() - t0:.1f}s "
         f"(torch.utils.cpp_extension, into {build.build_dir()})")
 
+    # the CLI's trained stacks train into an experiment cache of this
+    # run's own (phase 4c, phase 10), never one left by an earlier run
+    import shutil
+    import tempfile
+
+    from repro_torch import experiments
+    experiments.CACHE = tempfile.mkdtemp(prefix="smoke-cache-")
     dev = torch.device("cuda")
     # pins PyTorch's default, full f32 in f32 products, which the f32
     # checks (2e-5, 1e-5, the f32 serve-path identity) and compiled
@@ -2580,8 +3233,10 @@ def main(argv=None) -> int:
     n_windows = len(st.windows)
     profile_window(stack)
     multi_launches = serve_multi_price(stack)
-    multi_launches.update(
-        {f"{name} day": c for name, c in serve_carbon_days(stack).items()})
+    days = serve_carbon_days(stack)
+    trained_build, build_s = days.pop("trained stack build"), \
+        days.pop("build_s")
+    multi_launches.update({f"{name} day": c for name, c in days.items()})
     del stack, st
     gc.collect()  # the programs' closures form cycles; free their graphs
     torch.cuda.empty_cache()
@@ -2601,6 +3256,10 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     experiment = train_experiment(args.seed)
     din_card_vs_cpu(args.seed)
+    gc.collect()
+    torch.cuda.empty_cache()
+    cli = serve_trained_cli(args.seed, build_s)
+    shutil.rmtree(experiments.CACHE, ignore_errors=True)
 
     window_path = (f"serving window ({n_windows} windows); "
                    + "; ".join(f"{name} window ({len(GEO_CI)} windows)"
@@ -2636,6 +3295,11 @@ def main(argv=None) -> int:
     for k in WINDOW_KERNELS:
         train_counts.setdefault(k, {})["trained stack windows"] = \
             experiment["served"][k]
+    # the CLI's trained stack (its training in phase 4c) and phase 10
+    for k, c in trained_build.items():
+        train_counts.setdefault(k, {})["CLI trained stack training"] = c
+    for k, c in cli.items():
+        train_counts.setdefault(k, {})["trained CLI (phase 10)"] = c
     for k, counts in train_counts.items():
         by_path.setdefault(k, {}).update(counts)
         launches[k] = sum(by_path[k].values())

@@ -33,6 +33,7 @@ _MODULES = {
     "xdeepfm": "repro_torch.configs.xdeepfm_arch",
     "gemma2-2b": "repro_torch.configs.gemma2_2b",
     "din": "repro_torch.configs.din_arch",
+    "greenflow-cascade": "repro_torch.configs.greenflow_cascade",
 }
 
 _MOE = "the MoE FFN (ROADMAP queue A item 16: _moe_ref, then EP)"
@@ -42,8 +43,6 @@ _WAITING = {
     "minicpm-2b": _LM_CFG,
     "schnet": "the model zoo (ROADMAP queue A item 13: models/gnn)",
     "bst": "the model zoo (ROADMAP queue A item 13: models/recsys/bst)",
-    "greenflow-cascade": "the model zoo (ROADMAP queue A item 13: "
-                         "configs/greenflow_cascade)",
 }
 
 
@@ -56,7 +55,9 @@ class Cell:
     # cell's fn(state, batch) -> (state, loss)
     fn: Callable
     make_args: Callable  # (seed, device) -> tuple of tensors / dicts
-    meta: dict = field(default_factory=dict)  # model_flops etc.
+    # model_flops etc.; "outputs" names a cell's outputs when it returns
+    # a tuple of tensors (default: its one tensor of logits)
+    meta: dict = field(default_factory=dict)
 
 
 # the JAX package's LM shapes (repro/configs/base.py); a config module
@@ -129,6 +130,15 @@ def lm_make_cell(arch_id: str, cfg, shape: str, *, batch: int,
                 make_args=make_args,
                 meta={"model_flops": lm_model_flops(cfg, kind, batch, seq),
                       "batch": batch, "seq": seq})
+
+
+def registered_shapes() -> tuple[str, ...]:
+    """Every shape a ported architecture names, run or skipped."""
+    names = set()
+    for arch_id in _MODULES:
+        mod = get_arch(arch_id)
+        names.update(mod.SHAPES, getattr(mod, "SKIPPED_SHAPES", {}))
+    return tuple(sorted(names))
 
 
 def get_arch(arch_id: str):

@@ -21,12 +21,20 @@ a multi-chunk window on a thread pool.  Each phase runs under a
 trace attributes device time to it; outside a profiler the ranges cost
 a few microseconds each.
 
+``TableReplaySource`` is the fixed-replay path: per-user tables computed
+once (by a materialized ``CascadeServer``, or a ``save`` of either
+package, loaded memmapped so only the rows a window touches page in),
+windows gathering row slices.  Built ``from_server`` it serves bit for
+bit what the materialized server serves.
+
 ``source.universe`` is the server-shaped handle a streaming
 ``ServingPipeline`` is built over: the chain set and compact layout
 without per-user tables; every window brings its chunk's tables.
 """
 from __future__ import annotations
 
+import json
+import os
 import queue
 import threading
 from collections import OrderedDict
@@ -350,3 +358,141 @@ class GeneratedSource(RequestSource):
                            rows=np.arange(n, dtype=np.int32),
                            tables={"p": p, "ck": ck}, users=users,
                            h2d_bytes=int(h2d), ready=ready)
+
+
+class TableReplaySource(RequestSource):
+    """Fixed replay over precomputed per-user tables: contexts (U, d) and
+    the (G, U, cap) CompactPlan rows, from a materialized
+    ``CascadeServer`` (``from_server``) or a saved universe (``load``).
+    Windows gather their arrivals' rows, so a replay built
+    ``from_server`` is bitwise the materialized server's windows.
+
+    ``device_tables`` puts the universe's tables on ``device`` once and
+    makes each window an ``index_select`` along the user axis there, with
+    no per-window (G, n, cap) host-to-device copy; it defaults to on for
+    in-memory tables and off for memmapped ones, whose untouched rows
+    never leave the disk (their windows carry host arrays, which the
+    pipeline copies).  ``device`` defaults to the card and raises without
+    one.  ``save`` writes the JAX package's format (``ctx.npy``,
+    ``p_sorted.npy``, ``clicks_sorted.npy``, ``meta.json``), so either
+    package loads the other's universe."""
+
+    def __init__(self, ctx: np.ndarray, p_sorted: np.ndarray,
+                 clicks_sorted: np.ndarray, chains, *, n_items: int,
+                 expose: int, seed: int = 0,
+                 device_tables: bool | None = None, device=None):
+        if ctx.shape[0] != p_sorted.shape[1]:
+            raise ValueError(
+                f"ctx rows ({ctx.shape[0]}) must match table users "
+                f"({p_sorted.shape[1]})")
+        self.device = resolve_device(device)
+        self.ctx = ctx
+        self.p_sorted = p_sorted
+        self.clicks_sorted = clicks_sorted
+        self.chains = chains
+        self.n_items = int(n_items)
+        self.expose = int(expose)
+        self.seed = int(seed)
+        self.n_users = int(ctx.shape[0])
+        if device_tables is None:
+            device_tables = not isinstance(p_sorted, np.memmap)
+        self.device_tables = bool(device_tables)
+        self._dev = None  # the universe's tables on the device (lazy)
+        lay = build_compact_layout(chains, n_items=self.n_items,
+                                   expose=self.expose)
+        if lay is None or lay.cap != p_sorted.shape[2]:
+            raise ValueError(
+                f"tables (cap={p_sorted.shape[2]}) do not match the "
+                f"chain set's compact layout at n_items={self.n_items}")
+
+    @classmethod
+    def from_server(cls, server, ctx: np.ndarray, *, seed: int = 0,
+                    device_tables: bool | None = None,
+                    device=None) -> "TableReplaySource":
+        """Replay over a materialized ``CascadeServer``'s universe (``ctx``
+        row u is the reward context of table row u), on the server's
+        device unless ``device`` is given."""
+        if server.compact is None:
+            raise ValueError("from_server needs a CompactPlan server "
+                             "(the k3 cascade layout)")
+        return cls(np.asarray(ctx, np.float32),
+                   np.asarray(server.compact.p_sorted, np.int32),
+                   np.asarray(server.compact.clicks_sorted, np.float32),
+                   server.chains, n_items=server.clicks.shape[1],
+                   expose=server.compact.expose, seed=seed,
+                   device_tables=device_tables,
+                   device=server.device if device is None else device)
+
+    def _n_items(self) -> int:
+        return self.n_items
+
+    @property
+    def d_context(self) -> int:
+        return int(self.ctx.shape[1])
+
+    def window(self, t: int, n: int) -> WindowChunk:
+        return self.window_for_users(self.arrivals(t, n))
+
+    def window_for_users(self, users: np.ndarray) -> WindowChunk:
+        """Chunk for an explicit arrival list (rows = arange(len))."""
+        users = np.asarray(users)
+        n = len(users)
+        ctx = np.asarray(self.ctx[users], np.float32)
+        rows = np.arange(n, dtype=np.int32)
+        if not self.device_tables:
+            return WindowChunk(
+                ctx=ctx, rows=rows,
+                tables={"p": np.ascontiguousarray(self.p_sorted[:, users]),
+                        "ck": np.ascontiguousarray(
+                            self.clicks_sorted[:, users])},
+                users=users)
+        dev = self.device
+        h2d = 0
+        if self._dev is None:  # the universe goes to the device once
+            self._dev = (
+                torch.as_tensor(np.asarray(self.p_sorted, np.int32),
+                                device=dev),
+                torch.as_tensor(np.asarray(self.clicks_sorted, np.float32),
+                                device=dev))
+            h2d = sum(t.numel() * t.element_size() for t in self._dev)
+        u = torch.from_numpy(users.astype(np.int32)).to(dev)
+        h2d += u.numel() * u.element_size()
+        p = torch.index_select(self._dev[0], 1, u)
+        ck = torch.index_select(self._dev[1], 1, u)
+        ready = record_event(torch.cuda.current_stream()
+                             if dev.type == "cuda" else None)
+        return WindowChunk(ctx=ctx, rows=rows, tables={"p": p, "ck": ck},
+                           users=users, h2d_bytes=int(h2d), ready=ready)
+
+    # -- the on-disk (memmap) form -----------------------------------------
+
+    def save(self, path: str) -> None:
+        """Write the tables as ``.npy`` files (memmap-loadable) and the
+        universe's sizes as ``meta.json``."""
+        os.makedirs(path, exist_ok=True)
+        np.save(os.path.join(path, "ctx.npy"),
+                np.asarray(self.ctx, np.float32))
+        np.save(os.path.join(path, "p_sorted.npy"),
+                np.asarray(self.p_sorted, np.int32))
+        np.save(os.path.join(path, "clicks_sorted.npy"),
+                np.asarray(self.clicks_sorted, np.float32))
+        with open(os.path.join(path, "meta.json"), "w") as f:
+            json.dump({"expose": self.expose, "n_items": self.n_items,
+                       "n_users": self.n_users}, f)
+
+    @classmethod
+    def load(cls, path: str, chains, *, seed: int = 0, mmap: bool = True,
+             device_tables: bool | None = None,
+             device=None) -> "TableReplaySource":
+        """Open a saved universe; ``mmap=True`` keeps its tables on disk."""
+        mode = "r" if mmap else None
+        with open(os.path.join(path, "meta.json")) as f:
+            meta = json.load(f)
+        return cls(np.load(os.path.join(path, "ctx.npy"), mmap_mode=mode),
+                   np.load(os.path.join(path, "p_sorted.npy"),
+                           mmap_mode=mode),
+                   np.load(os.path.join(path, "clicks_sorted.npy"),
+                           mmap_mode=mode),
+                   chains, n_items=int(meta["n_items"]),
+                   expose=int(meta["expose"]), seed=seed,
+                   device_tables=device_tables, device=device)

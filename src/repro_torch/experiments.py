@@ -26,6 +26,7 @@ from __future__ import annotations
 
 import os
 import pickle
+import tempfile
 from dataclasses import dataclass, field
 
 import numpy as np
@@ -462,7 +463,8 @@ def build_serving_stack(cfg: ExperimentConfig | None = None, *,
     The built experiment (not the reward model, which trains in seconds)
     is pickled under ``results/torch/cache/`` with its models on the CPU,
     keyed by every size-relevant field and the device type (a card-trained
-    experiment is another one than a CPU-trained one)."""
+    experiment is another one than a CPU-trained one), written to a
+    temporary file and renamed into place."""
     dev = resolve_device(device)
     cfg = cfg or serve_config(small=small)
     exp = None
@@ -480,9 +482,17 @@ def build_serving_stack(cfg: ExperimentConfig | None = None, *,
             on_cpu = CascadeModels(*(
                 L.to_device(x, "cpu") if isinstance(x, dict) else x
                 for x in vars(exp.models).values()))
-            with open(path, "wb") as f:
-                pickle.dump(Experiment(**{**vars(exp), "models": on_cpu}),
-                            f)
+            # a file of its own, then renamed into place: processes that
+            # build the same experiment at once never read a partial one
+            fd, tmp = tempfile.mkstemp(dir=CACHE, suffix=".tmp")
+            try:
+                with os.fdopen(fd, "wb") as f:
+                    pickle.dump(Experiment(**{**vars(exp),
+                                              "models": on_cpu}), f)
+                os.replace(tmp, path)
+            except BaseException:
+                os.unlink(tmp)
+                raise
     params, rcfg = train_reward_model(exp)
     scores = precompute_stage_scores(exp.models, exp.world,
                                      exp.split.final_eval)

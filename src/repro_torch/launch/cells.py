@@ -5,6 +5,8 @@
     python -m repro_torch.launch.cells --arch gemma2-2b \\
         --shape prefill_32k|decode_32k [--preset smoke|full] ...
     python -m repro_torch.launch.cells --arch din --shape train_batch ...
+    python -m repro_torch.launch.cells --arch greenflow-cascade \\
+        --shape reward_serve|nearline_dual|reward_train|rank_serve ...
 
 builds the cell (``configs.get_arch(arch).make_cell(shape)``), draws its
 weights and inputs from ``--seed`` on the device, calls it ``--calls``
@@ -13,8 +15,13 @@ checksum (sum) of its logits.  It is the single-card counterpart of the
 JAX package's ``launch/dryrun.py --arch/--shape`` selection: the cell
 runs for real instead of being lowered.
 
-A ``train_batch`` cell (DIN's) is a train step: each call takes the
-state the last one returned and prints its loss instead of a checksum.
+A train cell (DIN's ``train_batch``, greenflow-cascade's
+``reward_train``) is a train step: each call takes the state the last
+one returned and prints its loss instead of a checksum.  A cell that
+returns several tensors (greenflow-cascade's ``reward_serve``: the
+decisions and the rewards; ``nearline_dual``: the price and its gap
+trace) names them in ``meta["outputs"]``; each one's shape and
+checksum is printed.
 
 ``--preset full`` is the published width (DLRM-RM2's table is 10.0 GB;
 gemma2-2b's cells hold 5.2 GB of bf16 weights and a 14.0 GB or 27.9 GB
@@ -33,8 +40,7 @@ import time
 import torch
 
 from repro_torch.configs import ARCH_IDS, get_arch
-from repro_torch.configs.base import LM_SHAPES
-from repro_torch.configs.recsys_common import RECSYS_SHAPES
+from repro_torch.configs.base import registered_shapes
 from repro_torch.device import resolve_device
 
 
@@ -47,7 +53,7 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--arch", required=True, choices=ARCH_IDS)
     ap.add_argument("--shape", required=True,
-                    choices=sorted({*RECSYS_SHAPES, *LM_SHAPES}))
+                    choices=registered_shapes())
     ap.add_argument("--preset", default="full", choices=("smoke", "full"))
     ap.add_argument("--calls", type=int, default=3)
     ap.add_argument("--device", default=None,
@@ -83,10 +89,13 @@ def main(argv=None) -> int:
             print(f"call {i}: {ms:.3f} ms, step {int(state.step)} loss "
                   f"{float(loss):.6f}")
             continue
-        if not torch.isfinite(out).all():
-            raise RuntimeError(f"call {i}: logits are not finite")
-        print(f"call {i}: {ms:.3f} ms, logits {tuple(out.shape)} checksum "
-              f"{float(out.double().sum()):.6f}")
+        outs = out if isinstance(out, tuple) else (out,)
+        names = cell.meta.get("outputs", ("logits",))
+        if not all(torch.isfinite(o.float()).all() for o in outs):
+            raise RuntimeError(f"call {i}: outputs are not finite")
+        print(f"call {i}: {ms:.3f} ms, " + ", ".join(
+            f"{name} {tuple(o.shape)} checksum {float(o.double().sum()):.9g}"
+            for name, o in zip(names, outs)))
     return 0
 
 

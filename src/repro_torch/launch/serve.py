@@ -1,23 +1,44 @@
 """GreenFlow streaming serving on the port.
 
-    python -m repro_torch.launch.serve --source generated \\
-        [--device cuda|cpu] [--windows N] [--requests N] [--users N] \\
-        [--prefetch N] [--scenario NAME] [--tenants T] \\
+    python -m repro_torch.launch.serve [--small] [--device cuda|cpu] \\
+        [--source table|generated|memmap] [--replay-dir DIR] [--legacy] \\
+        [--windows N] [--requests N] [--users N] [--prefetch N] \\
+        [--scenario NAME] [--tenants T] \\
         [--tenant-mode shared|priced|independent] [--tenant-spread X] \\
         [--metrics-out PATH] [--trace-out PATH] [--profile-dir DIR]
 
-streams a ``GeneratedSource`` day: every window samples arrivals from a
-hash-generated user universe, scores DSSM, YDNN, DIN and DIEN over the
-whole corpus on the device, compacts the scores into CompactPlan tables
-and serves the window (reward scoring -> Eq. 10 -> guard -> cascade ->
-nearline dual update).  Scoring and each padding bucket's window pass
-replay CUDA graphs captured on first use; a producer thread makes the
-next ``--prefetch`` windows' chunks while the card serves (0: the
-sequential reference path, bitwise the same windows).  It prints one
-line per window: n, spend/budget, lambda (one per tenant when priced),
+builds the trained stack of the JAX package's CLI
+(``experiments.build_serving_stack(serve_config(small=...))``: the world,
+the four cascade models and the reward model trained on the device, the
+experiment cached under ``results/torch/cache/``) and serves
+``--windows`` windows (default 12 of ``--requests`` 96, the ``spike``
+scenario) through the window pass (reward scoring -> Eq. 10 -> guard ->
+cascade -> nearline dual update).  Each padding bucket's window pass
+replays CUDA graphs captured on first use; a producer thread makes the
+next ``--prefetch`` windows while the card serves (0: the sequential
+reference path, bitwise the same windows).  It prints one line per
+window: n, spend/budget, lambda (one per tenant when priced),
 downgraded, revenue, host ms, the ms the serving thread waited for its
-chunk, the graph captures the window caused (0 once its bucket is warm)
-and its bucket.
+window, the graph captures the window caused (0 once its bucket is
+warm) and its bucket.
+
+Request sources (``--seed`` seeds each):
+
+``--source table``      (default) arrivals drawn from the evaluation
+                        users of the trained experiment, served off the
+                        materialized ``CascadeServer``'s tables;
+``--source generated``  a ``GeneratedSource`` stream over a
+                        ``--users``-user ``StreamingWorld`` of the
+                        experiment's world, scored by the trained models;
+``--source memmap``     a ``TableReplaySource`` of the evaluation users
+                        loaded memmapped from ``--replay-dir`` (default
+                        ``results/torch/replay_universe``), saved there
+                        first when the directory has no ``meta.json``.
+
+``--legacy`` serves the seed's host loop instead (table source only):
+the full reward matrix scored on the device, ``BudgetController`` (on
+the carbon day ``CarbonBudgetController`` with the ledger) deciding and
+guarding on the host, then ``CascadeServer.serve``.
 
 ``--scenario tenants`` serves ``--tenants`` equal blocks a window under
 per-tenant budgets that sum to the window budget, spread so the loosest
@@ -61,26 +82,30 @@ line every N windows, ``--profile-dir DIR`` runs under
 ``record_function`` ranges and writes ``DIR/trace.json``.  Telemetry
 changes no decision or price.
 
-The full-width stack is the paper's: a 4000-item corpus with 100-long
-histories, the ``paper_stage_specs`` chains with expose 20, the stage
-models at their dataclass widths (DIN and DIEN at the published DIN
-config: embed 18, seq_len 100, attention 80-40, MLP 200-80) with
-vocabularies sized to the world, and the reward model at
-d_feature 64 / d_hidden 64 / d_state 32.  Weights are random, drawn
-from ``--seed`` by the port's own inits; ``--small`` shrinks the world
-and the widths for a quick run on the CPU (``--device cpu``).
+``build_stack`` is the library's random-weight stack at the paper's
+widths: a 4000-item corpus with 100-long histories, the
+``paper_stage_specs`` chains with expose 20, the stage models at their
+dataclass widths (DIN and DIEN at the published DIN config: embed 18,
+seq_len 100, attention 80-40, MLP 200-80) with vocabularies sized to the
+world, and the reward model at d_feature 64 / d_hidden 64 / d_state 32,
+weights drawn from a seed by the port's own inits, over a
+``GeneratedSource``.
 """
 from __future__ import annotations
 
 import argparse
 import os
-from dataclasses import dataclass
+import time
+from dataclasses import dataclass, replace
 
 import numpy as np
 import torch
 from torch.profiler import ProfilerActivity, profile
 
-from repro_torch.carbon.controller import CarbonBudget, grams_per_flop
+from repro_torch import experiments
+from repro_torch.carbon.controller import (CarbonBudget,
+                                           CarbonBudgetController,
+                                           grams_per_flop)
 from repro_torch.carbon.intensity import (IntensityTrace, constant_trace,
                                           diurnal_trace, load_ci_csv,
                                           solar_duck_trace,
@@ -93,11 +118,15 @@ from repro_torch.core.action_chain import (ActionChainSet, ModelInstance,
                                            StageSpec,
                                            generate_action_chains,
                                            paper_stage_specs)
+from repro_torch.core.budget import BudgetController
 from repro_torch.core.pfec import pfec_report
 from repro_torch.core.primal_dual import DualDescentConfig
 from repro_torch.core.reward_model import (RewardModelConfig,
+                                           denormalize_rewards,
+                                           reward_matrix,
                                            reward_model_init)
-from repro_torch.data.request_source import GeneratedSource
+from repro_torch.data.request_source import (GeneratedSource,
+                                             TableReplaySource)
 from repro_torch.data.synthetic import StreamingWorld, WorldConfig
 from repro_torch.device import resolve_device
 from repro_torch.models.recsys import dien, din, dssm, ydnn
@@ -206,7 +235,14 @@ def scenario_sizes(scenario: str, windows: int, requests: int, *,
 
 @dataclass
 class ServeStack:
-    source: GeneratedSource
+    """What a serving run needs: ``source`` (a ``RequestSource``, or a
+    ``sample_window(t, n) -> (ctx, rows)`` callable over a materialized
+    server), ``server`` (what pipelines are built over: the source's
+    ``universe``, or the materialized ``CascadeServer``), the chains, the
+    pipeline(s), the window sizes and budget, the reward model, and for a
+    trained stack its experiment ``exp``."""
+
+    source: object
     pipelines: list  # one, or one a tenant; none for the carbon days
     sizes: list
     budget: float
@@ -214,6 +250,16 @@ class ServeStack:
     device: torch.device
     reward_params: dict
     reward_cfg: RewardModelConfig
+    server: object = None  # default: source.universe
+    exp: object = None
+
+    def __post_init__(self):
+        if self.server is None:
+            self.server = self.source.universe
+
+    @property
+    def chains(self) -> ActionChainSet:
+        return self.server.chains
 
     @property
     def pipeline(self) -> ServingPipeline:
@@ -223,6 +269,29 @@ class ServeStack:
                 f"(independent tenants serve one each; the carbon days "
                 f"build their own)")
         return self.pipelines[0]
+
+
+def _pipelines(server, params: dict, rcfg: RewardModelConfig,
+               budget: float, scenario: str, *, tenants: int,
+               tenant_mode: str, tenant_spread: float, obs,
+               device) -> list:
+    """The scenario's pipeline(s) over ``server``: none for the carbon
+    days (they build their own), one a tenant when tenants are
+    independent, else one."""
+    if tenant_mode not in ("shared", "priced", "independent"):
+        raise ValueError(f"unknown tenant mode {tenant_mode!r}")
+    kw = dict(obs=obs, device=device)
+    if scenario in CARBON_DAYS:
+        return []
+    if scenario != "tenants":
+        return [ServingPipeline(server, params, rcfg, budget, **kw)]
+    shares = tenant_budgets(budget, tenants, tenant_spread)
+    if tenant_mode == "independent":
+        return [ServingPipeline(server, params, rcfg, float(b), **kw)
+                for b in shares]
+    return [ServingPipeline(server, params, rcfg, budget,
+                            tenant_budgets=shares, tenant_mode=tenant_mode,
+                            **kw)]
 
 
 def build_stack(*, users: int = 100_000, requests: int = 512,
@@ -239,8 +308,6 @@ def build_stack(*, users: int = 100_000, requests: int = 512,
     ``tenant_mode``.  The carbon days (``CARBON_DAYS``) build their
     pipelines themselves (``carbon_day``, ``region_day``), so their stack
     holds none."""
-    if tenant_mode not in ("shared", "priced", "independent"):
-        raise ValueError(f"unknown tenant mode {tenant_mode!r}")
     dev = resolve_device(device)
     expose = (8 if small else FULL_EXPOSE) if expose is None else expose
     wcfg = world_config(users, small=small, seed=seed)
@@ -256,24 +323,75 @@ def build_stack(*, users: int = 100_000, requests: int = 512,
     budget = float(budget_frac * chains.costs.max() * requests)
     sizes = scenario_sizes(scenario, windows, requests, tenants=tenants,
                            spike=spike)
-    n_tenants = tenants if scenario == "tenants" else 1
-    kw = dict(obs=obs, device=dev)
-    if scenario in CARBON_DAYS:
-        pipes = []
-    elif n_tenants == 1:
-        pipes = [ServingPipeline(source.universe, rparams, rcfg, budget,
-                                 **kw)]
-    elif tenant_mode == "independent":
-        pipes = [ServingPipeline(source.universe, rparams, rcfg, float(b),
-                                 **kw)
-                 for b in tenant_budgets(budget, n_tenants, tenant_spread)]
-    else:
-        pipes = [ServingPipeline(
-            source.universe, rparams, rcfg, budget,
-            tenant_budgets=tenant_budgets(budget, n_tenants, tenant_spread),
-            tenant_mode=tenant_mode, **kw)]
+    pipes = _pipelines(source.universe, rparams, rcfg, budget, scenario,
+                       tenants=tenants, tenant_mode=tenant_mode,
+                       tenant_spread=tenant_spread, obs=obs, device=dev)
     return ServeStack(source, pipes, sizes, budget,
                       float(chains.costs.max()), dev, rparams, rcfg)
+
+
+def table_sampler(exp, *, seed: int = 0):
+    """The JAX CLI's ``--source table`` windows: ``sample_window(t, n)``
+    draws n rows of the evaluation users from one
+    ``np.random.default_rng(seed)`` (window after window) and returns
+    their contexts and rows."""
+    rng = np.random.default_rng(seed)
+    n_eval = exp.ctx_eval.shape[0]
+
+    def sample_window(t: int, n: int):
+        rows = rng.integers(0, n_eval, n)
+        return exp.ctx_eval[rows], rows
+
+    return sample_window
+
+
+REPLAY_DIR = "replay_universe"  # --source memmap's default, under RESULTS
+
+
+def trained_stack(exp, server, params: dict, rcfg: RewardModelConfig, *,
+                  source: str = "table", users: int = 100_000,
+                  replay_dir: str | None = None, requests: int = 96,
+                  windows: int = 12, scenario: str = "spike",
+                  budget_frac: float = 0.6, seed: int = 0, tenants: int = 4,
+                  tenant_mode: str = "shared", tenant_spread: float = 1.0,
+                  spike: float = 3.0, obs=None) -> ServeStack:
+    """The CLI's stack over ``experiments.build_serving_stack``'s trained
+    experiment, materialized server and reward model, on the server's
+    device, with the request ``source`` of ``--source`` (see the module
+    docstring)."""
+    dev = server.device
+    chains = exp.chains
+    if source == "table":
+        src = table_sampler(exp, seed=seed)
+        print(f"[serve] source: the {len(exp.ctx_eval):,} evaluation users "
+              f"of the trained experiment (materialized tables)")
+    elif source == "generated":
+        wcfg = replace(exp.cfg.world, n_users=users)
+        src = GeneratedSource(StreamingWorld.build(wcfg), exp.models, chains,
+                              expose=exp.cfg.expose, seed=seed, obs=obs,
+                              device=dev)
+        server = src.universe
+        print(f"[serve] source: generated stream over U={users:,} "
+              f"hash-materialized users (no per-user tables held)")
+    elif source == "memmap":
+        path = replay_dir or os.path.join(RESULTS, REPLAY_DIR)
+        if not os.path.exists(os.path.join(path, "meta.json")):
+            print(f"[serve] saving replay universe -> {path}")
+            TableReplaySource.from_server(server, exp.ctx_eval).save(path)
+        src = TableReplaySource.load(path, chains, seed=seed, device=dev)
+        server = src.universe
+        print(f"[serve] source: memmapped replay of U={src.n_users:,} "
+              f"users from {path}")
+    else:
+        raise ValueError(f"unknown source {source!r}")
+    budget = float(budget_frac * chains.costs.max() * requests)
+    sizes = scenario_sizes(scenario, windows, requests, tenants=tenants,
+                           spike=spike)
+    pipes = _pipelines(server, params, rcfg, budget, scenario,
+                       tenants=tenants, tenant_mode=tenant_mode,
+                       tenant_spread=tenant_spread, obs=obs, device=dev)
+    return ServeStack(src, pipes, sizes, budget, float(chains.costs.max()),
+                      dev, params, rcfg, server=server, exp=exp)
 
 
 def _sync(stack: ServeStack):
@@ -381,6 +499,33 @@ def ledger_block(rep: dict, devices: int) -> list[str]:
     return lines
 
 
+def _carbon_budget(stack: ServeStack, args, sizes: list, obs=None):
+    """The carbon day's intensity trace, ``CarbonBudget`` (the stack's
+    FLOPs budget at the trace's mean intensity) and ``CarbonLedger``."""
+    trace = build_ci_trace(args)
+    window_s = DAY_S / len(sizes)
+    cb = CarbonBudget.from_flops(stack.budget, trace, window_s=window_s,
+                                 phase_s=args.ci_phase_h * 3600.0)
+    ledger = CarbonLedger(stack.chains, trace, window_s=window_s,
+                          phase_s=cb.phase_s,
+                          embodied_g_per_device_h=_embodied(args),
+                          n_devices=args.devices, obs=obs)
+    print(f"[serve] carbon day: {len(sizes)} windows x "
+          f"{window_s / 3600.0:.2f} h, CI '{trace.name}' mean "
+          f"{trace.mean():.0f} g/kWh, budget {cb.grams_per_window:.3e} "
+          f"g/window ({args.carbon_pricing} pricing)")
+    return cb, ledger
+
+
+def _write_ledger(ledger: CarbonLedger, args) -> str:
+    path = _report_path(args, "carbon_report.csv")
+    ledger.to_csv(path)
+    print(f"\n[serve] carbon ledger -> {path}")
+    for line in ledger_block(ledger.report(), args.devices):
+        print(line)
+    return path
+
+
 def carbon_day(stack: ServeStack, args, *, source=None,
                obs=None) -> CarbonDay:
     """The carbon-budgeted day: diurnal traffic (``--windows`` spanning
@@ -390,24 +535,13 @@ def carbon_day(stack: ServeStack, args, *, source=None,
     reduction (``flops``); ``--ci-forecast`` aims each nearline update at
     the next window's intensity.  A ``CarbonLedger`` attached to the
     pipeline meters every window lazily and writes ``--carbon-report``.
-    ``source`` defaults to the stack's."""
+    ``source`` (a ``RequestSource`` or a ``sample_window`` callable)
+    defaults to the stack's."""
     src = stack.source if source is None else source
     sizes = _day_sizes(args)
-    chains = stack.source.chains
-    trace = build_ci_trace(args)
-    window_s = DAY_S / len(sizes)
-    cb = CarbonBudget.from_flops(stack.budget, trace, window_s=window_s,
-                                 phase_s=args.ci_phase_h * 3600.0)
-    ledger = CarbonLedger(chains, trace, window_s=window_s,
-                          phase_s=cb.phase_s,
-                          embodied_g_per_device_h=_embodied(args),
-                          n_devices=args.devices, obs=obs)
-    print(f"[serve] carbon day: {len(sizes)} windows x "
-          f"{window_s / 3600.0:.2f} h, CI '{trace.name}' mean "
-          f"{trace.mean():.0f} g/kWh, budget {cb.grams_per_window:.3e} "
-          f"g/window ({args.carbon_pricing} pricing)")
+    cb, ledger = _carbon_budget(stack, args, sizes, obs)
     sched = cb.schedule(len(sizes))
-    pipe = ServingPipeline(stack.source.universe, stack.reward_params,
+    pipe = ServingPipeline(stack.server, stack.reward_params,
                            stack.reward_cfg, cb.flops_ref, ledger=ledger,
                            obs=obs, device=stack.device)
     if args.carbon_pricing == "carbon":
@@ -430,11 +564,7 @@ def carbon_day(stack: ServeStack, args, *, source=None,
               f"{st.dispatch_ms[t]:>11.2f} {r.compiles:>3d}")
     print(f"[serve] {len(sizes)} windows in {st.wall_s:.2f}s "
           f"({len(sizes) / st.wall_s:.1f} win/s)")
-    path = _report_path(args, "carbon_report.csv")
-    ledger.to_csv(path)
-    print(f"\n[serve] carbon ledger -> {path}")
-    for line in ledger_block(ledger.report(), args.devices):
-        print(line)
+    path = _write_ledger(ledger, args)
     return CarbonDay(st, pipe, {ledger.name: ledger}, np.asarray(budgets),
                      None if scales is None else np.asarray(scales),
                      {ledger.name: sched["ci"]}, path)
@@ -505,7 +635,8 @@ def region_day(stack: ServeStack, args, *, source=None,
     priced in one window pass (``[TenantAxis, RegionAxis(2),
     GlobalAxis(pricing="carbon")]``; a tenant-t request pays
     (lam_tenant[t] + lam_region[r]) * c_{j,r} when ``--tenant-mode
-    priced``).  ``source`` defaults to the stack's."""
+    priced``).  ``source`` (a ``RequestSource`` or a ``sample_window``
+    callable) defaults to the stack's."""
     tenants = args.scenario == "geotenants"
     if tenants and args.tenant_mode == "independent":
         raise SystemExit("--scenario geotenants composes tenants and "
@@ -553,7 +684,7 @@ def region_day(stack: ServeStack, args, *, source=None,
               f"{g_total / r_n:.3e} g/window/region, split "
               f"{args.geo_split}")
     pipe = ServingPipeline.from_spec(
-        stack.source.universe, stack.reward_params, stack.reward_cfg,
+        stack.server, stack.reward_params, stack.reward_cfg,
         ConstraintSpec(axes), obs=obs,
         dual_cfg=DualDescentConfig(max_iters=300, step_decay=0.98),
         device=stack.device)
@@ -577,7 +708,7 @@ def region_day(stack: ServeStack, args, *, source=None,
     # one ledger a region, each window's decisions metered in the region
     # that served them, at that region's CI
     ledgers = {
-        r: CarbonLedger(stack.source.chains, traces[r], window_s=window_s,
+        r: CarbonLedger(stack.chains, traces[r], window_s=window_s,
                         phase_s=phase_s, name=r, obs=obs,
                         embodied_g_per_device_h=_embodied(args),
                         n_devices=args.devices)
@@ -596,24 +727,132 @@ DAYS = {"carbon": carbon_day, "georegions": region_day,
         "geotenants": region_day}
 
 
+# -- the seed's host loops (--legacy) ----------------------------------------
+
+
+def make_legacy_scorer(exp, rcfg: RewardModelConfig, device=None):
+    """The seed's reward scorer, shared by every legacy host loop:
+    ``score(params, ctx) -> (n, J)`` de-normalized rewards, the full
+    ``reward_matrix`` (every chain scored on its own) on ``device``."""
+    dev = resolve_device(device)
+    mo = torch.as_tensor(exp.chains.model_onehot, device=dev)
+    sh = torch.as_tensor(exp.chains.scale_multihot, device=dev)
+
+    @torch.no_grad()
+    def score(params: dict, ctx):
+        c = torch.as_tensor(ctx, dtype=torch.float32, device=dev)
+        return denormalize_rewards(params,
+                                   reward_matrix(params, rcfg, c, mo, sh))
+
+    return score
+
+
+def make_legacy_window(exp, server, params: dict, rcfg: RewardModelConfig,
+                       budget: float):
+    """The seed's serving path: the rewards scored on the server's device,
+    ``BudgetController`` deciding, guarding and updating the price on the
+    host, then ``CascadeServer.serve`` (the ``cascade_truncate`` kernel on
+    the card).  Returns (controller, window_fn) with window_fn(ctx, rows)
+    -> (decisions, revenue)."""
+    score = make_legacy_scorer(exp, rcfg, server.device)
+    ctl = BudgetController(exp.chains, budget)
+
+    def window(ctx, rows):
+        dec = ctl.step_window(score(params, ctx))
+        rev, _ = server.serve(rows, dec)
+        return dec, rev
+
+    return ctl, window
+
+
+def _legacy_loop(exp, server, params: dict, rcfg: RewardModelConfig,
+                 sizes: list, budget: float, *, seed: int = 0):
+    """The host loop over ``table_sampler``'s windows; prints the JAX
+    CLI's legacy table and returns (revenue, FLOPs)."""
+    ctl, window = make_legacy_window(exp, server, params, rcfg, budget)
+    sample_window = table_sampler(exp, seed=seed)
+    total_rev = total_flops = 0.0
+    print(f"{'win':>4} {'n':>5} {'spend/budget':>13} {'lam':>12} "
+          f"{'downgraded':>10} {'revenue':>9} {'window_ms':>9}")
+    for t, n in enumerate(sizes):
+        t0 = time.perf_counter()
+        dec, rev = window(*sample_window(t, n))
+        dt = (time.perf_counter() - t0) * 1e3
+        s = ctl.stats[-1]
+        total_rev += rev.sum()
+        total_flops += s.spend
+        print(f"{t:>4} {n:>5} {s.spend / s.budget:>13.3f} {s.lam:>12.3e} "
+              f"{s.downgraded:>10d} {rev.sum():>9.1f} {dt:>9.2f}")
+    return float(total_rev), float(total_flops)
+
+
+def _legacy_carbon_loop(exp, server, params: dict, rcfg: RewardModelConfig,
+                        sizes: list, cb: CarbonBudget, ledger,
+                        sample_window, pricing: str):
+    """The carbon day on ``CarbonBudgetController`` (the host loop twin
+    of ``carbon_day``), metering each window into ``ledger``; prints the
+    JAX CLI's table and returns (revenue, FLOPs)."""
+    score = make_legacy_scorer(exp, rcfg, server.device)
+    ctl = CarbonBudgetController(exp.chains, cb, ledger=ledger,
+                                 pricing=pricing)
+    total_rev = total_flops = 0.0
+    print(f"{'win':>4} {'n':>5} {'ci_g/kwh':>9} {'spend_g/budget_g':>17} "
+          f"{'lam':>12} {'downgraded':>10} {'revenue':>9}")
+    for t, n in enumerate(sizes):
+        ctx, rows = sample_window(t, n)
+        dec = ctl.step_window(score(params, ctx))
+        rev, _ = server.serve(rows, dec)
+        s = ctl.stats[-1]
+        total_rev += rev.sum()
+        total_flops += s.flops
+        print(f"{t:>4} {n:>5} {s.ci_g_per_kwh:>9.1f} "
+              f"{s.spend_g / s.budget_g:>17.3f} {s.lam:>12.3e} "
+              f"{s.downgraded:>10d} {rev.sum():>9.1f}")
+    return float(total_rev), float(total_flops)
+
+
+def legacy_carbon_day(stack: ServeStack, args) -> tuple[float, float]:
+    """``--scenario carbon --legacy``: the carbon day through
+    ``_legacy_carbon_loop`` on the stack's table source, its ledger
+    written as ``carbon_day`` writes it."""
+    sizes = _day_sizes(args)
+    cb, ledger = _carbon_budget(stack, args, sizes)
+    out = _legacy_carbon_loop(stack.exp, stack.server, stack.reward_params,
+                              stack.reward_cfg, sizes, cb, ledger,
+                              stack.source, args.carbon_pricing)
+    _write_ledger(ledger, args)
+    return out
+
+
 # -- the command line ---------------------------------------------------------
 
 
 def parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(
         description="GreenFlow streaming serving on PyTorch/CUDA")
-    ap.add_argument("--source", default="generated", choices=("generated",),
-                    help="request source (only the hash-generated "
-                         "stream is ported)")
+    ap.add_argument("--source", default="table",
+                    choices=("table", "generated", "memmap"),
+                    help="request source: index the materialized eval "
+                         "universe, stream a hash-generated one, or "
+                         "replay memmapped tables")
     ap.add_argument("--device", default=None,
                     help="cuda (default) or cpu; without a card the run "
                          "fails unless --device cpu is given")
-    ap.add_argument("--windows", type=int, default=6)
-    ap.add_argument("--requests", type=int, default=512,
+    ap.add_argument("--windows", type=int, default=12)
+    ap.add_argument("--requests", type=int, default=96,
                     help="requests per normal window")
     ap.add_argument("--users", type=int, default=100_000,
-                    help="size of the streamed user universe")
-    ap.add_argument("--scenario", default="constant",
+                    help="--source generated: size of the streamed user "
+                         "universe")
+    ap.add_argument("--replay-dir", default=None,
+                    help="--source memmap: directory of the saved .npy "
+                         "universe (default: results/torch/"
+                         "replay_universe)")
+    ap.add_argument("--legacy", action="store_true",
+                    help="run the seed's host loop instead (table source; "
+                         "with --scenario carbon the "
+                         "CarbonBudgetController loop)")
+    ap.add_argument("--scenario", default="spike",
                     choices=tuple(SCENARIOS))
     ap.add_argument("--spike", type=float, default=3.0,
                     help="traffic multiplier on the spike windows")
@@ -625,9 +864,11 @@ def parser() -> argparse.ArgumentParser:
                          "tenant (default 1 for --scenario tenants, 4 "
                          "for geotenants)")
     ap.add_argument("--budget-frac", type=float, default=0.6)
-    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--seed", type=int, default=0,
+                    help="seeds the request source")
     ap.add_argument("--small", action="store_true",
-                    help="small world and narrow models (CPU-sized)")
+                    help="the CI-sized experiment (serve_config(small="
+                         "True))")
     ap.add_argument("--prefetch", type=int, default=2,
                     help="window-prep prefetch queue depth (0 = the "
                          "sequential double-buffered reference path)")
@@ -699,19 +940,49 @@ def _make_obs(args):
                annotate=bool(args.profile_dir))
 
 
+def _refuse(args) -> None:
+    """The JAX CLI's refusals, word for word."""
+    if args.legacy and args.source != "table":
+        raise SystemExit("--legacy indexes the materialized server; "
+                         "the streaming --source forms have no "
+                         "legacy loop")
+    if args.legacy and args.scenario == "georegions":
+        raise SystemExit("--scenario georegions has no legacy loop "
+                         "(the router exists only in the fused pass)")
+    if args.legacy and args.scenario == "geotenants":
+        raise SystemExit("--scenario geotenants has no legacy loop "
+                         "(the combined tenant x region pass exists "
+                         "only in the fused pipeline)")
+
+
 def _run(args, obs) -> tuple[float, float]:
-    """Build the stack and serve the scenario; returns the run's
-    (revenue, FLOPs)."""
-    stack = build_stack(users=args.users, requests=args.requests,
-                        windows=args.windows, scenario=args.scenario,
-                        budget_frac=args.budget_frac, seed=args.seed,
-                        small=args.small, tenants=args.tenants,
-                        tenant_mode=args.tenant_mode,
-                        tenant_spread=tenant_spread(args),
-                        spike=args.spike,
-                        obs=obs, device=args.device)
+    """Build the trained stack of ``--small`` with the source and
+    scenario of ``args`` and serve it; returns the run's (revenue,
+    FLOPs).  Without a card it raises before any training unless
+    ``--device cpu``."""
+    _refuse(args)
+    dev = resolve_device(args.device)
+    print("[serve] building world + training cascade & reward models ...")
+    exp, server, params, rcfg = experiments.build_serving_stack(
+        experiments.serve_config(small=args.small), verbose=True,
+        device=dev)
+    stack = trained_stack(
+        exp, server, params, rcfg, source=args.source, users=args.users,
+        replay_dir=args.replay_dir, requests=args.requests,
+        windows=args.windows, scenario=args.scenario,
+        budget_frac=args.budget_frac, seed=args.seed, tenants=args.tenants,
+        tenant_mode=args.tenant_mode, tenant_spread=tenant_spread(args),
+        spike=args.spike, obs=obs)
+    users = (len(stack.exp.ctx_eval) if args.source == "table"
+             else getattr(stack.source, "n_users", args.users))
     print(f"[serve] device {stack.device}, {len(stack.sizes)} windows, "
-          f"U={args.users:,}, budget {stack.budget:.4e} FLOPs/window")
+          f"U={users:,}, budget {stack.budget:.4e} FLOPs/window")
+    if args.legacy and args.scenario == "carbon":
+        return legacy_carbon_day(stack, args)
+    if args.legacy:
+        return _legacy_loop(stack.exp, stack.server, stack.reward_params,
+                            stack.reward_cfg, stack.sizes, stack.budget,
+                            seed=args.seed)
     if args.scenario in DAYS:
         day = DAYS[args.scenario](stack, args, obs=obs)
         return day.total_revenue, day.total_flops
@@ -720,7 +991,7 @@ def _run(args, obs) -> tuple[float, float]:
     else:
         runs = [serve(stack, prefetch=args.prefetch, pipeline=p, obs=obs)
                 for p in stack.pipelines]
-    c_min = float(stack.source.chains.costs.min())
+    c_min = float(stack.chains.costs.min())
     for k, st in enumerate(runs):
         if len(runs) > 1:
             print(f"[serve] tenant {k} (independent pipeline)")

@@ -278,6 +278,12 @@ class ServingPipeline:
     program as CUDA graphs on the card; ``graphs=False`` runs the same
     programs eagerly (the reference).
 
+    ``lam_init`` is the price the first window decides at (a (K,) fill
+    with several prices); ``dual_cfg`` sets only the nearline update's
+    steps.  ``guard=False`` serves the Eq. 10 decisions unguarded: no
+    downgrade walk, ``downgraded`` 0 and the spend the decided costs of
+    the valid requests.
+
     ``ledger`` (a ``carbon.CarbonLedger``) parks every served
     ``WindowResult`` for lazy metering; ``obs`` (a ``repro_torch.obs.Obs``)
     records the host spans ``h2d``, ``dispatch`` and ``dual_update``
@@ -292,6 +298,7 @@ class ServingPipeline:
                  tenant_budgets=None, tenant_mode: str = "shared",
                  n_regions: int | None = None,
                  spec: ConstraintSpec | None = None, graphs: bool = True,
+                 guard: bool = True, lam_init: float = 0.0,
                  ledger=None, obs=None, device=None):
         self.device = dev = resolve_device(device)
         self.ledger = ledger
@@ -311,6 +318,7 @@ class ServingPipeline:
         self.reward_params = reward_params
         self.reward_cfg = reward_cfg
         self.dual_cfg = dual_cfg or DualDescentConfig()
+        self.guard = bool(guard)
         if bucketing not in ("linear", "pow2"):
             raise ValueError(f"bucketing must be 'linear' or 'pow2', "
                              f"got {bucketing!r}")
@@ -346,17 +354,19 @@ class ServingPipeline:
         self._programs: dict = {}  # (b, padded) -> program
         # the nearline price(s): one device buffer, overwritten in place
         self.lam = torch.full((cs.n_prices,) if cs.n_prices else (),
-                              self.dual_cfg.lam_init, dtype=torch.float32,
+                              float(lam_init), dtype=torch.float32,
                               device=dev)
         self.stats: list[WindowResult] = []
 
     @classmethod
     def from_spec(cls, server, reward_params: dict,
-                  reward_cfg: RewardModelConfig, spec: ConstraintSpec,
+                  reward_cfg: RewardModelConfig, spec: ConstraintSpec, *,
+                  guard: bool = True, lam_init: float = 0.0,
                   **kw) -> "ServingPipeline":
         """Build the pipeline from a declarative ConstraintSpec."""
         return cls(server, reward_params, reward_cfg,
-                   spec.compile().total_budget, spec=spec, **kw)
+                   spec.compile().total_budget, spec=spec, guard=guard,
+                   lam_init=lam_init, **kw)
 
     def _bucket(self, n: int) -> int:
         """Pad target: the next multiple of ``pad_quantum`` (linear) or
@@ -410,18 +420,19 @@ class ServingPipeline:
             out = self._main_geo(w, rewards, mask)
         else:
             costs = self._costs * w.scale  # cost units (FLOPs or gCO2e)
-            if mode == "tenants":
-                if self._cs.tenant_priced:
-                    dec = allocate(rewards, costs[:, None], w.lam,
-                                   self._cs.tenant_member(w.k_of))
-                else:
-                    dec = allocate(rewards, costs, w.lam)
+            if mode == "tenants" and self._cs.tenant_priced:
+                dec = allocate(rewards, costs[:, None], w.lam,
+                               self._cs.tenant_member(w.k_of))
+            else:
+                dec = allocate(rewards, costs, w.lam)
+            if not self.guard:
+                out = self._unguarded(dec, costs, w)
+            elif mode == "tenants":
                 dec, dg, t_spend = downgrade_guard(
                     dec, costs, w.budget, self._cheap, mask, k_of=w.k_of)
                 out = {"dec": dec, "dg": dg, "spend": torch.sum(t_spend),
                        "t_spend": t_spend}
             else:
-                dec = allocate(rewards, costs, w.lam)
                 dec, dg, spend = downgrade_guard(dec, costs, w.budget,
                                                  self._cheap, mask)
                 out = {"dec": dec, "dg": dg, "spend": spend}
@@ -430,6 +441,18 @@ class ServingPipeline:
         out["flops"] = torch.sum(self._costs[dec.long()] * w.valid)
         out["rev"] = self._execute(w, dec)
         return out
+
+    @staticmethod
+    def _no_downgrades(dec):
+        """The guard's downgrade count where no guard runs."""
+        return torch.zeros((), dtype=torch.int32, device=dec.device)
+
+    @classmethod
+    def _unguarded(cls, dec, costs, w) -> dict:
+        """The Eq. 10 decisions as served without a guard: nothing
+        downgraded, the spend the decided costs over the valid rows."""
+        return {"dec": dec, "dg": cls._no_downgrades(dec),
+                "spend": torch.sum(costs[dec.long()] * w.valid)}
 
     def _region_setup(self, w, rewards):
         """Region-major option costs (m = r*J + j) and the eps_green
@@ -488,6 +511,9 @@ class ServingPipeline:
             price_best = torch.gather(price_irj, 1, r_star[:, None, :])[:, 0]
             dec = torch.argmax(rewards - price_best, dim=1)
             dec_m = torch.gather(r_star, 1, dec[:, None])[:, 0] * j_n + dec
+        if not self.guard:
+            return {**self._unguarded(dec_m, opt_costs, w),
+                    "dec": dec_m % j_n, "regions": dec_m // j_n}
         dec_m, dg, r_spend = downgrade_guard(
             dec_m, opt_costs, w.budget, self._cheap_k, mask,
             k_of=dec_m.long() // j_n)
@@ -535,13 +561,16 @@ class ServingPipeline:
         else:
             region = r0
         dec_m = region * j_n + dec
-        # the tenant walk downgrades to the globally cheapest priced
-        # option, then the region walk re-caps within each region
-        dec_m, dg, _ = downgrade_guard_chain(
-            dec_m, opt_costs,
-            [(w.budget[:t_n], torch.argmin(opt_costs), w.k_of),
-             (w.budget[t_n:], self._cheap_k, lambda d: d.long() // j_n)],
-            mask)
+        if self.guard:
+            # the tenant walk downgrades to the globally cheapest priced
+            # option, then the region walk re-caps within each region
+            dec_m, dg, _ = downgrade_guard_chain(
+                dec_m, opt_costs,
+                [(w.budget[:t_n], torch.argmin(opt_costs), w.k_of),
+                 (w.budget[t_n:], self._cheap_k, lambda d: d.long() // j_n)],
+                mask)
+        else:
+            dg = self._no_downgrades(dec_m)
         region = dec_m // j_n
         # per-(tenant, region) spends of the final decisions, one masked
         # (b,) sum a cell
@@ -708,7 +737,10 @@ class ServingPipeline:
             return res
         chunked = self._stream_only
         run_tables = None
+        table_h2d = 0
         if chunked:
+            if not isinstance(tables["p"], torch.Tensor):  # host tables
+                table_h2d = int(tables["p"].nbytes + tables["ck"].nbytes)
             p = torch.as_tensor(tables["p"])
             ck = torch.as_tensor(tables["ck"])
             if p.shape[1] != n:
@@ -736,8 +768,9 @@ class ServingPipeline:
                  b_knob if dual_budget is None else dual_budget,
                  s_knob if dual_cost_scale is None else dual_cost_scale]
         with self.obs.span("h2d", n=n, b=b):
-            h2d = prog.load(ctx_p, rows_p, valid, k_of, knobs, run_tables,
-                            self.lam if lam is None else lam)
+            h2d = table_h2d + prog.load(ctx_p, rows_p, valid, k_of, knobs,
+                                        run_tables,
+                                        self.lam if lam is None else lam)
         lam_before = prog.lam.clone()
         with self.obs.span("dispatch", n=n, b=b), \
                 record_function("window/main"):

@@ -32,6 +32,7 @@ import numpy as np
 import pytest
 import torch
 import torch_tiny
+from torch_system import one_thread  # noqa: F401 (a fixture)
 
 from repro.carbon import controller as jctl
 from repro.carbon import intensity as jint
@@ -509,11 +510,13 @@ def test_constant_ci_day_is_the_flops_day(stack, pricing):
     ("georegions", ["--geo-split", "argmax", "--devices", "2"]),
     ("geotenants", ["--tenants", "2", "--tenant-mode", "priced"]),
 ])
-def test_cli_serves_the_carbon_days(tmp_path, capsys, scenario, extra):
+def test_cli_serves_the_carbon_days(tmp_path, capsys, scenario, extra,
+                                    one_thread):
     from repro_torch.launch import serve
 
     path = tmp_path / f"{scenario}.csv"
-    assert serve.main(["--small", "--device", "cpu", "--windows", "4",
+    assert serve.main(["--small", "--device", "cpu", "--source",
+                       "generated", "--windows", "4",
                        "--requests", "32", "--users", "2000",
                        "--scenario", scenario, "--carbon-report",
                        str(path), *extra]) == 0

@@ -940,3 +940,143 @@ def test_kernels_without_backward_raise_on_cuda_inputs_needing_grads(cuda):
         ops.dot_interact(x)
     with torch.no_grad():
         assert ops.dot_interact(x).shape == (4, 10)
+
+
+def _random_server(device, u_n=300, i_n=150, seed=0):
+    """A materialized ``CascadeServer`` over random stage scores and
+    clicks, on the small paper-shaped chain space, and a random reward
+    model: what the replay tests serve."""
+    import numpy as np
+
+    from repro_torch.cascade.engine import CascadeServer
+    from repro_torch.core.reward_model import (RewardModelConfig,
+                                               reward_model_init)
+    from repro_torch.launch import serve
+
+    rng = np.random.default_rng(seed)
+    scores = {k: rng.normal(size=(u_n, i_n)).astype(np.float32)
+              for k in ("DSSM", "YDNN", "DIN", "DIEN")}
+    clicks = (rng.random((u_n, i_n)) < 0.15).astype(np.float32)
+    chains = serve.generate_action_chains(serve.small_stage_specs(i_n, 8))
+    server = CascadeServer(scores, chains, clicks, expose=8, device=device)
+    rcfg = RewardModelConfig(n_stages=3, max_models=2, n_scale_groups=4,
+                             d_context=12, d_feature=16, d_hidden=16,
+                             d_state=8)
+    params = reward_model_init(torch.Generator().manual_seed(seed), rcfg,
+                               device)
+    ctx = rng.normal(size=(u_n, 12)).astype(np.float32)
+    return server, ctx, params, rcfg
+
+
+def test_replay_device_tables_equal_memmapped(cuda, tmp_path):
+    """The replay with its universe on the card (each window an
+    ``index_select`` there) against its memmapped reload (host tables,
+    copied each window), served through the window graphs over a spike:
+    decisions, revenue, spends, downgrades and prices bit for bit; the
+    window's tables equal too, and the device form copies only the
+    arrivals after its first window."""
+    from repro_torch.data.request_source import TableReplaySource
+    from repro_torch.serving.pipeline import ServingPipeline
+    from repro_torch.serving.stream import run_stream
+
+    server, ctx, params, rcfg = _random_server(cuda)
+    dev_src = TableReplaySource.from_server(server, ctx, seed=3)
+    dev_src.save(str(tmp_path / "u"))
+    disk = TableReplaySource.load(str(tmp_path / "u"), server.chains, seed=3,
+                                  device=cuda)
+    assert dev_src.device_tables and not disk.device_tables
+    a, b = dev_src.window(9, 77), disk.window(9, 77)
+    assert a.tables["p"].is_cuda and not isinstance(b.tables["p"],
+                                                    torch.Tensor)
+    torch.cuda.synchronize()
+    for k in ("p", "ck"):
+        assert torch.equal(a.tables[k].cpu(), torch.from_numpy(b.tables[k]))
+    assert dev_src.window(10, 33).h2d_bytes == 33 * 4
+    sizes = [64, 64, 192, 192, 64]
+    budget = 0.5 * float(server.chains.costs.max()) * 64
+    runs = [run_stream(ServingPipeline(src.universe, params, rcfg, budget),
+                       sizes, src, prefetch=2, sync=torch.cuda.synchronize)
+            for src in (dev_src, disk)]
+    for t, (x, y) in enumerate(zip(*(r.windows for r in runs))):
+        for f in ("decisions", "revenue", "spend", "downgraded", "lam_after"):
+            assert torch.equal(getattr(x, f), getattr(y, f)), (t, f)
+    assert runs[0].total_revenue > 0 and runs[0].steady_compiles == 0
+
+
+def test_rank_serve_kernel_matches_plain(cuda):
+    """greenflow-cascade's ``rank_serve`` at DIN's full widths (embed 18,
+    T = 100, attention 80-40) and its 200 candidates a request (two
+    blocks of 128, the second partly empty): the ``target_attention``
+    kernel against its plain version within 2e-5, and the cell's scores
+    against the same scores through the plain version."""
+    import numpy as np
+
+    from repro_torch.configs import greenflow_cascade as gfc
+    from repro_torch.models.recsys import din
+
+    dcfg = din.DINConfig(item_vocab=5000, cat_vocab=300, user_vocab=2000)
+    rng = np.random.default_rng(1)
+    b, n = 24, gfc.FULL_SIZES["rank_cands"]
+    params = din.init(torch.Generator().manual_seed(1), dcfg, device=cuda)
+    user = {k: torch.as_tensor(v, device=cuda) for k, v in
+            gfc.din_arch._user(rng, dcfg, b).items()}
+    user["hist_mask"][:, 70:] = 0.0  # ragged histories
+    cid = torch.as_tensor(rng.integers(0, dcfg.item_vocab, (b, n)),
+                          device=cuda)
+    ccat = torch.as_tensor(rng.integers(0, dcfg.cat_vocab, (b, n)),
+                           device=cuda)
+    keys = din.embed_items(params, user["hist_ids"], user["hist_cats"])
+    q = din.embed_candidates(params, cid, ccat)
+    ws = din._attn_weights(params)
+    before = ops.LAUNCHES["target_attention"]
+    got = ops.target_attention(q, keys, user["hist_mask"], *ws)
+    assert ops.LAUNCHES["target_attention"] == before + 1
+    want = ref.target_attention_ref(q, keys, user["hist_mask"], *ws)
+    torch.testing.assert_close(got, want, rtol=2e-5, atol=2e-5)
+    with torch.no_grad():
+        scores = din.score(params, dcfg, user, cid, ccat)
+    assert scores.shape == (b, n) and torch.isfinite(scores).all()
+
+
+@pytest.mark.parametrize("mode", ["plain", "geotenants"])
+def test_unguarded_window_graphs_bitwise_eager(cuda, mode):
+    """``guard=False``: each bucket's window program captured (its own
+    graphs) against the same program run eagerly, at a pinned price, on
+    cold and warm buckets: decisions, revenue, spend and price bit for
+    bit, nothing downgraded."""
+    import numpy as np
+
+    from repro_torch.data.request_source import TableReplaySource
+    from repro_torch.serving.pipeline import ServingPipeline
+    from repro_torch.serving.spec import (ConstraintSpec, GlobalAxis,
+                                          RegionAxis, TenantAxis)
+
+    server, ctx, params, rcfg = _random_server(cuda)
+    src = TableReplaySource.from_server(server, ctx, seed=5)
+    c_max = float(server.chains.costs.max())
+    if mode == "plain":
+        axes, kw = [GlobalAxis(budget=0.2 * c_max * 64)], {}
+        lam = 1e-9
+    else:
+        axes = [TenantAxis((0.1 * c_max * 32,) * 2, priced=True),
+                RegionAxis(2), GlobalAxis(pricing="carbon")]
+        kw = dict(budget=np.full(4, 0.1 * c_max * 64, np.float32),
+                  cost_scale=np.array([1.0, 1.4], np.float32))
+        lam = np.full(4, 1e-9, np.float32)
+    pipes = [ServingPipeline.from_spec(src.universe, params, rcfg,
+                                       ConstraintSpec(axes), guard=False,
+                                       graphs=g, device=cuda)
+             for g in (True, False)]
+    compiles = []
+    for t, n in enumerate((64, 64, 128, 64)):
+        c = src.window(t, n)
+        got, want = (p.serve_window(c.ctx, c.rows, tables=c.tables,
+                                    ready=c.ready, lam=lam, **kw)
+                     for p in pipes)
+        torch.cuda.synchronize()
+        compiles.append(got.compiles)
+        assert int(got.downgraded) == 0
+        for name in ("decisions", "revenue", "spend", "flops", "lam_after"):
+            assert torch.equal(getattr(got, name), getattr(want, name)), \
+                (t, name)
+    assert compiles == [2, 0, 2, 0]

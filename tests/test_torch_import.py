@@ -15,6 +15,8 @@ import textwrap
 import pytest
 import torch
 
+from torch_system import one_thread  # noqa: F401 (a fixture)
+
 ROOT = os.path.join(os.path.dirname(__file__), "..")
 SRC = os.path.join(ROOT, "src")
 PORT = os.path.join(SRC, "repro_torch")
@@ -205,10 +207,11 @@ def test_kernel_wrappers_refuse_other_devices():
         ops.embedding_bag(torch.zeros(4, 2), idx.reshape(1, 2))
 
 
-def test_serve_cli_runs_on_the_cpu_when_asked(capsys):
+def test_serve_cli_runs_on_the_cpu_when_asked(capsys, one_thread):
     from repro_torch.launch import serve
 
-    assert serve.main(["--small", "--device", "cpu", "--windows", "2",
-                       "--requests", "32", "--users", "2000"]) == 0
+    assert serve.main(["--small", "--device", "cpu", "--source",
+                       "generated", "--scenario", "constant", "--windows",
+                       "2", "--requests", "32", "--users", "2000"]) == 0
     out = capsys.readouterr().out
     assert "device cpu" in out and "worst overshoot vs cap: 0.000%" in out

@@ -25,6 +25,7 @@ import numpy as np
 import pytest
 import torch
 import torch_tiny
+from torch_system import one_thread  # noqa: F401 (a fixture)
 
 from repro import obs as jobs
 from repro.carbon import controller as jctl
@@ -450,14 +451,15 @@ def test_jsonl_rows_equal_jax(tmp_path):
 # ---------------------------------------------------------------------------
 
 
-def test_cli_writes_metrics_trace_and_profile(tmp_path, capsys):
+def test_cli_writes_metrics_trace_and_profile(tmp_path, capsys, one_thread):
     from repro_torch.launch import serve
 
     prom = tmp_path / "m" / "serve.prom"
     trace = tmp_path / "serve.trace.json"
     prof = tmp_path / "prof"
-    assert serve.main(["--small", "--device", "cpu", "--windows", "2",
-                       "--requests", "32", "--users", "2000",
+    assert serve.main(["--small", "--device", "cpu", "--source",
+                       "generated", "--scenario", "constant", "--windows",
+                       "2", "--requests", "32", "--users", "2000",
                        "--metrics-out", str(prom), "--trace-out",
                        str(trace), "--profile-dir", str(prof),
                        "--obs-interval", "1"]) == 0
