@@ -189,8 +189,34 @@ In order, it
      ``full_config()``, 3 calls each, ms and model TFLOP/s, and
      ``rank_serve``'s ``target_attention`` (B = 1,024 x N = 200) held to
      its plain version on its first 64 users;
- 11. prints the ``kernels`` JSON line (the backward kernels' launches
-     are the training paths'), the card line and, last, the
+ 11. serves over several processes on the card (the request mesh,
+     ``distributed.multihost``, gloo through the host): (a) prints the
+     card's compute mode and has two processes form a gloo group and
+     gather a CUDA tensor staged through the host; (b) the cheap replay
+     stack of tests/test_multihost.py at S = 8 shards
+     (``tests/torch_mh_child.py``): the plain stream in one process and
+     over 2 and 4, geotenants in one and over 2, and the elastic resume
+     (2 processes serve windows 0-2 and checkpoint, 4 resume at 3-5, one
+     resumes the same checkpoint); (c) phase 4's world at full width
+     and S = 2, one process alone, then two (``--child full``), each
+     host's host ms, device ms (the CUDA events' span around
+     ``serve_window``), the wait for its own scoring and the gather's
+     exchange apart (host ms), launches and peak memory printed; in (b)
+     and (c) every host's prices and spends equal the one-process run's
+     bit for bit, the hosts' rows stitch to its decisions and regions,
+     zero steady-state captures, each member's launches its eager counts
+     (counted in the member, reset before its stream), and each member
+     holds ``cascade_truncate`` bit for bit to its plain version and to
+     the revenue served at its per-shard rows (256 and 768 in (c)); (d)
+     the CLI: the JAX CLI's multi-process refusals before any training,
+     the ``--small`` trained stack built into this run's cache, then
+     ``--shards 2`` in one process and ``--processes 2`` at once: the
+     same reward-parameter digest on all three, every window's price
+     and spend in the ``.host0`` and ``.host1`` flight logs equal to
+     ``--shards 2``'s;
+ 12. prints the ``kernels`` JSON line (the backward kernels' launches
+     are the training paths'; phase 11's members' launches are added to
+     the window kernels' counts), the card line and, last, the
      ``{"ok": true, ...}`` line.
 
 Any failed check raises and the script exits non-zero without the last
@@ -3162,14 +3188,432 @@ def window_inputs(seed: int, dev):
     return wcfg, hist_ids, hist_mask, layout
 
 
+# -- phase 11: multi-process serving on the card -------------------------------
+
+
+def free_port() -> int:
+    import socket
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    return port
+
+
+def run_procs(cmds: list, *, timeout: float, env: dict | None = None,
+              label: str = "") -> list[str]:
+    """Start every command at once, wait for all of them and return
+    their outputs; if one fails or the time runs out, kill every one
+    still running and raise with the failed one's output."""
+    import subprocess
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True,
+                              cwd=ROOT, env=env) for c in cmds]
+    outs = []
+    try:
+        t_end = time.monotonic() + timeout
+        for p in procs:
+            o, _ = p.communicate(timeout=max(1.0, t_end - time.monotonic()))
+            outs.append(o)
+            if p.returncode != 0:
+                raise AssertionError(f"{label} process {len(outs) - 1} "
+                                     f"exited {p.returncode}:\n{o[-6000:]}")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    return outs
+
+
+def child_cmd(kind: str, **kw) -> list:
+    cmd = [sys.executable, os.path.abspath(__file__), "--child", kind]
+    for k, v in kw.items():
+        cmd += [f"--{k.replace('_', '-')}", str(v)]
+    return cmd
+
+
+def probe_child(args) -> int:
+    """Phase 11 (a)'s member: join a two-process gloo group, stage a
+    CUDA tensor through the host and gather it."""
+    from datetime import timedelta
+
+    import torch
+    import torch.distributed as dist
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:"
+                            f"{args.port}", world_size=args.world,
+                            rank=args.rank, timeout=timedelta(seconds=120))
+    dev = torch.device("cuda", args.rank % torch.cuda.device_count())
+    torch.cuda.set_device(dev)
+    x = torch.full((4,), float(args.rank + 1), device=dev)
+    host = x.cpu()
+    out = [torch.empty_like(host) for _ in range(args.world)]
+    dist.all_gather(out, host)
+    got = torch.stack(out).to(dev)
+    want = torch.arange(1, args.world + 1, dtype=torch.float32,
+                        device=dev)[:, None].expand(-1, 4)
+    if not torch.equal(got, want):
+        raise AssertionError(f"rank {args.rank} gathered {got.tolist()}")
+    print(json.dumps({"rank": args.rank, "device": str(dev),
+                      "name": torch.cuda.get_device_name(dev),
+                      "gathered": got[:, 0].tolist()}), flush=True)
+    dist.destroy_process_group()
+    return 0
+
+
+def probe_processes() -> dict:
+    """Phase 11 (a): the card's compute mode, then two processes on the
+    card that form a gloo group and gather a CUDA tensor staged through
+    the host.  A card that refuses a second process fails here."""
+    import subprocess
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit,compute_mode",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=30)
+    mode = out.stdout.strip()
+    log(f"phase 11 (a): card and compute mode: {mode}")
+    port = free_port()
+    t0 = time.perf_counter()
+    outs = run_procs([child_cmd("probe", rank=r, world=2, port=port)
+                      for r in range(2)], timeout=180, label="probe")
+    rows = [json.loads(o.strip().splitlines()[-1]) for o in outs]
+    wall = time.perf_counter() - t0
+    log(f"phase 11 (a): two processes on the card gathered over gloo "
+        f"through the host: {rows} in {wall:.1f}s")
+    return {"compute_mode": mode, "rows": rows, "wall_s": wall}
+
+
+def mh_child_module():
+    """``tests/torch_mh_child.py``: the cheap replay stack's member
+    process and its launcher, shared with the CPU tests."""
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    import torch_mh_child
+    return torch_mh_child
+
+
+def add_launches(total: dict, got: dict) -> None:
+    for k, v in got.items():
+        total[k] = total.get(k, 0) + int(v)
+
+
+def serve_cheap_processes(tmp: str) -> dict:
+    """Phase 11 (b): the cheap replay stack of tests/test_multihost.py at
+    S = 8 on the card: the plain stream in one process and over 2 and 4,
+    geotenants in one and over 2, and the elastic resume (2 processes
+    serve windows 0-2 and checkpoint, 4 resume at 3-5, then one resumes
+    the same checkpoint); every host's prices and spends equal the
+    one-process run's bit for bit, the hosts' rows stitch to its
+    decisions and regions, zero steady-state captures everywhere.
+    Returns the children's launches (one truncation a window a shard)."""
+    mhc = mh_child_module()
+    t0 = time.perf_counter()
+    first = [mhc.start(1, "plain,geotenants", tmp, "ref", device="cuda"),
+             mhc.start(2, "plain,geotenants,a", tmp, "p2", device="cuda")]
+    ref, p2 = (mhc.finish(g, timeout=300) for g in first)
+    second = [mhc.start(4, "plain,b", tmp, "p4", device="cuda"),
+              mhc.start(1, "b", tmp, "down", device="cuda")]
+    p4, down = (mhc.finish(g, timeout=300) for g in second)
+    ref = ref[0]
+    mhc.assert_group_matches(ref, p2, "plain")
+    mhc.assert_group_matches(ref, p4, "plain")
+    mhc.assert_group_matches(ref, p2, "geotenants")
+    mhc.assert_group_matches(ref, p2, "a", "plain")
+    mhc.assert_group_matches(ref, p4, "b", "plain", ref_offset=3)
+    mhc.assert_group_matches(ref, down, "b", "plain", ref_offset=3)
+    launches: dict = {}
+    checked: set = set()
+    for h in [ref, *p2, *p4, *down]:
+        local = h["host"]["local_shards"]
+        if h["host"]["platform"] != "gpu":
+            raise AssertionError(f"a member served off the card: {h['host']}")
+        for job, d in h["jobs"].items():
+            if not d["truncation_rows"]:
+                raise AssertionError(f"{job} {h['host']}: the truncation "
+                                     f"was not held to its plain version")
+            checked.update(d["truncation_rows"])
+            if d["steady_compiles"] != 0:
+                raise AssertionError(f"{job} {h['host']}: steady captures "
+                                     f"{d['compiles']}")
+            want = {"cascade_truncate": len(d["windows"]) * local}
+            got = {k: v for k, v in d["launches"].items() if v}
+            if got != want:
+                raise AssertionError(f"{job} {h['host']}: launches {got}, "
+                                     f"eager counts {want}")
+            add_launches(launches, got)
+    log(f"phase 11 (b): cheap stack at S = 8 on the card, plain over 1 / 2 "
+        f"/ 4 processes, geotenants over 1 / 2, elastic 2 -> 4 -> 1: every "
+        f"host bitwise the one-process run, zero steady captures, "
+        f"cascade_truncate == its plain version at the per-shard rows "
+        f"{sorted(checked)}, launches {launches} "
+        f"({time.perf_counter() - t0:.1f}s)")
+    return launches
+
+
+def full_child(args) -> int:
+    """Phase 11 (c)'s member: phase 4's full-width stack on a request mesh
+    of ``--shards`` shards over ``--world`` processes, 6 spike windows
+    through the CUDA graphs with prefetch 2, synchronised after each;
+    writes its digest, times, launches and memory to ``--out``."""
+    import torch
+    from repro_torch.distributed import multihost as mh
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve
+    from repro_torch.launch.mesh import make_request_mesh
+
+    if args.world > 1:
+        mh.initialize(coordinator=f"127.0.0.1:{args.port}",
+                      num_processes=args.world, process_id=args.rank)
+    mesh = make_request_mesh(args.shards)
+    t0 = time.perf_counter()
+    stack = serve.build_stack(users=100_000, requests=args.requests,
+                              windows=args.windows, scenario="spike",
+                              seed=args.seed, device="cuda", mesh=mesh)
+    build_s = time.perf_counter() - t0
+    pipe = stack.pipeline
+    spans = []
+    serve_window = pipe.serve_window
+
+    def timed(*a, **kw):  # the CUDA events' span around serve_window
+        s = torch.cuda.Event(enable_timing=True)
+        e = torch.cuda.Event(enable_timing=True)
+        s.record()
+        res = serve_window(*a, **kw)
+        e.record()
+        spans.append((s, e))
+        return res
+
+    pipe.serve_window = timed
+    waits, gathers = [], []
+    gather = pipe._gather_rewards
+
+    def timed_gather(*a):  # host ms: own scoring's wait, then the exchange
+        g0 = time.perf_counter()
+        torch.cuda.current_stream().synchronize()
+        g1 = time.perf_counter()
+        gather(*a)
+        waits.append((g1 - g0) * 1e3)
+        gathers.append((time.perf_counter() - g1) * 1e3)
+
+    if mesh.world > 1:  # one process has no exchange (and no sync)
+        pipe._gather_rewards = timed_gather
+    misses = stack.source.cache_misses
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    st = serve.serve(stack, sync=True, prefetch=2)
+    launches = dict(ops.LAUNCHES)
+    chunks = stack.source.cache_misses - misses
+    truncation_rows = mh_child_module().check_truncation(pipe, st.windows)
+    c_min = float(stack.chains.costs.min())
+    for t, r in enumerate(st.windows):
+        spend, lam = float(r.spend), float(r.lam_after)
+        if not spend <= max(r.budget, r.n_valid * c_min) + stack.c_max:
+            raise AssertionError(f"window {t}: spend {spend} over budget")
+        if not math.isfinite(lam):
+            raise AssertionError(f"window {t}: lambda {lam} not finite")
+    out = {"host": mh.host_report(mesh), "build_s": build_s,
+           "windows": [mh_child_module().window_digest(r)
+                       for r in st.windows],
+           "revenue": [float(r.revenue_np.sum()) for r in st.windows],
+           "host_ms": list(st.submit_ms),
+           "device_ms": [s.elapsed_time(e) for s, e in spans],
+           "score_wait_ms": waits, "gather_ms": gathers,
+           "truncation_rows": truncation_rows,
+           "wall_s": st.wall_s, "launches": launches, "chunks": chunks,
+           "n_blocks": -(-stack.source._n_items()
+                         // stack.source.item_block),
+           "steady_compiles": st.steady_compiles, "compiles": st.compiles,
+           "peak_reserved_gb": torch.cuda.max_memory_reserved() / 1e9,
+           "peak_allocated_gb": torch.cuda.max_memory_allocated() / 1e9}
+    with open(args.out, "w") as f:
+        json.dump(out, f)
+    mh.shutdown()
+    return 0
+
+
+def serve_full_processes(tmp: str, args) -> dict:
+    """Phase 11 (c): phase 4's world at full width (100,000 users, J =
+    128, DIN and DIEN at the published config), 6 spike windows at S = 2:
+    one process first, alone (each process holds its own scoring graphs,
+    about 20 GB of pool), then two processes on the card; every host
+    bitwise the one-process run, zero steady captures, each host's
+    launches its eager counts.  Returns the launches of both runs."""
+    mhc = mh_child_module()
+    runs = {}
+    for world in (1, 2):
+        port = free_port()
+        t0 = time.perf_counter()
+        outs = [os.path.join(tmp, f"full_{world}_{r}.json")
+                for r in range(world)]
+        run_procs([child_cmd("full", rank=r, world=world, port=port,
+                             shards=2, out=outs[r], seed=args.seed,
+                             windows=args.windows, requests=args.requests)
+                   for r in range(world)], timeout=600,
+                  label=f"full width over {world}")
+        runs[world] = [json.load(open(o)) for o in outs]
+        log(f"phase 11 (c): {world} process(es) at S = 2 in "
+            f"{time.perf_counter() - t0:.1f}s")
+    ref = {"jobs": {"full": runs[1][0]}}
+    hosts = [{"host": h["host"], "jobs": {"full": h}} for h in runs[2]]
+    mhc.assert_group_matches(ref, hosts, "full")
+    launches: dict = {}
+    for h in runs[1] + runs[2]:
+        rep = h["host"]
+        if h["steady_compiles"] != 0:
+            raise AssertionError(f"{rep}: steady captures {h['compiles']}")
+        want = {"cascade_truncate": len(h["windows"]) * rep["local_shards"],
+                "target_attention": h["n_blocks"] * h["chunks"],
+                "embedding_bag": h["chunks"]}
+        got = {k: v for k, v in h["launches"].items() if v}
+        if got != want:
+            raise AssertionError(f"{rep}: launches {got}, eager {want}")
+        if not {256, 768} <= set(h["truncation_rows"]):
+            raise AssertionError(f"{rep}: the truncation was held to its "
+                                 f"plain version at {h['truncation_rows']} "
+                                 f"rows, not at 256 and 768")
+        add_launches(launches, got)
+        log(f"phase 11 (c) host {rep['process_index']} of "
+            f"{rep['process_count']}: build {h['build_s']:.1f}s, host ms "
+            f"{[round(x, 3) for x in h['host_ms']]}, device ms (event span "
+            f"around serve_window) {[round(x, 3) for x in h['device_ms']]}, "
+            f"own scoring's wait before the gather ms "
+            f"{[round(x, 3) for x in h['score_wait_ms']]}, gather ms (the "
+            f"exchange alone) {[round(x, 3) for x in h['gather_ms']]}, "
+            f"cascade_truncate == its plain version at "
+            f"{h['truncation_rows']} rows a shard, wall "
+            f"{h['wall_s'] * 1e3:.3f} ms, launches {got} ({h['chunks']} "
+            f"scoring chunks), peak reserved {h['peak_reserved_gb']:.2f} GB "
+            f"(allocated {h['peak_allocated_gb']:.2f} GB), revenue "
+            f"{[round(x, 1) for x in h['revenue']]}")
+    log(f"phase 11 (c): two processes at full width bitwise the "
+        f"one-process S = 2 run (prices, spends, stitched decisions)")
+    return launches
+
+
+def serve_cli_processes(tmp: str) -> dict:
+    """Phase 11 (d): the CLI over two processes.  The JAX CLI's refusals
+    first (before any training); then the ``--small`` trained stack built
+    in this run's experiment cache, which the CLI processes only load;
+    ``--shards 2`` in one process and ``--processes 2`` at once: equal
+    reward-parameter digests, and every window's price and spend in the
+    ``.host0`` and ``.host1`` flight logs equal to the ``--shards 2``
+    run's."""
+    import torch
+    from repro_torch import experiments
+    from repro_torch.launch import serve
+
+    refusals = {
+        ("--source", "table"): "--processes needs a streaming --source",
+        ("--legacy",): "--legacy is single-process",
+        ("--source", "generated", "--shards", "2"): "drop --shards"}
+    build = experiments.build_serving_stack
+
+    def no_training(*a, **kw):
+        raise AssertionError("the CLI trained before refusing")
+
+    experiments.build_serving_stack = no_training
+    try:
+        for argv, msg in refusals.items():
+            try:
+                serve.main(["--small", "--processes", "2", "--coordinator",
+                            "127.0.0.1:1", *argv])
+            except SystemExit as e:
+                if msg not in str(e):
+                    raise AssertionError(f"{argv}: refused with {e}")
+            else:
+                raise AssertionError(f"{argv} was not refused")
+    finally:
+        experiments.build_serving_stack = build
+    t0 = time.perf_counter()
+    build(experiments.serve_config(small=True), device="cuda")
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    env = dict(os.environ, REPRO_TORCH_CACHE=experiments.CACHE,
+               PYTHONPATH=os.path.join(ROOT, "src"))
+    port = free_port()
+    base = [sys.executable, "-m", "repro_torch.launch.serve", "--small",
+            "--source", "generated", "--windows", "6"]
+    one = os.path.join(tmp, "cli_one.prom")
+    two = os.path.join(tmp, "cli_two.prom")
+    t0 = time.perf_counter()
+    outs = run_procs(
+        [base + ["--shards", "2", "--metrics-out", one]]
+        + [base + ["--processes", "2", "--process-id", str(r),
+                   "--coordinator", f"127.0.0.1:{port}", "--metrics-out",
+                   two] for r in range(2)],
+        timeout=400, env=env, label="CLI")
+    wall = time.perf_counter() - t0
+    digests = [next(line.split()[-1] for line in o.splitlines()
+                    if line.startswith("[serve] reward params sha256"))
+               for o in outs]
+    if len(set(digests)) != 1:
+        raise AssertionError(f"reward parameters differ: {digests}")
+
+    def rows(path):
+        with open(path) as f:
+            return [json.loads(line) for line in f]
+
+    want = [(r["lam"], r["spend"]) for r in rows(one + ".windows.jsonl")]
+    for h in range(2):
+        got = rows(f"{two}.host{h}.windows.jsonl")
+        if [(r["lam"], r["spend"]) for r in got] != want or \
+                any(r["host"] != f"host{h}" for r in got):
+            raise AssertionError(f"host{h}'s window log differs from "
+                                 f"--shards 2's")
+    log(f"phase 11 (d): the --small stack trained in {build_s:.1f}s; "
+        f"--shards 2 and --processes 2 (3 processes at once) in "
+        f"{wall:.1f}s: reward params sha256 {digests[0][:16]}... on all, "
+        f"{len(want)} windows' prices and spends equal in host0's and "
+        f"host1's logs; refusals before training: {list(refusals.values())}")
+    return {"build_s": build_s, "wall_s": wall}
+
+
+def serve_processes(args) -> dict:
+    """Phase 11: multi-process serving on the card (a)-(d).  Returns the
+    launches of (b) and (c)'s member processes."""
+    import shutil
+    import tempfile
+
+    import torch
+    t0 = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="smoke-mh-")
+    try:
+        probe_processes()
+        launches = serve_cheap_processes(tmp)
+        gc.collect()
+        torch.cuda.empty_cache()
+        add_launches(launches, serve_full_processes(tmp, args))
+        serve_cli_processes(tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    log(f"phase 11: {time.perf_counter() - t0:.1f}s, member launches "
+        f"{launches}")
+    return launches
+
+
+CHILDREN = {"probe": probe_child, "full": full_child}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--windows", type=int, default=6)
     ap.add_argument("--requests", type=int, default=512)
     ap.add_argument("--seed", type=int, default=0)
+    # phase 11's member processes (started by this script itself)
+    ap.add_argument("--child", choices=tuple(CHILDREN), default=None,
+                    help=argparse.SUPPRESS)
+    ap.add_argument("--rank", type=int, default=0, help=argparse.SUPPRESS)
+    ap.add_argument("--world", type=int, default=1, help=argparse.SUPPRESS)
+    ap.add_argument("--port", type=int, default=0, help=argparse.SUPPRESS)
+    ap.add_argument("--shards", type=int, default=0, help=argparse.SUPPRESS)
+    ap.add_argument("--out", default=None, help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
 
     import torch
+    if args.child is not None:
+        if not torch.cuda.is_available():
+            print("chip_smoke: no CUDA device", file=sys.stderr)
+            return 2
+        return CHILDREN[args.child](args)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
@@ -3259,6 +3703,9 @@ def main(argv=None) -> int:
     gc.collect()
     torch.cuda.empty_cache()
     cli = serve_trained_cli(args.seed, build_s)
+    gc.collect()
+    torch.cuda.empty_cache()
+    processes = serve_processes(args)
     shutil.rmtree(experiments.CACHE, ignore_errors=True)
 
     window_path = (f"serving window ({n_windows} windows); "
@@ -3300,6 +3747,9 @@ def main(argv=None) -> int:
         train_counts.setdefault(k, {})["CLI trained stack training"] = c
     for k, c in cli.items():
         train_counts.setdefault(k, {})["trained CLI (phase 10)"] = c
+    # phase 11's member processes, each counting its own launches
+    for k, c in processes.items():
+        train_counts.setdefault(k, {})["multi-process serving (phase 11)"] = c
     for k, counts in train_counts.items():
         by_path.setdefault(k, {}).update(counts)
         launches[k] = sum(by_path[k].values())

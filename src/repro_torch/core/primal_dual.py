@@ -35,6 +35,12 @@ membership every price is exact in any summation order.
   * ``window_step``   - the host-loop window body (decide -> NumPy
     guard -> dual update) the budget controller runs;
   * ``DynamicPrimalDual`` - the nearline price tracker.
+
+``consumption`` and ``dual_descent`` take ``n_shards``: over a request
+mesh of S > 1 shards every sum over requests (each spend, ``n_eff`` and
+``n_k``) is the shard-ordered fold of per-shard partials, as the JAX
+package's sharded pass forms it (``distributed.sharding``); one shard
+runs the unsharded sums themselves.
 """
 from __future__ import annotations
 
@@ -42,6 +48,8 @@ from dataclasses import dataclass
 
 import numpy as np
 import torch
+
+from repro_torch.distributed.sharding import shard_sum
 
 
 @dataclass(frozen=True)
@@ -93,21 +101,22 @@ def allocate(rewards, costs, lam, member=None):
     return torch.argmax(score, dim=1).to(torch.int32)
 
 
-def consumption(rewards, costs, lam, mask=None, *, member=None):
+def consumption(rewards, costs, lam, mask=None, *, member=None,
+                n_shards: int = 1):
     """Spend if ``lam`` is the price: the total with a scalar ``lam``,
     the (K,) per-constraint spend sum_i member_ik C[m*_i, k] with a
     vector one; mask (I,) zeroes padded requests."""
     j_star = allocate(rewards, costs, lam, member).long()
     if not _is_vector(lam):
         taken = costs[j_star]
-        return torch.sum(taken if mask is None else taken * mask)
+        return shard_sum(taken if mask is None else taken * mask, n_shards)
     taken = _as_cost_map(costs)[j_star]  # (I, K) or (I, 1)
     cols = []
     for k in range(int(lam.shape[0])):
         tk = taken[:, min(k, taken.shape[1] - 1)]
         if member is not None:
             tk = tk * member[:, k]
-        cols.append(torch.sum(tk if mask is None else tk * mask))
+        cols.append(shard_sum(tk if mask is None else tk * mask, n_shards))
     return torch.stack(cols)
 
 
@@ -117,7 +126,7 @@ def realized_reward(rewards, j_star):
 
 def dual_descent(rewards, costs, budget, lam0, *, mask=None, member=None,
                  max_iters: int = 200, step_size: float = 1.0,
-                 step_decay: float = 0.999):
+                 step_decay: float = 0.999, n_shards: int = 1):
     """Algorithm 1 inner loop (steps 5-9), vectorized over requests.
 
     A scalar ``lam0`` and ``budget`` run the single-price update; a (K,)
@@ -147,7 +156,7 @@ def dual_descent(rewards, costs, budget, lam0, *, mask=None, member=None,
     if mask is None:
         n_eff = as_tensor(rewards.shape[0])
     else:
-        n_eff = torch.sum(mask.to(f32))
+        n_eff = shard_sum(mask.to(f32), n_shards)
     lam = as_tensor(lam0).clone()
     budget = as_tensor(budget)
     if not _is_vector(lam):
@@ -157,7 +166,8 @@ def dual_descent(rewards, costs, budget, lam0, *, mask=None, member=None,
         k_n = int(lam.shape[0])
         if member is not None:
             m = member if mask is None else member * mask[:, None]
-            n_k = torch.stack([torch.sum(m[:, k]) for k in range(k_n)])
+            n_k = torch.stack([shard_sum(m[:, k], n_shards)
+                               for k in range(k_n)])
         else:
             n_k = n_eff
         cols = [cm[:, min(k, cm.shape[1] - 1)] for k in range(k_n)]
@@ -170,7 +180,8 @@ def dual_descent(rewards, costs, budget, lam0, *, mask=None, member=None,
     eta = as_tensor(step_size)
     gaps = []
     for _ in range(max_iters):
-        gap = budget - consumption(rewards, costs, lam, mask, member=member)
+        gap = budget - consumption(rewards, costs, lam, mask, member=member,
+                                   n_shards=n_shards)
         lam = torch.clamp(lam - eta * gap / norm, min=0.0)
         eta = eta * step_decay
         gaps.append(gap)

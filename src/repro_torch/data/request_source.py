@@ -61,7 +61,10 @@ from repro_torch.obs import get_obs
 class WindowChunk:
     """One window's worth of requests, self-contained: ``rows`` are
     LOCAL indices (0..n-1) into the chunk's own (G, n, cap) tables;
-    ``users`` keeps the global ids for logging only."""
+    ``users`` keeps the global ids for logging only.  In a multi-process
+    stream a chunk is one host's padded rows of the window and ``shard``
+    (a ``distributed.multihost.HostWindowSlice``) its global layout;
+    ``n`` is then the window's global request count."""
 
     ctx: np.ndarray  # (n, d_context) float32 reward contexts
     rows: np.ndarray  # (n,) int32 local row indices (arange)
@@ -69,9 +72,12 @@ class WindowChunk:
     users: np.ndarray | None = None  # (n,) global user ids
     h2d_bytes: int = 0  # host->device bytes this chunk's production cost
     ready: object = None  # CUDA event after which the tables are complete
+    shard: object | None = None  # HostWindowSlice in a multi-host stream
 
     @property
     def n(self) -> int:
+        if self.shard is not None:
+            return int(self.shard.n)
         return int(len(self.rows))
 
 

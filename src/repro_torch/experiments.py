@@ -55,8 +55,11 @@ from repro_torch.training.trainer import (batch_to, build_train_step,
                                           init_state)
 from repro_torch.tree import leaves
 
-CACHE = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..", "..",
-                     "results", "torch", "cache")
+# the experiment cache: ``REPRO_TORCH_CACHE`` names another directory (the
+# processes of one multi-process run share one trained stack through it)
+CACHE = os.environ.get("REPRO_TORCH_CACHE") or os.path.join(
+    os.path.dirname(os.path.abspath(__file__)), "..", "..", "results",
+    "torch", "cache")
 
 
 @dataclass(frozen=True)

@@ -5,7 +5,8 @@
         [--windows N] [--requests N] [--users N] [--prefetch N] \\
         [--scenario NAME] [--tenants T] \\
         [--tenant-mode shared|priced|independent] [--tenant-spread X] \\
-        [--metrics-out PATH] [--trace-out PATH] [--profile-dir DIR]
+        [--metrics-out PATH] [--trace-out PATH] [--profile-dir DIR] \
+        [--shards S] [--processes P --process-id I --coordinator HOST:PORT]
 
 builds the trained stack of the JAX package's CLI
 (``experiments.build_serving_stack(serve_config(small=...))``: the world,
@@ -73,6 +74,32 @@ carbon, daily savings, FLOPs by stage and model) and writes the
 ledger's CSV to ``--carbon-report`` (default ``results/torch/
 carbon_report{,_geo,_geotenants}.csv``).
 
+Request mesh: ``--shards S`` serves every window over S request shards
+in this process (the pad quantum becomes a multiple of S; each shard's
+rows scored at b / S rows, every cross-shard sum folded in shard order,
+``serving.pipeline``).  ``--processes P`` serves over P processes, one a
+card, every process running the same command with its own
+``--process-id`` and the ``--coordinator`` address of process 0 (or the
+``GREENFLOW_COORDINATOR``, ``GREENFLOW_NUM_PROCESSES`` and
+``GREENFLOW_PROCESS_ID`` environment variables)::
+
+    python -m repro_torch.launch.serve --source generated \
+        --processes 2 --process-id 0 --coordinator 127.0.0.1:29511 &
+    python -m repro_torch.launch.serve --source generated \
+        --processes 2 --process-id 1 --coordinator 127.0.0.1:29511
+
+The processes join one gloo group (``distributed.multihost``); the
+request mesh has one shard a process, each process generates its own
+rows of every window (arrivals are pure (seed, t) functions, so no
+request crosses between processes), the window's rewards are gathered
+through the host once a window, and every process computes the same
+prices, spends and decisions, bit for bit, as ``--shards P`` in one
+process.  It needs a streaming ``--source`` (generated or memmap: every
+process needs the same universe) and no ``--shards`` or ``--legacy``;
+``--metrics-out`` and ``--trace-out`` get the host label as a suffix
+(``PATH.host0``, ...).  Elastic resizing is checkpoint and replay
+(``distributed.multihost.checkpoint_stream``).
+
 Telemetry (``repro_torch.obs``): ``--metrics-out PATH`` writes a
 Prometheus-text snapshot (+ ``PATH.json`` and the per-window JSONL
 flight log ``PATH.windows.jsonl``), ``--trace-out PATH`` the host span
@@ -129,6 +156,8 @@ from repro_torch.data.request_source import (GeneratedSource,
                                              TableReplaySource)
 from repro_torch.data.synthetic import StreamingWorld, WorldConfig
 from repro_torch.device import resolve_device
+from repro_torch.distributed import multihost as mh
+from repro_torch.launch.mesh import make_request_mesh
 from repro_torch.models.recsys import dien, din, dssm, ydnn
 from repro_torch.obs import Obs, WindowEventLog
 from repro_torch.serving.pipeline import ServingPipeline
@@ -252,6 +281,7 @@ class ServeStack:
     reward_cfg: RewardModelConfig
     server: object = None  # default: source.universe
     exp: object = None
+    mesh: object = None  # the request mesh every pipeline is built over
 
     def __post_init__(self):
         if self.server is None:
@@ -271,16 +301,25 @@ class ServeStack:
         return self.pipelines[0]
 
 
+def routed(source, pipeline):
+    """``source`` as ``pipeline`` serves it: through a ``MultihostSource``
+    (this process's rows of every window) when the pipeline spans
+    processes, as it is otherwise."""
+    if pipeline.multihost and not isinstance(source, mh.MultihostSource):
+        return mh.MultihostSource(source, pipeline)
+    return source
+
+
 def _pipelines(server, params: dict, rcfg: RewardModelConfig,
                budget: float, scenario: str, *, tenants: int,
                tenant_mode: str, tenant_spread: float, obs,
-               device) -> list:
-    """The scenario's pipeline(s) over ``server``: none for the carbon
-    days (they build their own), one a tenant when tenants are
+               device, mesh=None) -> list:
+    """The scenario's pipeline(s) over ``server``, on ``mesh``: none for
+    the carbon days (they build their own), one a tenant when tenants are
     independent, else one."""
     if tenant_mode not in ("shared", "priced", "independent"):
         raise ValueError(f"unknown tenant mode {tenant_mode!r}")
-    kw = dict(obs=obs, device=device)
+    kw = dict(obs=obs, device=device, mesh=mesh)
     if scenario in CARBON_DAYS:
         return []
     if scenario != "tenants":
@@ -301,13 +340,13 @@ def build_stack(*, users: int = 100_000, requests: int = 512,
                 item_block: int = 256, small: bool = False,
                 tenants: int = 4, tenant_mode: str = "shared",
                 tenant_spread: float = 1.0, spike: float = 3.0, obs=None,
-                device=None) -> ServeStack:
+                device=None, mesh=None) -> ServeStack:
     """World, chains, random-weight stage and reward models, the
     ``GeneratedSource`` and the pipeline(s), all on ``device``; with
     ``scenario="tenants"``, ``tenants`` blocks a window under
     ``tenant_mode``.  The carbon days (``CARBON_DAYS``) build their
     pipelines themselves (``carbon_day``, ``region_day``), so their stack
-    holds none."""
+    holds none.  ``mesh`` is the request mesh of every pipeline."""
     dev = resolve_device(device)
     expose = (8 if small else FULL_EXPOSE) if expose is None else expose
     wcfg = world_config(users, small=small, seed=seed)
@@ -325,9 +364,11 @@ def build_stack(*, users: int = 100_000, requests: int = 512,
                            spike=spike)
     pipes = _pipelines(source.universe, rparams, rcfg, budget, scenario,
                        tenants=tenants, tenant_mode=tenant_mode,
-                       tenant_spread=tenant_spread, obs=obs, device=dev)
+                       tenant_spread=tenant_spread, obs=obs, device=dev,
+                       mesh=mesh)
     return ServeStack(source, pipes, sizes, budget,
-                      float(chains.costs.max()), dev, rparams, rcfg)
+                      float(chains.costs.max()), dev, rparams, rcfg,
+                      mesh=mesh)
 
 
 def table_sampler(exp, *, seed: int = 0):
@@ -354,11 +395,11 @@ def trained_stack(exp, server, params: dict, rcfg: RewardModelConfig, *,
                   windows: int = 12, scenario: str = "spike",
                   budget_frac: float = 0.6, seed: int = 0, tenants: int = 4,
                   tenant_mode: str = "shared", tenant_spread: float = 1.0,
-                  spike: float = 3.0, obs=None) -> ServeStack:
+                  spike: float = 3.0, obs=None, mesh=None) -> ServeStack:
     """The CLI's stack over ``experiments.build_serving_stack``'s trained
     experiment, materialized server and reward model, on the server's
     device, with the request ``source`` of ``--source`` (see the module
-    docstring)."""
+    docstring) and every pipeline on the request ``mesh``."""
     dev = server.device
     chains = exp.chains
     if source == "table":
@@ -389,9 +430,10 @@ def trained_stack(exp, server, params: dict, rcfg: RewardModelConfig, *,
                            spike=spike)
     pipes = _pipelines(server, params, rcfg, budget, scenario,
                        tenants=tenants, tenant_mode=tenant_mode,
-                       tenant_spread=tenant_spread, obs=obs, device=dev)
+                       tenant_spread=tenant_spread, obs=obs, device=dev,
+                       mesh=mesh)
     return ServeStack(src, pipes, sizes, budget, float(chains.costs.max()),
-                      dev, params, rcfg, server=server, exp=exp)
+                      dev, params, rcfg, server=server, exp=exp, mesh=mesh)
 
 
 def _sync(stack: ServeStack):
@@ -413,8 +455,9 @@ def serve(stack: ServeStack, *, sync: bool = True, prefetch: int = 2,
     else:
         sizes = [n // len(stack.pipelines) for n in sizes]
     with torch.no_grad():
-        return run_stream(pipeline, sizes, stack.source, prefetch=prefetch,
-                          obs=obs, sync=_sync(stack) if sync else None)
+        return run_stream(pipeline, sizes, routed(stack.source, pipeline),
+                          prefetch=prefetch, obs=obs,
+                          sync=_sync(stack) if sync else None)
 
 
 # -- the carbon days ----------------------------------------------------------
@@ -543,13 +586,13 @@ def carbon_day(stack: ServeStack, args, *, source=None,
     sched = cb.schedule(len(sizes))
     pipe = ServingPipeline(stack.server, stack.reward_params,
                            stack.reward_cfg, cb.flops_ref, ledger=ledger,
-                           obs=obs, device=stack.device)
+                           obs=obs, device=stack.device, mesh=stack.mesh)
     if args.carbon_pricing == "carbon":
         budgets, scales = sched["grams"], sched["scale"]
     else:
         budgets, scales = sched["flops_budget"], None
     with torch.no_grad():
-        st = run_stream(pipe, sizes, src, budget_trace=budgets,
+        st = run_stream(pipe, sizes, routed(src, pipe), budget_trace=budgets,
                         scale_trace=scales, forecast=args.ci_forecast,
                         prefetch=args.prefetch, obs=obs,
                         sync=_sync(stack))
@@ -687,9 +730,9 @@ def region_day(stack: ServeStack, args, *, source=None,
         stack.server, stack.reward_params, stack.reward_cfg,
         ConstraintSpec(axes), obs=obs,
         dual_cfg=DualDescentConfig(max_iters=300, step_decay=0.98),
-        device=stack.device)
+        device=stack.device, mesh=stack.mesh)
     with torch.no_grad():
-        st = run_stream(pipe, sizes, src, budget_trace=budgets,
+        st = run_stream(pipe, sizes, routed(src, pipe), budget_trace=budgets,
                         scale_trace=scales, forecast=args.ci_forecast,
                         prefetch=args.prefetch, obs=obs,
                         sync=_sync(stack))
@@ -926,18 +969,70 @@ def parser() -> argparse.ArgumentParser:
                     help="run under torch.profiler (CPU and CUDA "
                          "activities) and write its Chrome trace here; "
                          "host spans become record_function ranges")
+    ap.add_argument("--shards", type=int, default=0,
+                    help=">0: serve every window over an N-shard request "
+                         "mesh in this process")
+    ap.add_argument("--processes", type=int, default=0,
+                    help=">1: join a group of N serve processes (one a "
+                         "card); the request mesh then spans them and "
+                         "each process generates its rows of every "
+                         "window (see the module docstring)")
+    ap.add_argument("--process-id", type=int, default=None,
+                    help="this process's rank in the --processes group "
+                         "(default: $GREENFLOW_PROCESS_ID)")
+    ap.add_argument("--coordinator", default=None,
+                    help="host:port of the group's coordinator (process "
+                         "0's address; default: $GREENFLOW_COORDINATOR)")
     return ap
 
 
-def _make_obs(args):
-    """The telemetry bundle the obs flags ask for (None: off)."""
+def _make_obs(args, host: str | None = None):
+    """The telemetry bundle the obs flags ask for (None: off), its rows
+    and trace labelled ``host`` in a multi-process run."""
     if not (args.metrics_out or args.trace_out or args.obs_interval
             or args.profile_dir):
         return None
     events = (WindowEventLog(args.metrics_out + ".windows.jsonl")
               if args.metrics_out else None)
     return Obs(events=events, interval=args.obs_interval,
-               annotate=bool(args.profile_dir))
+               annotate=bool(args.profile_dir), host=host)
+
+
+def _join_group(args) -> str | None:
+    """``--processes``/``--coordinator``: the JAX CLI's refusals, word
+    for word, then join the group and suffix ``--metrics-out`` and
+    ``--trace-out`` with this process's label.  Returns the label (None
+    for one process)."""
+    if not (args.processes > 1 or args.coordinator):
+        return None
+    if args.legacy:
+        raise SystemExit("--processes runs the fused SPMD pipeline; "
+                         "--legacy is single-process")
+    if args.source == "table":
+        raise SystemExit("--processes needs a streaming --source "
+                         "(generated or memmap): every host "
+                         "generates its own slice of each window")
+    if args.shards > 0:
+        raise SystemExit("--shards picks a device subset; with "
+                         "--processes the mesh is always the full "
+                         "process-spanning device set (drop "
+                         "--shards)")
+    if args.scenario == "tenants" and args.tenant_mode == "independent":
+        raise SystemExit("--tenant-mode independent runs one "
+                         "pipeline per tenant; compose with "
+                         "--processes via shared or priced")
+    resolve_device(args.device)  # no card: raise before joining
+    if not mh.initialize(coordinator=args.coordinator,
+                         num_processes=args.processes or None,
+                         process_id=args.process_id, device=args.device):
+        raise SystemExit("--processes > 1 needs a --coordinator "
+                         "(or $GREENFLOW_COORDINATOR)")
+    host = mh.host_label()
+    for attr in ("metrics_out", "trace_out"):
+        if getattr(args, attr):
+            setattr(args, attr, getattr(args, attr) + "." + host)
+    print(f"[serve] multihost: {mh.host_report(make_request_mesh())}")
+    return host
 
 
 def _refuse(args) -> None:
@@ -962,17 +1057,23 @@ def _run(args, obs) -> tuple[float, float]:
     ``--device cpu``."""
     _refuse(args)
     dev = resolve_device(args.device)
+    mesh = make_request_mesh()  # a joined group's: one shard a process
+    if mesh.world == 1:
+        mesh = (make_request_mesh(args.shards)
+                if args.shards > 0 and not args.legacy else None)
     print("[serve] building world + training cascade & reward models ...")
     exp, server, params, rcfg = experiments.build_serving_stack(
         experiments.serve_config(small=args.small), verbose=True,
         device=dev)
+    if mesh is not None:  # every process serves the same model
+        print(f"[serve] reward params sha256 {mh.params_digest(params)}")
     stack = trained_stack(
         exp, server, params, rcfg, source=args.source, users=args.users,
         replay_dir=args.replay_dir, requests=args.requests,
         windows=args.windows, scenario=args.scenario,
         budget_frac=args.budget_frac, seed=args.seed, tenants=args.tenants,
         tenant_mode=args.tenant_mode, tenant_spread=tenant_spread(args),
-        spike=args.spike, obs=obs)
+        spike=args.spike, obs=obs, mesh=mesh)
     users = (len(stack.exp.ctx_eval) if args.source == "table"
              else getattr(stack.source, "n_users", args.users))
     print(f"[serve] device {stack.device}, {len(stack.sizes)} windows, "
@@ -1006,7 +1107,16 @@ def _run(args, obs) -> tuple[float, float]:
 
 def main(argv=None) -> int:
     args = parser().parse_args(argv)
-    obs = _make_obs(args)
+    host = _join_group(args)
+    try:
+        return _main(args, host)
+    finally:
+        if host is not None:
+            mh.shutdown()
+
+
+def _main(args, host) -> int:
+    obs = _make_obs(args, host)
     if args.profile_dir:
         acts = [ProfilerActivity.CPU]
         if args.device != "cpu":

@@ -32,11 +32,20 @@ option, so a later walk only lowers the spends an earlier one capped.
 
 ``downgraded`` counts requests whose final decision differs from the
 allocator's.
+
+Over a request mesh (``n_shards`` S > 1) every walk runs over the whole
+window with the JAX package's sharded sums: each prefix is a per-shard
+cumsum plus the shard's exclusive offset (the ordered sum of the earlier
+shards' totals), and ``n_total``, the spends and ``downgraded`` are
+shard-ordered sums (``distributed.sharding``).  One shard runs the
+unsharded walk itself.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
+
+from repro_torch.distributed.sharding import shard_prefix, shard_sum
 
 GUARD_PASSES = 4
 
@@ -78,47 +87,50 @@ def _valid(decisions, valid):
 
 
 def downgrade_guard(decisions, costs, budget, cheap, valid=None, *,
-                    k_of=None, passes: int = GUARD_PASSES):
+                    k_of=None, passes: int = GUARD_PASSES,
+                    n_shards: int = 1):
     """decisions (b,) int option index, costs (M,) f32 in the budget's
     units, valid (b,) 1.0 on real requests (None = all real).
 
     One budget (``k_of`` None): ``budget`` a number or 0-dim tensor,
     ``cheap`` an option index.  K budgets: ``k_of`` (b,) int maps each
     request to its constraint, ``budget`` is (K,) and ``cheap`` a (K,)
-    tensor or one index; ``spend`` comes back (K,).  Returns (decisions
-    int32, downgraded int32, spend f32) as device tensors."""
+    tensor or one index; ``spend`` comes back (K,).  ``n_shards`` splits
+    the window into that many request shards (see the module docstring).
+    Returns (decisions int32, downgraded int32, spend f32) as device
+    tensors."""
     decisions = decisions.to(torch.int32)
     costs = costs.to(torch.float32)
     valid = _valid(decisions, valid)
     if k_of is not None:
         return _downgrade_guard_k(decisions, costs, budget, cheap, valid,
-                                  k_of, passes)
+                                  k_of, passes, n_shards)
     c_min = costs[cheap]
-    n_prefix = torch.cumsum(valid, dim=0)  # inclusive
-    n_total = n_prefix[-1] if decisions.shape[0] else valid.sum()
+    n_prefix, n_total = shard_prefix(valid, n_shards)  # inclusive
     reserve = c_min * (n_total - n_prefix)  # valid requests after i
     orig = decisions
     real = valid > 0
     for _ in range(passes):
         c_dec = costs[decisions.long()]
         cd = c_dec * valid
-        kept_prefix = torch.cumsum(cd, dim=0) - cd  # spend before i
+        kept_prefix = shard_prefix(cd, n_shards)[0] - cd  # spend before i
         over = real & (kept_prefix + c_dec + reserve > budget)
         decisions = torch.where(over, torch.full_like(decisions, cheap),
                                 decisions)
-    spend = torch.sum(costs[decisions.long()] * valid)
-    downgraded = torch.sum(((decisions != orig) & real).to(torch.int32))
+    spend = shard_sum(costs[decisions.long()] * valid, n_shards)
+    downgraded = shard_sum(((decisions != orig) & real).to(torch.int32),
+                           n_shards)
     return decisions, downgraded, spend
 
 
-def _per_k_sum(x, onehot):
+def _per_k_sum(x, onehot, n_shards: int = 1):
     """(b,) values -> (K,) per-constraint sums, one (b,) sum a column."""
-    return torch.stack([torch.sum(x * onehot[:, k])
+    return torch.stack([shard_sum(x * onehot[:, k], n_shards)
                         for k in range(onehot.shape[1])])
 
 
 def _downgrade_guard_k(decisions, costs, budget, cheap, valid, k_of,
-                       passes):
+                       passes, n_shards: int = 1):
     """The per-constraint walk of ``downgrade_guard``: constraint k
     guards its own requests against budget[k], all K walks at once."""
     dev = decisions.device
@@ -137,15 +149,16 @@ def _downgrade_guard_k(decisions, costs, budget, cheap, valid, k_of,
               ).to(torch.float32)
 
     def per_k_prefix(x):
-        """(b,) -> inclusive per-k prefix (b, K), one cumsum a column."""
-        return torch.stack([torch.cumsum(x * onehot[:, k], dim=0)
-                            for k in range(k_n)], dim=1)
+        """(b,) -> inclusive per-k prefix (b, K), one cumsum a column,
+        and its (K,) totals."""
+        cols = [shard_prefix(x * onehot[:, k], n_shards)
+                for k in range(k_n)]
+        return (torch.stack([c[0] for c in cols], dim=1),
+                torch.stack([c[1] for c in cols]))
 
     # tail reserve: valid requests of k strictly after i (one nonzero
     # term a row, so the row sums below are exact in any order)
-    n_prefix = per_k_prefix(valid)
-    n_total = n_prefix[-1] if decisions.shape[0] else _per_k_sum(valid,
-                                                                 onehot)
+    n_prefix, n_total = per_k_prefix(valid)
     tail = torch.sum((n_total[None, :] - n_prefix) * onehot, dim=1)
     reserve = c_min_i * tail
     orig = decisions
@@ -153,16 +166,17 @@ def _downgrade_guard_k(decisions, costs, budget, cheap, valid, k_of,
     for _ in range(passes):
         c_dec = costs[decisions.long()]
         cd = c_dec * valid
-        kept_prefix = torch.sum(per_k_prefix(cd) * onehot, dim=1) - cd
+        kept_prefix = torch.sum(per_k_prefix(cd)[0] * onehot, dim=1) - cd
         over = real & (kept_prefix + c_dec + reserve > budget_i)
         decisions = torch.where(over, cheap_i, decisions)
-    spend = _per_k_sum(costs[decisions.long()] * valid, onehot)
-    downgraded = torch.sum(((decisions != orig) & real).to(torch.int32))
+    spend = _per_k_sum(costs[decisions.long()] * valid, onehot, n_shards)
+    downgraded = shard_sum(((decisions != orig) & real).to(torch.int32),
+                           n_shards)
     return decisions, downgraded, spend
 
 
 def downgrade_guard_chain(decisions, costs, plans, valid=None, *,
-                          passes: int = GUARD_PASSES):
+                          passes: int = GUARD_PASSES, n_shards: int = 1):
     """Per-constraint-family walks over one window, in order.
 
     ``plans`` is a sequence of ``(budget, cheap, k_of)`` triples, one a
@@ -179,7 +193,8 @@ def downgrade_guard_chain(decisions, costs, plans, valid=None, *,
     for budget, cheap, k_of in plans:
         k_now = k_of(decisions) if callable(k_of) else k_of
         decisions, _, _ = downgrade_guard(decisions, costs, budget, cheap,
-                                          valid, k_of=k_now, passes=passes)
+                                          valid, k_of=k_now, passes=passes,
+                                          n_shards=n_shards)
     cd = costs[decisions.long()] * valid
     spends = []
     for budget, _, k_of in plans:
@@ -187,7 +202,7 @@ def downgrade_guard_chain(decisions, costs, plans, valid=None, *,
         k_n = int(budget.shape[0])
         onehot = (k_of[:, None] == torch.arange(
             k_n, device=k_of.device)[None, :]).to(torch.float32)
-        spends.append(_per_k_sum(cd, onehot))
-    changed = torch.sum(((decisions != orig) & (valid > 0))
-                        .to(torch.int32))
+        spends.append(_per_k_sum(cd, onehot, n_shards))
+    changed = shard_sum(((decisions != orig) & (valid > 0))
+                        .to(torch.int32), n_shards)
     return decisions, changed, spends

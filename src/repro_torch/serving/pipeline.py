@@ -56,6 +56,31 @@ The spends the window reports are ordered masked sums - one (b,) sum a
 constraint, never a matmul or an atomic scatter - so they are exact
 wherever the costs make every f32 sum exact and repeat bit for bit on
 the card.
+
+Request mesh (``mesh``, a ``launch.mesh.RequestMesh`` of S shards over
+P processes): the pad quantum becomes lcm(pad_quantum, S), every window
+splits into S shards of b / S rows, and the window runs as three
+programs a bucket.  ``window/score`` scores this process's shards one at
+a time, each at its b / S rows, so a shard's rewards do not depend on
+where it runs; with P > 1 the processes then gather the window's (b, J)
+rewards through the host over the mesh's gloo group, one host sync a
+window (single-process runs, ``--shards S`` included, have none).
+``window/main`` runs the cross-shard seams - Eq. 10, the guard walks and
+the region flow split - over all S shards on every process, every
+cross-shard sum a shard-ordered fold of per-shard partials
+(``distributed.sharding``), and the truncation kernel over this
+process's rows, shard by shard; ``window/dual`` runs the dual loop over
+all S shards the same way.  Every process so computes the same prices,
+spends and decisions, bit for bit, and the same as one process at the
+same S; each process reports the decisions, revenue and regions of its
+own rows (``WindowResult.rows_global``) and the replicated prices and
+spends; with an ``obs`` the ``gather`` span times the gather, the wait
+for this process's own scoring included (the copy to the host waits
+for it).  A multi-process pipeline serves host slices
+(``serve_window(..., shard=)``, from a
+``distributed.multihost.MultihostSource``).  ``mesh=None``, the default,
+serves as before: two programs a bucket, the scoring inside
+``window/main``.
 """
 from __future__ import annotations
 
@@ -75,7 +100,10 @@ from repro_torch.core.reward_model import (RewardModelConfig,
                                            device_prefix_plan,
                                            reward_matrix_grouped)
 from repro_torch.device import resolve_device
+from repro_torch.distributed.sharding import (gather_shards, shard_prefix,
+                                              shard_sum)
 from repro_torch.graphs import Program, consume, record_event, side_stream
+from repro_torch.launch.mesh import mesh_local_shards, mesh_num_shards
 from repro_torch.obs import get_obs
 from repro_torch.serving.guard import downgrade_guard, downgrade_guard_chain
 from repro_torch.serving.spec import ConstraintSpec, spec_from_legacy
@@ -120,7 +148,12 @@ class WindowResult:
     realized FLOPs.  ``lam_before``/``lam_after`` are scalars in the
     single-price modes and (K,) vectors otherwise (``k_names`` order).
     With tenants and regions ``tr_spend`` is the (T, R) spend whose
-    marginals are ``tenant_spend`` and ``region_spend``."""
+    marginals are ``tenant_spend`` and ``region_spend``.
+
+    In a multi-process window ``decisions``, ``revenue``, ``regions`` and
+    ``valid`` cover this process's rows, ``rows_global`` their rows in the
+    padded window; prices and spends are the window's, alike on every
+    process."""
 
     n_valid: int
     budget: float
@@ -143,6 +176,7 @@ class WindowResult:
     h2d_bytes: int = 0
     prep_ms: float = 0.0  # host chunk production (set by run_stream)
     stall_ms: float = 0.0  # wait for a prefetched chunk (run_stream)
+    rows_global: np.ndarray | None = None  # this process's padded rows
 
     @property
     def decisions_np(self) -> np.ndarray:
@@ -162,31 +196,41 @@ class WindowResult:
 class _WindowProgram:
     """One padding bucket's window program: static inputs, two pinned
     staging slots used in turn, and the ``window/main`` and
-    ``window/dual`` programs on one graph pool.
+    ``window/dual`` programs (with a mesh also ``window/score``) on one
+    graph pool.
 
     The per-window numbers live in one device vector ``knobs`` (the
     budget, cost scale, dual budget and dual cost scale, and a price
     given on the host), filled by one pinned copy a window; ``budget``,
-    ``scale``, ``d_budget`` and ``d_scale`` are views of it."""
+    ``scale``, ``d_budget`` and ``d_scale`` are views of it.  Contexts,
+    rows and tables hold this process's rows ``[lo, hi)`` of the padded
+    window (all b rows unless the pipeline spans processes); ``valid``,
+    ``k_of`` and ``rewards`` the whole window."""
 
     def __init__(self, pipe: "ServingPipeline", b: int, padded: bool,
                  chunked: bool):
         dev = pipe.device
         cs = pipe._cs
         d = pipe.reward_cfg.d_context
-        self.ctx = torch.zeros((b, d), device=dev)
-        self.rows = torch.zeros(b, dtype=torch.int64, device=dev)
+        j_n = pipe.chains.n_chains
+        if pipe.multihost:
+            self.lo, self.hi = _host_rows(pipe.mesh, b)
+        else:
+            self.lo, self.hi = 0, b
+        rows_n = self.hi - self.lo
+        self.ctx = torch.zeros((rows_n, d), device=dev)
+        self.rows = torch.zeros(rows_n, dtype=torch.int64, device=dev)
         self.valid = torch.zeros(b, device=dev)
         self.k_of = torch.zeros(b, dtype=torch.int64, device=dev)
         if chunked:
             g_n, cap = len(pipe.server.compact.p_sorted), pipe._cap
-            self.p = torch.full((g_n, b, cap), cap, dtype=torch.int32,
+            self.p = torch.full((g_n, rows_n, cap), cap, dtype=torch.int32,
                                 device=dev)
-            self.ck = torch.zeros((g_n, b, cap), device=dev)
+            self.ck = torch.zeros((g_n, rows_n, cap), device=dev)
         else:  # the materialized server's tables, read by row
             self.p, self.ck = pipe._tables["p"], pipe._tables["ck"]
         self.lam = torch.zeros(pipe.lam.shape, device=dev)
-        self.rewards = torch.zeros((b, pipe.chains.n_chains), device=dev)
+        self.rewards = torch.zeros((b, j_n), device=dev)
         nb = 0 if cs.mode == "plain" else cs.budget_len()
         ns = 0 if cs.regions is None else cs.r_n
         self._knob_sizes = (nb, ns) * 2
@@ -200,21 +244,35 @@ class _WindowProgram:
         self.budget, self.scale, self.d_budget, self.d_scale = views
         self._lam_at = at
         pin = dev.type == "cuda"
-        self._slots = [[torch.zeros((b, d), pin_memory=pin),
-                        torch.zeros(b, dtype=torch.int64, pin_memory=pin),
+        self._slots = [[torch.zeros((rows_n, d), pin_memory=pin),
+                        torch.zeros(rows_n, dtype=torch.int64,
+                                    pin_memory=pin),
                         torch.zeros(b, pin_memory=pin),
                         torch.zeros(b, dtype=torch.int64, pin_memory=pin),
                         torch.zeros(width, pin_memory=pin), None]
                        for _ in range(2)]
         self._turn = 0
+        self.host_rows = self.host_all = None
+        if pipe.multihost:
+            # the rewards gather's host buffers: this process's rows and
+            # every process's, in shard order
+            world = pipe.mesh.world
+            self.host_rows = torch.zeros((rows_n, j_n), pin_memory=pin)
+            self.host_all = torch.zeros((world, rows_n, j_n),
+                                        pin_memory=pin)
         capture = pipe.graphs and dev.type == "cuda"
         kw = dict(capture=capture, stream=pipe._capture_stream,
                   pool=torch.cuda.graph_pool_handle() if capture else None)
+        self.programs = []
+        if pipe.mesh is not None:
+            self.score = Program(lambda: pipe._score(self), **kw)
+            self.programs.append(self.score)
         self.main = Program(lambda: pipe._main(self, padded), **kw)
         self.dual = Program(lambda: pipe._dual(self, padded), **kw)
+        self.programs += [self.main, self.dual]
 
     def builds(self) -> int:
-        return self.main.builds + self.dual.builds
+        return sum(p.builds for p in self.programs)
 
     def load(self, ctx: np.ndarray, rows: np.ndarray, valid: np.ndarray,
              k_of, knobs: list, tables, lam) -> int:
@@ -265,6 +323,19 @@ class _WindowProgram:
         return sum(t.numel() * t.element_size() for t in srcs)
 
 
+def _cat(parts: list):
+    """The parts' rows in order; one part as it is, without a copy."""
+    return parts[0] if len(parts) == 1 else torch.cat(parts)
+
+
+def _host_rows(mesh, b: int) -> tuple[int, int]:
+    """This process's rows [lo, hi) of a b-row window: its shards are
+    contiguous."""
+    per = b // mesh.n_shards
+    return mesh.first_shard * per, (mesh.first_shard
+                                    + mesh.local_shards) * per
+
+
 class ServingPipeline:
     """Per-window serving pass over a streaming universe or a
     materialized ``CascadeServer``.
@@ -284,11 +355,16 @@ class ServingPipeline:
     downgrade walk, ``downgraded`` 0 and the spend the decided costs of
     the valid requests.
 
+    ``mesh`` (a ``launch.mesh.RequestMesh``) shards every window over S
+    request shards (see the module docstring); a mesh that spans
+    processes makes the pipeline serve host slices (``multihost``).
+
     ``ledger`` (a ``carbon.CarbonLedger``) parks every served
     ``WindowResult`` for lazy metering; ``obs`` (a ``repro_torch.obs.Obs``)
     records the host spans ``h2d``, ``dispatch`` and ``dual_update``
-    around the window's loads and graph launches.  Neither reads a
-    device value inside the window, and neither changes a number.
+    around the window's loads and graph launches (with a mesh also
+    ``score`` and ``gather``).  Neither reads a device value inside the
+    window, and neither changes a number.
     """
 
     def __init__(self, server, reward_params: dict,
@@ -299,8 +375,11 @@ class ServingPipeline:
                  n_regions: int | None = None,
                  spec: ConstraintSpec | None = None, graphs: bool = True,
                  guard: bool = True, lam_init: float = 0.0,
-                 ledger=None, obs=None, device=None):
+                 ledger=None, obs=None, device=None, mesh=None):
         self.device = dev = resolve_device(device)
+        self.mesh = mesh
+        self.multihost = mesh is not None and mesh.world > 1
+        self._n_shards = mesh_num_shards(mesh)
         self.ledger = ledger
         self.obs = get_obs(obs)
         if spec is None:
@@ -323,7 +402,7 @@ class ServingPipeline:
             raise ValueError(f"bucketing must be 'linear' or 'pow2', "
                              f"got {bucketing!r}")
         self.bucketing = bucketing
-        q = int(pad_quantum)
+        q = math.lcm(int(pad_quantum), self._n_shards)
         if cs.t_n is not None:
             q = math.lcm(q, cs.t_n)
         self.pad_quantum = q
@@ -391,8 +470,8 @@ class ServingPipeline:
     def compile_count(self) -> int:
         """Window-program builds (CUDA graph captures on the card, first
         eager runs elsewhere) across every bucket so far: two per bucket,
-        the main pass and the dual loop.  Steady-state traffic on warm
-        buckets holds it still."""
+        the main pass and the dual loop (three with a mesh: the scoring
+        too).  Steady-state traffic on warm buckets holds it still."""
         return sum(p.builds() for p in self._programs.values())
 
     # -- the window programs -------------------------------------------------
@@ -404,15 +483,34 @@ class ServingPipeline:
             self._prefix_plan))
 
     def _execute(self, w, dec):
+        """Revenue of this process's rows ``dec``: one truncation launch
+        a local shard, at b / S rows (one at b rows without a mesh)."""
         d = dec.long()
-        return _revenue_compact(w.p, w.ck, self._g_of[d], w.rows,
-                                self._n3_of[d], expose=self._expose) * w.valid
+        per = d.shape[0] // mesh_local_shards(self.mesh)
+        return _cat([_revenue_compact(w.p, w.ck, self._g_of[d[at:at + per]],
+                                      w.rows[at:at + per],
+                                      self._n3_of[d[at:at + per]],
+                                      expose=self._expose)
+                     for at in range(0, d.shape[0], per)]
+                    ) * w.valid[w.lo:w.hi]
+
+    @torch.no_grad()
+    def _score(self, w) -> dict:
+        """The mesh's scoring: this process's rows, one local shard at a
+        time at b / S rows (a shard's own copy of its contexts), so each
+        shard is scored alike on any process."""
+        per = w.ctx.shape[0] // mesh_local_shards(self.mesh)
+        return {"rewards": _cat(
+            [self._rewards(w.ctx[at:at + per].clone())
+             for at in range(0, w.ctx.shape[0], per)])}
 
     @torch.no_grad()
     def _main(self, w, padded: bool) -> dict:
-        """Response path: score -> decide -> guard -> execute."""
-        rewards = self._rewards(w.ctx)
+        """Response path: score -> decide -> guard -> execute (with a
+        mesh the rewards come scored and gathered)."""
+        rewards = self._rewards(w.ctx) if self.mesh is None else w.rewards
         mask = w.valid if padded else None
+        n_sh = self._n_shards
         mode = self._cs.mode
         if mode == "geotenants":
             out = self._main_geotenants(w, rewards, mask)
@@ -429,17 +527,24 @@ class ServingPipeline:
                 out = self._unguarded(dec, costs, w)
             elif mode == "tenants":
                 dec, dg, t_spend = downgrade_guard(
-                    dec, costs, w.budget, self._cheap, mask, k_of=w.k_of)
+                    dec, costs, w.budget, self._cheap, mask, k_of=w.k_of,
+                    n_shards=n_sh)
                 out = {"dec": dec, "dg": dg, "spend": torch.sum(t_spend),
                        "t_spend": t_spend}
             else:
                 dec, dg, spend = downgrade_guard(dec, costs, w.budget,
-                                                 self._cheap, mask)
+                                                 self._cheap, mask,
+                                                 n_shards=n_sh)
                 out = {"dec": dec, "dg": dg, "spend": spend}
         dec = out["dec"]
-        out["rewards"] = rewards
-        out["flops"] = torch.sum(self._costs[dec.long()] * w.valid)
-        out["rev"] = self._execute(w, dec)
+        if self.mesh is None:
+            out["rewards"] = rewards
+        out["flops"] = shard_sum(self._costs[dec.long()] * w.valid, n_sh)
+        if self.multihost:  # this process reports its own rows
+            for name in ("dec", "regions"):
+                if name in out:
+                    out[name] = out[name][w.lo:w.hi]
+        out["rev"] = self._execute(w, out["dec"])
         return out
 
     @staticmethod
@@ -447,12 +552,12 @@ class ServingPipeline:
         """The guard's downgrade count where no guard runs."""
         return torch.zeros((), dtype=torch.int32, device=dec.device)
 
-    @classmethod
-    def _unguarded(cls, dec, costs, w) -> dict:
+    def _unguarded(self, dec, costs, w) -> dict:
         """The Eq. 10 decisions as served without a guard: nothing
         downgraded, the spend the decided costs over the valid rows."""
-        return {"dec": dec, "dg": cls._no_downgrades(dec),
-                "spend": torch.sum(costs[dec.long()] * w.valid)}
+        return {"dec": dec, "dg": self._no_downgrades(dec),
+                "spend": shard_sum(costs[dec.long()] * w.valid,
+                                   self._n_shards)}
 
     def _region_setup(self, w, rewards):
         """Region-major option costs (m = r*J + j) and the eps_green
@@ -471,8 +576,7 @@ class ServingPipeline:
         ``share[r]`` fraction of it (an interval assignment on the
         cumulative mass, exact up to one request per region)."""
         edges = torch.cumsum(share, dim=0)  # (R,) right edges in (0, 1]
-        prefix = torch.cumsum(flops_mass, dim=0)
-        total = prefix[-1]
+        prefix, total = shard_prefix(flops_mass, self._n_shards)
         pos = (prefix - 0.5 * flops_mass) / torch.clamp(total, min=1e-30)
         return torch.sum((pos[:, None] > edges[None, :-1]).to(torch.int64),
                          dim=1)
@@ -516,13 +620,14 @@ class ServingPipeline:
                     "dec": dec_m % j_n, "regions": dec_m // j_n}
         dec_m, dg, r_spend = downgrade_guard(
             dec_m, opt_costs, w.budget, self._cheap_k, mask,
-            k_of=dec_m.long() // j_n)
+            k_of=dec_m.long() // j_n, n_shards=self._n_shards)
         return {"dec": dec_m % j_n, "dg": dg, "spend": torch.sum(r_spend),
                 "regions": dec_m // j_n, "r_spend": r_spend}
 
     def _main_geotenants(self, w, rewards, mask) -> dict:
         cs, costs, lam, scales = self._cs, self._costs, w.lam, w.scale
         j_n, t_n, r_n = costs.shape[0], cs.t_n, cs.r_n
+        n_sh = self._n_shards
         opt_costs, eps_green = self._region_setup(w, rewards)
         if cs.tenant_priced:
             lam_r = lam[t_n:]
@@ -545,7 +650,7 @@ class ServingPipeline:
             is_tied = torch.sum(tied_ir.to(torch.int32), dim=1) > 1
             # region capacity left after the untied requests
             untied = f * (~is_tied).to(torch.float32)
-            fixed = torch.stack([torch.sum(untied * (r0 == r))
+            fixed = torch.stack([shard_sum(untied * (r0 == r), n_sh)
                                  for r in range(r_n)])
             # shares only cover regions inside some tied request's band
             any_tied = torch.any(tied_ir & is_tied[:, None], dim=0)
@@ -568,7 +673,7 @@ class ServingPipeline:
                 dec_m, opt_costs,
                 [(w.budget[:t_n], torch.argmin(opt_costs), w.k_of),
                  (w.budget[t_n:], self._cheap_k, lambda d: d.long() // j_n)],
-                mask)
+                mask, n_shards=n_sh)
         else:
             dg = self._no_downgrades(dec_m)
         region = dec_m // j_n
@@ -577,7 +682,7 @@ class ServingPipeline:
         cd = opt_costs[dec_m.long()] * w.valid
         in_t = [w.k_of == t for t in range(t_n)]
         in_r = [region == r for r in range(r_n)]
-        tr_spend = torch.stack([torch.stack([torch.sum(cd * (a & b))
+        tr_spend = torch.stack([torch.stack([shard_sum(cd * (a & b), n_sh)
                                              for b in in_r]) for a in in_t])
         return {"dec": dec_m % j_n, "dg": dg, "spend": torch.sum(tr_spend),
                 "regions": region, "t_spend": torch.sum(tr_spend, dim=1),
@@ -614,7 +719,7 @@ class ServingPipeline:
         lam, _ = dual_descent(
             rewards, costs, budget, w.lam, mask=mask, member=member,
             max_iters=cfg.max_iters, step_size=cfg.step_size,
-            step_decay=cfg.step_decay)
+            step_decay=cfg.step_decay, n_shards=self._n_shards)
         return {"lam": lam}
 
     # -- public API ----------------------------------------------------------
@@ -674,7 +779,7 @@ class ServingPipeline:
                      lam=None, update_lam: bool = True, budget=None,
                      cost_scale=None, dual_budget=None,
                      dual_cost_scale=None, tables: dict | None = None,
-                     ready=None) -> WindowResult:
+                     ready=None, shard=None) -> WindowResult:
         """Serve one window: ctx (n, d_context) raw contexts; rows (n,)
         user rows of a materialized server, or with ``tables`` (a
         ``WindowChunk``'s (G, n, cap) tables, required over a streaming
@@ -693,10 +798,22 @@ class ServingPipeline:
         nearline update at another (budget, scale) - the next window's,
         for the CI-forecast warm start (default: this window's).
         ``ready`` is the chunk's event (``WindowChunk.ready``) when its
-        tables were made on another stream."""
+        tables were made on another stream.
+
+        ``shard`` (a ``distributed.multihost.HostWindowSlice``, carried by
+        a ``MultihostSource`` chunk) serves a multi-process window:
+        ``ctx``, ``rows`` and ``tables`` are this process's padded rows of
+        the window, ``shard`` its global request count and bucket."""
         dev = self.device
         cs = self._cs
-        n = len(rows)
+        if shard is not None and not self.multihost:
+            raise ValueError("serve_window(shard=...) needs a pipeline "
+                             "built over the multi-process mesh "
+                             "(multihost=True)")
+        if self.multihost and shard is None:
+            raise ValueError("a multihost pipeline serves host slices: "
+                             "pass shard= (use a MultihostSource)")
+        n = len(rows) if shard is None else int(shard.n)
         if self._stream_only != (tables is not None) and n:
             raise ValueError(
                 "a streaming universe's windows carry their chunk tables "
@@ -736,6 +853,10 @@ class ServingPipeline:
                 self.ledger.record_result(res)
             return res
         chunked = self._stream_only
+        if shard is not None and not chunked:
+            raise ValueError("multihost serving streams chunk tables; "
+                             "materialized (U, J) serving is "
+                             "single-process only")
         run_tables = None
         table_h2d = 0
         if chunked:
@@ -743,12 +864,13 @@ class ServingPipeline:
                 table_h2d = int(tables["p"].nbytes + tables["ck"].nbytes)
             p = torch.as_tensor(tables["p"])
             ck = torch.as_tensor(tables["ck"])
-            if p.shape[1] != n:
+            if p.shape[1] != len(rows):
                 raise ValueError(f"chunk tables carry {p.shape[1]} rows "
-                                 f"for a {n}-request window")
+                                 f"for a {len(rows)}-row window")
             consume((p, ck), ready)
             run_tables = (p, ck)
         b = self.window_bucket(n)
+        # every process derives the whole window's layout from (n, b)
         perm, valid, k_of = window_layout(n, b, cs.t_n)
         key = (b, b != n)
         c0 = self.compile_count()
@@ -756,14 +878,25 @@ class ServingPipeline:
         if prog is None:
             prog = self._programs[key] = _WindowProgram(self, b, b != n,
                                                         chunked)
-        real = valid > 0
-        ctx_p = np.zeros((b, np.shape(ctx)[1]), np.float32)
-        ctx_p[real] = np.asarray(ctx, np.float32)[perm[real]]
-        if chunked:  # rows index the padded chunk
-            rows_p = perm
+        if shard is not None:  # this process's rows, already laid out
+            if (int(shard.b) != b or len(rows) != prog.hi - prog.lo
+                    or not np.array_equal(np.asarray(shard.valid),
+                                          valid[prog.lo:prog.hi])):
+                raise ValueError(
+                    f"host slice of {len(rows)} rows (bucket {shard.b}) "
+                    f"does not match rows [{prog.lo}, {prog.hi}) of the "
+                    f"{n}-request window's {b}-row layout")
+            ctx_p = np.asarray(ctx, np.float32)
+            rows_p = np.asarray(rows, np.int64)
         else:
-            rows_p = np.zeros(b, np.int64)
-            rows_p[real] = np.asarray(rows, np.int64)[perm[real]]
+            real = valid > 0
+            ctx_p = np.zeros((b, np.shape(ctx)[1]), np.float32)
+            ctx_p[real] = np.asarray(ctx, np.float32)[perm[real]]
+            if chunked:  # rows index the padded chunk
+                rows_p = perm
+            else:
+                rows_p = np.zeros(b, np.int64)
+                rows_p[real] = np.asarray(rows, np.int64)[perm[real]]
         knobs = [b_knob, s_knob,
                  b_knob if dual_budget is None else dual_budget,
                  s_knob if dual_cost_scale is None else dual_cost_scale]
@@ -772,10 +905,17 @@ class ServingPipeline:
                                         run_tables,
                                         self.lam if lam is None else lam)
         lam_before = prog.lam.clone()
+        if self.mesh is not None:
+            with self.obs.span("score", n=n, b=b), \
+                    record_function("window/score"):
+                scored = prog.score()["rewards"]
+            with self.obs.span("gather", n=n, b=b):
+                self._gather_rewards(prog, scored)
         with self.obs.span("dispatch", n=n, b=b), \
                 record_function("window/main"):
             out = prog.main()
-        prog.rewards.copy_(out["rewards"])
+        if self.mesh is None:
+            prog.rewards.copy_(out["rewards"])
         with self.obs.span("dual_update", n=n, b=b), \
                 record_function("window/dual"):
             lam_new = prog.dual()["lam"]
@@ -792,15 +932,26 @@ class ServingPipeline:
             n_valid=n, budget=bud, lam_before=lam_before,
             lam_after=lam_after, decisions=own("dec"), revenue=own("rev"),
             spend=own("spend"), downgraded=own("dg"),
-            valid=valid, flops=own("flops"), cost_scale=sc,
-            tenant_spend=own("t_spend"), regions=own("regions"),
-            region_spend=own("r_spend"), tr_spend=own("tr_spend"),
-            k_budget=k_budget, compiles=self.compile_count() - c0,
-            bucket=key, h2d_bytes=int(h2d))
+            valid=valid[prog.lo:prog.hi], flops=own("flops"),
+            cost_scale=sc, tenant_spend=own("t_spend"),
+            regions=own("regions"), region_spend=own("r_spend"),
+            tr_spend=own("tr_spend"), k_budget=k_budget,
+            compiles=self.compile_count() - c0, bucket=key,
+            h2d_bytes=int(h2d),
+            rows_global=(np.arange(prog.lo, prog.hi) if self.multihost
+                         else None))
         self.stats.append(res)
         if self.ledger is not None:  # parks the record: no device read
             self.ledger.record_result(res)
         return res
+
+    def _gather_rewards(self, prog, scored) -> None:
+        """This process's scored rows -> the window's (b, J) rewards in
+        ``prog.rewards``, through the program's pinned host buffers over
+        P > 1 processes (``distributed.sharding.gather_shards``: its copy
+        to the host waits for the scoring)."""
+        gather_shards(scored, self.mesh, host=prog.host_rows,
+                      every=prog.host_all, out=prog.rewards)
 
     def spend_trace(self) -> np.ndarray:
         return np.array([float(torch.sum(r.spend)) for r in self.stats])

@@ -215,7 +215,9 @@ def run_stream(pipeline: ServingPipeline, sizes: list[int], source, *,
     the windows gather), or a callable ``sample_window(t, n) -> (ctx,
     rows)`` indexing a materialized server.
 
-    ``prefetch`` > 0: one producer thread, running on its own CUDA
+    A chunk's ``shard`` (a ``MultihostSource``'s host slice) goes to
+    ``serve_window`` with it.  ``prefetch`` > 0: one producer thread,
+    running on its own CUDA
     stream, makes the chunks strictly in window order into a queue of
     depth ``prefetch``; its exception is raised in the serving thread.
     A chunk's tables reach the serving stream through its ``ready``
@@ -277,19 +279,20 @@ def run_stream(pipeline: ServingPipeline, sizes: list[int], source, *,
             if streaming:
                 chunk = source.window(t, n)
                 item = (chunk.ctx, chunk.rows, chunk.tables,
-                        getattr(chunk, "ready", None), int(chunk.h2d_bytes))
+                        getattr(chunk, "ready", None), int(chunk.h2d_bytes),
+                        getattr(chunk, "shard", None))
             else:
                 ctx, rows = source(t, n)
-                item = (ctx, rows, None, None, 0)
+                item = (ctx, rows, None, None, 0, None)
             return item, (clock() - p0) * 1e3
 
     def serve(t: int, item, stall: float) -> None:
-        (ctx, rows, tables, ready, h2d), prep_ms = item
+        (ctx, rows, tables, ready, h2d, shard), prep_ms = item
         t_next = min(t + 1, last)  # the last window has nothing to aim at
         d0 = clock()
         with obs.span("serve", t=t, n=sizes[t]):
             res = pipeline.serve_window(
-                ctx, rows, tables=tables, ready=ready,
+                ctx, rows, tables=tables, ready=ready, shard=shard,
                 lam=None if lam_trace is None else lam_trace[t],
                 budget=None if budget_trace is None else budget_trace[t],
                 cost_scale=None if scale_trace is None else scale_trace[t],

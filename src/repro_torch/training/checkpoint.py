@@ -12,8 +12,8 @@ package restores in the other, bit for bit.
 * ``keep``: the most recent ``keep`` checkpoints are kept;
 * ``restore`` reads through ``bridge.read_checkpoint`` (which also reads
   bfloat16 leaves) into the structure, dtypes and devices of a target
-  tree.  Restoring onto a mesh waits for the multi-process port (ROADMAP
-  queue A item 12).
+  tree.  Restoring onto a mesh waits for the model-parallel training port
+  (ROADMAP queue A item 26).
 """
 from __future__ import annotations
 
@@ -91,8 +91,8 @@ def restore(ckpt_dir: str, target, *, step: int | None = None, mesh=None):
     device."""
     if mesh is not None:
         raise NotImplementedError("restoring onto a mesh waits for the "
-                                  "multi-process port (ROADMAP queue A "
-                                  "item 12)")
+                                  "model-parallel training port (ROADMAP "
+                                  "queue A item 26)")
     flat, manifest = read_checkpoint(ckpt_dir, step=step)
     out = []
     for key, leaf in leaves_with_paths(target):

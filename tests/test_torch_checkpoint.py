@@ -140,5 +140,5 @@ def test_atomic_save_keep_and_latest(tmp_path):
     assert ck.latest_step(str(tmp_path / "none")) is None
     with pytest.raises(KeyError, match="missing leaf 'extra'"):
         ck.restore(str(tmp_path), {**state, "extra": torch.zeros(1)})
-    with pytest.raises(NotImplementedError, match="queue A item 12"):
+    with pytest.raises(NotImplementedError, match="queue A item 26"):
         ck.restore(str(tmp_path), state, mesh=object())

@@ -1080,3 +1080,19 @@ def test_unguarded_window_graphs_bitwise_eager(cuda, mode):
             assert torch.equal(getattr(got, name), getattr(want, name)), \
                 (t, name)
     assert compiles == [2, 0, 2, 0]
+
+
+@pytest.mark.parametrize("job", ["plain", "geotenants"])
+def test_two_processes_on_the_card_equal_one(cuda, tmp_path, job):
+    """Two processes on the card (a gloo group through the host) serve
+    the cheap replay stack at S = 8 as one process does, bit for bit:
+    every host's prices and spends, the stitched decisions and regions,
+    zero steady-state captures."""
+    import torch_mh_child as child
+
+    ref = child.finish(child.start(1, job, tmp_path, "ref", device="cuda"))
+    two = child.finish(child.start(2, job, tmp_path, "two", device="cuda"))
+    child.assert_group_matches(ref[0], two, job)
+    for h in [*ref, *two]:
+        assert h["host"]["platform"] == "gpu"
+        assert h["jobs"][job]["steady_compiles"] == 0

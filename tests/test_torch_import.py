@@ -107,6 +107,33 @@ def test_training_modules_import_with_jax_and_repro_poisoned():
                                   "repro_torch.training.trainer"]
 
 
+def test_multihost_modules_import_with_jax_and_repro_poisoned():
+    """The request mesh, the shard-ordered sums, multi-process serving
+    and the serving CLI that drives them stand alone: imported with
+    ``jax`` and ``repro`` poisoned, they pull in neither."""
+    code = textwrap.dedent("""
+        import sys
+        sys.modules["jax"] = None
+        sys.modules["repro"] = None
+        import repro_torch.distributed.sharding
+        import repro_torch.distributed.multihost
+        import repro_torch.launch.mesh
+        import repro_torch.launch.serve
+        assert not any(k == "jax" or k.startswith(("jax.", "repro."))
+                       for k, v in sys.modules.items() if v is not None)
+        print(" ".join(sorted(k for k, v in sys.modules.items()
+                              if v is not None and k.startswith(
+                                  "repro_torch.distributed"))))
+    """)
+    env = dict(os.environ, PYTHONPATH=SRC)
+    out = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.split() == ["repro_torch.distributed",
+                                  "repro_torch.distributed.multihost",
+                                  "repro_torch.distributed.sharding"]
+
+
 def test_training_entry_points_raise_without_a_card(monkeypatch):
     from repro_torch import experiments
     from repro_torch.launch import train
