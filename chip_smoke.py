@@ -135,6 +135,23 @@ In order, it
      and holds the two runs' decisions and prices against each other;
      runs smoke_config DLRM and xDeepFM from one seed on both and holds
      their logits against each other;
+  6b. (after 7) BST's four cells at ``full_config()`` (a 4 M-item table,
+     f32, no kernel on the path, so no launch at all): serve_p99 (B =
+     512) x 10, serve_bulk (262,144) x 2, retrieval_cand (1 x 1,000,000
+     in 8 chunks) x 1, train_batch (65,536, AdamW) x 3, each after a warm
+     call: ms, model TFLOP/s, peak memory, finite logits and losses;
+     serve_p99's logits held to the port's CPU run of the same weights
+     and batch (1e-5), the retrieval's first 512 candidates to
+     ``forward`` on the broadcast batch (1e-5);
+  6c. SchNet's four train cells at ``full_config(shape)`` and the JAX
+     sizes, nothing cut (ogb_products: 2,449,029 nodes, 61,859,328
+     edges, in 15 edge chunks recomputed in the backward): one warm and
+     5 timed steps (2 at ogb_products), no launch, ms, model TFLOP/s,
+     peak memory, the losses; at molecule and full_graph_sm the chunked
+     path (1,000-edge chunks) against the unchunked one on the card
+     (loss 1e-5, gradients 5e-5 of their largest magnitude) and whether
+     two identical gradient evaluations are bitwise equal (``index_add``
+     sums by atomics: a finding, not a gate);
   8. serves gemma2-2b at ``full_config()`` in bf16: prefill of one
      32,760-token sequence and 8 greedy decode steps, its launches
      counted; then, outside that count, holds the first step against a
@@ -147,6 +164,16 @@ In order, it
      check's two f32 prefills, whose wall times it prints); the profiled
      prefill prints the wgmma kernel's share of device busy; then gemma2
      smoke_config on the card against the CPU;
+  8b. glm4-9b and minicpm-2b at ``full_config()``: the bf16 kernel at
+     each one's head layout (32 query heads on 2 kv heads at dh = 128;
+     36 heads at dh = 64), B = 1, T = S = 8,192, causal, against its
+     plain version (2e-2), timed beside it and beside SDPA, with its
+     bound; the prefill_32k and decode_32k cells at the config modules'
+     cut batches (glm4 B = 4 and 32, minicpm B = 4 and 4) after a warm
+     call, x 1 and x 4, the wgmma kernel 40 times a prefill forward and
+     never in decode, a profiled decode step; then the f32 step(T) =
+     prefill(T + 1) identity at T = 16,376 and full depth within 2e-3,
+     the f32 kernel 80 times;
   9. trains on the card.  9a: DIN's train_batch cell at
      ``full_config()`` (10 M items, B = 65,536) through
      ``configs.get_arch("din").make_cell("train_batch")``, one warm and
@@ -214,10 +241,11 @@ In order, it
      same reward-parameter digest on all three, every window's price
      and spend in the ``.host0`` and ``.host1`` flight logs equal to
      ``--shards 2``'s;
- 12. prints the ``kernels`` JSON line (the backward kernels' launches
-     are the training paths'; phase 11's members' launches are added to
-     the window kernels' counts), the card line and, last, the
-     ``{"ok": true, ...}`` line.
+ 12. prints the smoke's wall time, the ``kernels`` JSON line (the
+     backward kernels' launches are the training paths'; phase 11's
+     members' launches are added to the window kernels' counts; the
+     wgmma row carries phase 8b's head-layout rows), the card line and,
+     last, the ``{"ok": true, ...}`` line.
 
 Any failed check raises and the script exits non-zero without the last
 line.  Without a CUDA device, or without the repository's ``src/``
@@ -2151,9 +2179,190 @@ def small_parity(seed: int):
         f"{rev[0]:.0f} vs {rev[1]:.0f}")
 
 
+# -- phase 6b: BST at full width ----------------------------------------------
+
+BST_CALLS = {"serve_p99": 10, "serve_bulk": 2, "retrieval_cand": 1,
+             "train_batch": 3}
+
+
+def run_cell(label: str, cell, args, calls: int):
+    """One warm call of ``cell.fn`` and ``calls`` timed ones (a train
+    cell's calls are steps, each on the state the last returned), the
+    launch counters reset before; raises if any kernel launched (the
+    cells of BST and SchNet reach none).  Returns (args, last output,
+    the timed calls' ms, the losses of every step, the peak GB)."""
+    import torch
+    from repro_torch.kernels import ops
+
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    times, losses = [], []
+    for i in range(1 + calls):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = cell.fn(*args)
+        torch.cuda.synchronize()
+        if i:
+            times.append((time.perf_counter() - t0) * 1e3)
+        if cell.kind == "train":
+            state, loss = out
+            args = (state, *args[1:])
+            losses.append(float(loss))
+    if any(ops.LAUNCHES.values()):
+        raise AssertionError(f"{label}: launched {dict(ops.LAUNCHES)}; its "
+                             f"path has no kernel")
+    if losses and not all(math.isfinite(v) for v in losses):
+        raise AssertionError(f"{label}: losses {losses}")
+    return (args, out, times, losses,
+            torch.cuda.max_memory_allocated() / 1e9)
+
+
+def cell_line(label, cell, setup_s, times, peak_gb) -> str:
+    tflop = cell.meta["model_flops"] / 1e12
+    return (f"{label}: set-up {setup_s:.2f} s; calls "
+            f"{', '.join(f'{t:.3f}' for t in times)} ms; "
+            f"{tflop / (min(times) * 1e-3):.3f} model TFLOP/s at the "
+            f"fastest; peak memory {peak_gb:.2f} GB")
+
+
+def serve_bst(seed: int) -> None:
+    """BST's four cells at ``full_config()`` (4 M items, every batch at its
+    published size), one warm call and ``BST_CALLS[shape]`` timed ones
+    each, no kernel launched.  serve_p99's logits on the card against the
+    port's CPU run of the same weights and batch (1e-5);
+    retrieval_cand's first 512 candidates against ``forward`` on the
+    user's row broadcast to them (1e-5); train_batch's losses finite."""
+    import gc
+
+    import torch
+    from repro_torch import configs
+    from repro_torch.models import layers as L
+
+    mod = configs.get_arch("bst")
+    cfg = mod.full_config()
+    model = mod.model
+    for shape, calls in BST_CALLS.items():
+        cell = mod.make_cell(shape, cfg=cfg)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        args = cell.make_args(seed, "cuda")
+        torch.cuda.synchronize()
+        setup_s = time.perf_counter() - t0
+        label = f"bst x {shape}"
+        args, out, times, losses, peak_gb = run_cell(label, cell, args,
+                                                     calls)
+        line = cell_line(label, cell, setup_s, times, peak_gb)
+        if cell.kind == "train":
+            log(f"{line}; losses {', '.join(f'{v:.6f}' for v in losses)}")
+        else:
+            n = (args[2].shape[0] if cell.kind == "retrieval"
+                 else args[1]["item_id"].shape[0])
+            if out.shape != (n,) or not torch.isfinite(out).all():
+                raise AssertionError(f"{label}: logits {tuple(out.shape)} "
+                                     f"not finite (n={n})")
+            log(f"{line}; logits sum {float(out.double().sum()):.6f}")
+        if shape == "serve_p99":
+            with torch.no_grad():
+                want = model.forward(L.to_device(args[0], "cpu"), cfg,
+                                     L.to_device(args[1], "cpu"))
+            err = close(out, want.cuda(), 1e-5)
+            log(f"bst serve_p99 card vs cpu (same weights and batch): max "
+                f"abs err {err:.3e} (tol 1e-5)")
+        if cell.kind == "retrieval":
+            params, user, cid, ccat = args
+            c = 512
+            with torch.no_grad():
+                full = {k: v.expand(c, v.shape[1]) for k, v in user.items()}
+                full.update(item_id=cid[:c], item_cat=ccat[:c])
+                err = close(out[:c], model.forward(params, cfg, full), 1e-5)
+            log(f"bst retrieval == forward on the broadcast batch (first "
+                f"{c} candidates): max abs err {err:.3e}")
+        del args, out, cell
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+# -- phase 6c: SchNet's four train cells ---------------------------------------
+
+SCHNET_STEPS = {"molecule": 5, "full_graph_sm": 5, "minibatch_lg": 5,
+                "ogb_products": 2}
+SCHNET_CHUNK = 1000  # edges a chunk in the chunked-vs-unchunked check
+
+
+def schnet_grads(model, cfg, params, batch, **kw):
+    from repro_torch.training.trainer import value_and_grad
+    return value_and_grad(lambda p, b: model.loss_fn(p, cfg, b, **kw),
+                          params, batch)
+
+
+def check_schnet_chunks(label, model, cfg, params, batch) -> None:
+    """The chunked path, forced by SCHNET_CHUNK-edge chunks, against the
+    unchunked one on the card: the loss within 1e-5 and every gradient
+    within 5e-5 of its largest magnitude (both sum the messages by
+    atomics, in other orders); then the finding: two identical unchunked
+    gradient evaluations, bit for bit equal or not."""
+    import torch
+    from repro_torch.tree import leaves
+
+    loss, grads = schnet_grads(model, cfg, params, batch)
+    c_loss, c_grads = schnet_grads(model, cfg, params, batch,
+                                   edge_chunk=SCHNET_CHUNK)
+    err = close(c_loss, loss, 1e-5)
+    g_err = max(float((got - want).abs().max())
+                / max(float(want.abs().max()), 1e-30)
+                for got, want in zip(leaves(c_grads), leaves(grads)))
+    if not g_err <= 5e-5:
+        raise AssertionError(f"{label}: chunked gradients differ by {g_err} "
+                             f"of their largest magnitude")
+    n_chunks = -(-batch["src"].shape[0] // SCHNET_CHUNK)
+    r_loss, r_grads = schnet_grads(model, cfg, params, batch)
+    same = bool(torch.equal(r_loss, loss)) and all(
+        torch.equal(a, b) for a, b in zip(leaves(r_grads), leaves(grads)))
+    log(f"{label} chunked ({n_chunks} chunks of {SCHNET_CHUNK} edges, "
+        f"recomputed) vs unchunked on the card: loss max abs err "
+        f"{err:.3e} (tol 1e-5), gradients {g_err:.3e} of their largest "
+        f"magnitude (tol 5e-5); two identical gradient evaluations "
+        f"bitwise equal: {same} (index_add sums by atomics)")
+
+
+def train_schnet(seed: int) -> None:
+    """SchNet's four train cells at ``full_config(shape)`` and the JAX
+    sizes, nothing cut: one warm step and ``SCHNET_STEPS[shape]`` timed
+    ones each, no kernel launched, finite losses; ms a step, model
+    TFLOP/s, peak memory.  minibatch_lg's set-up includes sampling the
+    1,024-seed subgraph on the host; ogb_products (61.9 M edges) runs in
+    15 edge chunks with recompute.  At molecule and full_graph_sm,
+    ``check_schnet_chunks``."""
+    import gc
+
+    import torch
+    from repro_torch import configs
+
+    mod = configs.get_arch("schnet")
+    for shape, steps in SCHNET_STEPS.items():
+        cell = mod.make_cell(shape)
+        cfg = mod.full_config(shape)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        args = cell.make_args(seed, "cuda")
+        torch.cuda.synchronize()
+        setup_s = time.perf_counter() - t0
+        label = (f"schnet x {shape} (N={cell.meta['n_nodes']}, "
+                 f"E={cell.meta['n_edges']})")
+        params0 = args[0].params
+        args, _, times, losses, peak_gb = run_cell(label, cell, args, steps)
+        log(f"{cell_line(label, cell, setup_s, times, peak_gb)}; losses "
+            f"{', '.join(f'{v:.6f}' for v in losses)}")
+        if shape in ("molecule", "full_graph_sm"):
+            check_schnet_chunks(f"schnet x {shape}", mod.model, cfg,
+                                params0, args[1])
+        del args, params0, cell
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
 # -- phase 8: gemma2-2b at full width ---------------------------------------
 
-LM_LAYERS = 26  # flash launches per prefill forward
 LM_SERVE_T, LM_SERVE_MAX, LM_DECODE_STEPS = 32760, 32768, 8
 LM_STEP_TOL = 2e-3  # f32 decode step vs f32 prefill(T + 1)
 BF16_FLASH, F32_FLASH = "flash_attention_wgmma", "flash_attention"
@@ -2206,7 +2415,7 @@ def serve_lm(seed: int) -> tuple[int, int]:
     logits, cache = lm.prefill(params, cfg, toks, max_len=LM_SERVE_MAX)
     torch.cuda.synchronize()
     prefill_ms = (time.perf_counter() - t0) * 1e3
-    lm_launch_check("prefill", dict(ops.LAUNCHES), bf16=LM_LAYERS)
+    lm_launch_check("prefill", dict(ops.LAUNCHES), bf16=cfg.n_layers)
     nxt = logits.argmax(-1)
     first, steps = None, []
     for i in range(LM_DECODE_STEPS):
@@ -2220,7 +2429,7 @@ def serve_lm(seed: int) -> tuple[int, int]:
         if first is None:
             first, first_tok = step, nxt
         nxt = step.argmax(-1)
-    lm_launch_check("decode", dict(ops.LAUNCHES), bf16=LM_LAYERS)
+    lm_launch_check("decode", dict(ops.LAUNCHES), bf16=cfg.n_layers)
     path_launches = ops.LAUNCHES[BF16_FLASH]
     if cache["length"] != LM_SERVE_T + LM_DECODE_STEPS:
         raise AssertionError(f"cache length {cache['length']}")
@@ -2255,8 +2464,8 @@ def serve_lm(seed: int) -> tuple[int, int]:
     (want, _), ms_t1 = timed_prefill(longer)
     log(f"gemma2-2b f32 identity prefills (B=1): T={LM_SERVE_T} "
         f"{ms_t:.1f} ms, T={LM_SERVE_T + 1} {ms_t1:.1f} ms")
-    lm_launch_check("identity checks", dict(ops.LAUNCHES), bf16=LM_LAYERS,
-                    f32=2 * LM_LAYERS)
+    lm_launch_check("identity checks", dict(ops.LAUNCHES),
+                    bf16=cfg.n_layers, f32=2 * cfg.n_layers)
     f32_launches = ops.LAUNCHES[F32_FLASH]
     err = close(got, want, LM_STEP_TOL)
 
@@ -2280,23 +2489,25 @@ def serve_lm(seed: int) -> tuple[int, int]:
 LM_CALLS = {"prefill_32k": 1, "decode_32k": 8}
 
 
-def serve_lm_cells(seed: int) -> int:
-    """gemma2-2b's prefill_32k (B = 4) and decode_32k (B = 8, a cache of
-    32,768 positions at length 32,767) cells through
-    ``configs.get_arch(...).make_cell(...)``: one warm call and
-    ``LM_CALLS[shape]`` timed calls, launch counts reset before and read
-    after each cell.  Returns the cells' wgmma kernel launches (all of
-    them bf16)."""
+def serve_lm_cells(seed: int, arch: str = "gemma2-2b",
+                   calls_of: dict = LM_CALLS) -> int:
+    """An LM's prefill_32k and decode_32k cells at the config module's cut
+    batches (gemma2-2b: B = 4 and 8; a cache of 32,768 positions at
+    length 32,767 in decode) through ``configs.get_arch(...).make_cell(
+    ...)``: one warm call and ``calls_of[shape]`` timed calls, launch
+    counts reset before and read after each cell (the wgmma kernel once a
+    layer in each prefill forward, never in decode).  Returns the cells'
+    wgmma kernel launches (all of them bf16)."""
     import gc
 
     import torch
     from repro_torch import configs
     from repro_torch.kernels import ops
 
-    mod = configs.get_arch("gemma2-2b")
+    mod = configs.get_arch(arch)
     cfg = mod.full_config()
     launched = 0
-    for shape, calls in LM_CALLS.items():
+    for shape, calls in calls_of.items():
         cell = mod.make_cell(shape, cfg=cfg)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -2314,26 +2525,26 @@ def serve_lm_cells(seed: int) -> int:
             torch.cuda.synchronize()
             times.append((time.perf_counter() - t0) * 1e3)
         got = dict(ops.LAUNCHES)
-        per_call = LM_LAYERS if cell.kind == "prefill" else 0
-        lm_launch_check(f"gemma2-2b x {shape}", got,
+        per_call = cfg.n_layers if cell.kind == "prefill" else 0
+        lm_launch_check(f"{arch} x {shape}", got,
                         bf16=(1 + calls) * per_call)
         if cell.kind == "decode":
-            profile_call(f"gemma2-2b x {shape}, one step",
+            profile_call(f"{arch} x {shape}, one step",
                          lambda: cell.fn(*args))
         launched += got[BF16_FLASH]
         peak_gb = torch.cuda.max_memory_allocated() / 1e9
         b = cell.meta["batch"]
         if out.shape != (b, cfg.padded_vocab) or \
                 not torch.isfinite(out).all():
-            raise AssertionError(f"gemma2-2b x {shape}: logits "
+            raise AssertionError(f"{arch} x {shape}: logits "
                                  f"{tuple(out.shape)} not finite")
         tflop = cell.meta["model_flops"] / 1e12
-        log(f"gemma2-2b x {shape} (B={b}, S={cell.meta['seq']}): set-up "
+        log(f"{arch} x {shape} (B={b}, S={cell.meta['seq']}): set-up "
             f"{setup_s:.2f} s; calls {', '.join(f'{t:.3f}' for t in times)}"
             f" ms; {tflop / (min(times) * 1e-3):.2f} model TFLOP/s at the "
             f"fastest; peak memory {peak_gb:.2f} GB; launches "
-            f"{got[BF16_FLASH]} {BF16_FLASH}; logits sum "
-            f"{float(out.double().sum()):.6f}")
+            f"{got[BF16_FLASH]} {BF16_FLASH} ({per_call} a forward); "
+            f"logits sum {float(out.double().sum()):.6f}")
         del args, out, cell
         gc.collect()
         torch.cuda.empty_cache()
@@ -2368,6 +2579,223 @@ def lm_parity(seed: int) -> None:
         err = max(err, close(got, want.cuda(), 1e-5))
     log(f"gemma2-2b smoke_config card vs cpu (forward, prefill, cache, 2 "
         f"decode steps): max abs err {err:.3e} (tol 1e-5)")
+
+
+# -- phase 8b: glm4-9b and minicpm-2b at full width ---------------------------
+
+DENSE_LMS = ("glm4-9b", "minicpm-2b")
+DENSE_CALLS = {"prefill_32k": 1, "decode_32k": 4}
+DENSE_HEADS_T = 8192  # the bf16 kernel timed at each arch's head layout
+DENSE_HEADS_CELL = (4, 32768)  # and held at the prefill cell's (B, T)
+F32_REF_BLOCK = 512  # query rows a block of the f32 reference
+# the bf16 kernel against the f32 reference: ||err|| / ||want|| over the
+# whole output, and the same over each (b, t, h) row of dh, the worst row.
+# Set from the readings at both archs' heads and both shapes on an H100:
+# the kernel rel 2.07e-3 to 2.11e-3 and rows up to 3.90e-3, SDPA the
+# same to 1e-5, the plain version (bf16 logits) 3.86e-3 and 1.80e-2;
+# each run logs all three beside the limits
+FLASH_F32_REL_TOL, FLASH_F32_ROW_TOL = 3e-3, 6e-3
+# the f32 step(T) = prefill(T + 1) of 8b, at half gemma2's 32,760: at
+# 32,760 glm4-9b's two f32 prefills took 40.8 s and minicpm-2b's 19.2
+IDENTITY_T, IDENTITY_MAX = 16376, 16384
+
+
+def flash_f32_distance(outs: dict, q, k, v) -> dict:
+    """Each output in ``outs`` (name -> (B, T, H, dh), T = S) against
+    causal attention computed from q, k and v upcast to f32 (f32 logits,
+    f32 softmax, f32 products; TF32 is off), F32_REF_BLOCK query rows at
+    a time against the keys they admit, so it reaches T = 32,768.  Returns
+    {name: {"rel": ||out - want|| / ||want||, "row": the largest over the
+    (b, t, h) rows of dh of the same ratio, "max_abs": ...}}."""
+    import torch
+
+    b, t, h, dh = q.shape
+    hk = k.shape[2]
+    acc = {n: {"err2": 0.0, "row": 0.0, "max_abs": 0.0} for n in outs}
+    want2 = 0.0
+    for bi in range(b):
+        kf, vf = k[bi].float(), v[bi].float()
+        for t0 in range(0, t, F32_REF_BLOCK):
+            t1 = min(t, t0 + F32_REF_BLOCK)
+            qf = q[bi, t0:t1].float().reshape(t1 - t0, hk, h // hk, dh)
+            logits = torch.einsum("tkgd,skd->kgts", qf, kf[:t1])
+            logits *= 1.0 / math.sqrt(dh)
+            pos = torch.arange(t1, device=q.device)
+            logits.masked_fill_(pos[None, :] > pos[t0:t1, None],
+                                float("-inf"))
+            want = torch.einsum("kgts,skd->tkgd", logits.softmax(-1),
+                                vf[:t1]).reshape(t1 - t0, h, dh)
+            del logits
+            want2 += float(want.double().square().sum())
+            norm = want.norm(dim=-1)
+            for n, out in outs.items():
+                d = out[bi, t0:t1].float() - want
+                a = acc[n]
+                a["err2"] += float(d.double().square().sum())
+                a["max_abs"] = max(a["max_abs"], float(d.abs().max()))
+                a["row"] = max(a["row"],
+                               float((d.norm(dim=-1) / norm).max()))
+    return {n: {"rel": math.sqrt(a["err2"] / want2), "row": a["row"],
+                "max_abs": a["max_abs"]} for n, a in acc.items()}
+
+
+def check_flash_f32(label: str, dist: dict) -> dict:
+    """Logs each output's distance from the f32 reference (the kernel's
+    beside the plain version's and SDPA's, which calibrate the limits)
+    and raises unless the kernel's is within FLASH_F32_REL_TOL and
+    FLASH_F32_ROW_TOL."""
+    log(f"{label} vs f32 reference: " + "; ".join(
+        f"{n} rel {d['rel']:.3e} row {d['row']:.3e} max abs "
+        f"{d['max_abs']:.3e}" for n, d in dist.items())
+        + f" (kernel tol rel {FLASH_F32_REL_TOL}, row {FLASH_F32_ROW_TOL})")
+    got = dist["kernel"]
+    if not (got["rel"] <= FLASH_F32_REL_TOL
+            and got["row"] <= FLASH_F32_ROW_TOL):
+        raise AssertionError(f"{label}: the kernel is {got} from the f32 "
+                             f"reference")
+    return got
+
+
+def check_flash_heads(arch: str) -> dict:
+    """The bf16 (wgmma) kernel at the head layout of ``arch``'s prefill
+    (glm4-9b: 32 query heads on 2 kv heads, dh = 128; minicpm-2b: 36
+    heads, no grouping, dh = 64), causal, no softcap.  At B = 1, T = S =
+    8,192: against its plain version (2e-2; its logits are rounded to
+    bf16 as JAX's are), timed beside it and beside
+    ``F.scaled_dot_product_attention`` (causal, GQA), with its bound.  At
+    that shape and at the prefill cell's B = 4, T = S = 32,768: against
+    the f32 reference (``flash_f32_distance``, ``check_flash_f32``).
+    These calls stay out of the path's count."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch import configs
+    from repro_torch.kernels import ops, ref
+
+    cfg = configs.get_arch(arch).full_config()
+    h, hk, dh = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
+    gen = torch.Generator(device="cuda").manual_seed(17)
+
+    def draw(b, t):
+        return tuple(torch.randn(b, t, n, dh, generator=gen, device="cuda")
+                     .to(torch.bfloat16) for n in (h, hk, hk))
+
+    def sdpa(q, k, v):
+        qt, kt, vt = (y.transpose(1, 2) for y in (q, k, v))
+        return F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True, enable_gqa=True).transpose(1, 2)
+
+    t = DENSE_HEADS_T
+    q, k, v = draw(1, t)
+    if ops.flash_kernel(q, k, v) != BF16_FLASH:
+        raise AssertionError(f"{arch}'s heads do not route to {BF16_FLASH}")
+    got = ops.flash_attention(q, k, v)
+    plain = ref.flash_attention_ref(q, k, v)
+    err = close(got.float(), plain.float(), 2e-2)
+    shape = f"B=1 T=S={t} H={h} Hkv={hk} dh={dh} causal bf16"
+    f32 = check_flash_f32(f"{BF16_FLASH} at {arch}'s heads [{shape}]",
+                          flash_f32_distance({"kernel": got, "plain": plain,
+                                              "sdpa": sdpa(q, k, v)},
+                                             q, k, v))
+    del plain
+    ms = cuda_ms(lambda: ops.flash_attention(q, k, v), reps=10, warm=1)
+    plain_ms = cuda_ms(lambda: ref.flash_attention_ref(q, k, v), reps=2,
+                       warm=1)
+    lib_ms = cuda_ms(lambda: sdpa(q, k, v), reps=10, warm=2)
+    lib_diff = float((got.float() - sdpa(q, k, v).float()).abs().max())
+    b_ms, by = flash_bound(1, t, t, h, hk, dh, 2, -1)
+    cb, ct = DENSE_HEADS_CELL
+    del q, k, v, got
+    q, k, v = draw(cb, ct)
+    cell_shape = f"B={cb} T=S={ct} H={h} Hkv={hk} dh={dh} causal bf16"
+    got = ops.flash_attention(q, k, v)
+    if not torch.isfinite(got).all():
+        raise AssertionError(f"{arch} [{cell_shape}]: not finite")
+    f32_cell = check_flash_f32(
+        f"{BF16_FLASH} at {arch}'s heads [{cell_shape}]",
+        flash_f32_distance({"kernel": got, "sdpa": sdpa(q, k, v)}, q, k, v))
+    row = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+           "bound_ms": b_ms, "bound_by": by, "library_ms": lib_ms,
+           "library_max_abs_diff": lib_diff, "shape": shape, "f32_ref": f32,
+           "f32_ref_cell": {"shape": cell_shape, **f32_cell}}
+    log(f"{BF16_FLASH} at {arch}'s heads [{shape}]: max abs err {err:.3e} "
+        f"vs plain (tol 2e-2), {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+        f"{b_ms:.4f} ms by {by} ({b_ms / ms:.4f} of it), SDPA "
+        f"{lib_ms:.4f} ms (max abs diff {lib_diff:.3e})")
+    return row
+
+
+def dense_identity(seed: int, arch: str) -> int:
+    """``arch`` at full width in f32 (the weights as ``init`` draws them,
+    not cast): a decode step after the prefill of T = 16,376 tokens
+    against the last-token logits of the prefill of those T + 1 tokens,
+    within LM_STEP_TOL (f32 summation order only: the f32 flash kernel
+    against decode's plain attention, cuBLAS at M = T + 1 against M = 1).
+    glm4-9b's f32 weights are 37.6 GB and its f32 cache 1.3 GB at B = 1,
+    so no depth is cut.  Returns the f32 kernel's launches (two
+    prefills)."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from repro_torch import configs
+    from repro_torch.kernels import ops
+    from repro_torch.models import lm
+
+    cfg = configs.get_arch(arch).full_config()
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    params = lm.init(torch.Generator().manual_seed(seed), cfg32, "cuda")
+    toks = torch.from_numpy(np.random.default_rng(seed).integers(
+        0, cfg.vocab, (1, IDENTITY_T + 1))).cuda()
+    ops.reset_launches()
+    times = []
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    _, cache = timed(lambda: lm.prefill(params, cfg32, toks[:, :-1],
+                                        max_len=IDENTITY_MAX))
+    got, cache = lm.decode_step(params, cfg32, toks[:, -1], cache)
+    del cache
+    torch.cuda.empty_cache()
+    want, _ = timed(lambda: lm.prefill(params, cfg32, toks,
+                                       max_len=IDENTITY_MAX))
+    lm_launch_check(f"{arch} identity check", dict(ops.LAUNCHES), bf16=0,
+                    f32=2 * cfg.n_layers)
+    err = close(got, want, LM_STEP_TOL)
+    log(f"{arch} f32 step 1 vs prefill(T+1) at T={IDENTITY_T} (B=1, all "
+        f"{cfg.n_layers} layers): max abs err {err:.4e} (tol {LM_STEP_TOL}, "
+        f"logits max abs {float(want.abs().max()):.3f}); prefills "
+        f"{times[0]:.1f} and {times[1]:.1f} ms")
+    return ops.LAUNCHES[F32_FLASH]
+
+
+def serve_dense_lms(seed: int) -> dict:
+    """Phase 8b: for glm4-9b and minicpm-2b, the bf16 kernel at the arch's
+    head layout (``check_flash_heads``), the prefill_32k and decode_32k
+    cells at the config modules' cut batches (``serve_lm_cells``), and the
+    f32 identity (``dense_identity``).  Returns the cells' wgmma launches,
+    the identity checks' f32 launches and the head-layout rows."""
+    import gc
+
+    import torch
+
+    out = {"bf16": 0, "f32": 0, "heads": {}}
+    for arch in DENSE_LMS:
+        out["heads"][arch] = check_flash_heads(arch)
+        gc.collect()
+        torch.cuda.empty_cache()
+        out["bf16"] += serve_lm_cells(seed, arch, DENSE_CALLS)
+        gc.collect()
+        torch.cuda.empty_cache()
+        out["f32"] += dense_identity(seed, arch)
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
 
 
 # -- phase 9: training on the card ------------------------------------------
@@ -3621,6 +4049,7 @@ def main(argv=None) -> int:
     from repro_torch.launch import serve
     from repro_torch.obs.env import card_line
 
+    t_smoke = time.perf_counter()
     card = card_line()
     if card is None:
         raise RuntimeError("nvidia-smi reported no card")
@@ -3689,10 +4118,20 @@ def main(argv=None) -> int:
     zoo_launches = serve_zoo(args.seed)
     small_parity(args.seed)
     zoo_parity(args.seed)
+    t_phase = time.perf_counter()
+    serve_bst(args.seed)
+    train_schnet(args.seed)
+    log(f"phases 6b-6c (BST, SchNet): {time.perf_counter() - t_phase:.1f}s")
     lm_launches, f32_launches = serve_lm(args.seed)
     torch.cuda.empty_cache()
     lm_launches += serve_lm_cells(args.seed)
     lm_parity(args.seed)
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_phase = time.perf_counter()
+    dense = serve_dense_lms(args.seed)
+    log(f"phase 8b (glm4-9b, minicpm-2b): "
+        f"{time.perf_counter() - t_phase:.1f}s")
     gc.collect()
     torch.cuda.empty_cache()
     din_train = train_din_full(args.seed)
@@ -3720,12 +4159,21 @@ def main(argv=None) -> int:
     paths.update({k: f"{arch} cells ({', '.join(ZOO_CALLS)})"
                   for arch, k in ZOO.items()})
     paths[BF16_FLASH] = (f"gemma2-2b bf16 serve path and cells "
-                         f"({', '.join(LM_CALLS)})")
+                         f"({', '.join(LM_CALLS)}); "
+                         + "; ".join(f"{a} cells ({', '.join(DENSE_CALLS)})"
+                                     for a in DENSE_LMS))
     paths[F32_FLASH] = ("gemma2-2b f32 prefill(T) and prefill(T + 1) of "
-                        "the serve path's identity check")
+                        "the serve path's identity check; "
+                        + "; ".join(f"{a}'s f32 identity check"
+                                    for a in DENSE_LMS))
     launches.update(zoo_launches)
-    launches[BF16_FLASH] = lm_launches
-    launches[F32_FLASH] = f32_launches
+    launches[BF16_FLASH] = lm_launches + dense["bf16"]
+    launches[F32_FLASH] = f32_launches + dense["f32"]
+    by_path[BF16_FLASH] = {"gemma2-2b": lm_launches,
+                           "glm4-9b, minicpm-2b cells": dense["bf16"]}
+    by_path[F32_FLASH] = {"gemma2-2b identity": f32_launches,
+                          "glm4-9b, minicpm-2b identity": dense["f32"]}
+    results[BF16_FLASH]["dense_lm_heads"] = dense["heads"]
     # the training paths (phase 9): DIN's train_batch steps, the offline
     # experiment's training and scoring, the trained stack's windows
     train_counts = {
@@ -3778,8 +4226,11 @@ def main(argv=None) -> int:
          "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
          "library_ms": r["library_ms"], "shape": r["shape"],
          **({"device_ms": r["device_ms"]} if "device_ms" in r else {}),
-         **({"at_32k": r["at_32k"]} if "at_32k" in r else {})}
+         **({"at_32k": r["at_32k"]} if "at_32k" in r else {}),
+         **({"dense_lm_heads": r["dense_lm_heads"]}
+            if "dense_lm_heads" in r else {})}
         for name, r in results.items()]}
+    log(f"smoke wall {time.perf_counter() - t_smoke:.1f}s")
     print(json.dumps(line), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -3,13 +3,16 @@
 Every ported architecture module exposes the surface of the JAX
 package's configs::
 
-    ARCH_ID: str;  FAMILY: "recsys" | "lm";  SHAPES: tuple[str, ...]
+    ARCH_ID: str;  FAMILY: "recsys" | "lm" | "gnn";  SHAPES: tuple[str, ...]
     SKIPPED_SHAPES: dict[shape, reason]   (shapes not ported yet)
-    full_config() / smoke_config()        model config objects
-    make_cell(shape, cfg=None) -> Cell    (cfg defaults to full_config())
+    full_config() / smoke_config()        model config objects (SchNet's
+                                          may take the shape)
+    make_cell(shape, cfg=None) -> Cell    (cfg defaults to full_config(),
+                                          SchNet's to full_config(shape))
     init_smoke(gen, cfg, device) / smoke_batch(rng, cfg, device)
                                           (recsys; the LM has lm.init)
-    smoke_loss(params, cfg, batch)        (an arch that trains: din)
+    smoke_loss(params, cfg, batch)        (an arch that trains: din, bst,
+                                          schnet, greenflow-cascade)
 
 A ``Cell`` is one (architecture x shape) on one card: a function and a
 way to make its arguments.  It is the single-card counterpart of the JAX
@@ -32,18 +35,16 @@ _MODULES = {
     "dlrm-rm2": "repro_torch.configs.dlrm_rm2",
     "xdeepfm": "repro_torch.configs.xdeepfm_arch",
     "gemma2-2b": "repro_torch.configs.gemma2_2b",
+    "glm4-9b": "repro_torch.configs.glm4_9b",
+    "minicpm-2b": "repro_torch.configs.minicpm_2b",
     "din": "repro_torch.configs.din_arch",
+    "bst": "repro_torch.configs.bst_arch",
+    "schnet": "repro_torch.configs.schnet",
     "greenflow-cascade": "repro_torch.configs.greenflow_cascade",
 }
 
 _MOE = "the MoE FFN (ROADMAP queue A item 16: _moe_ref, then EP)"
-_LM_CFG = "its config (ROADMAP queue A item 17: the dense LM configs)"
-_WAITING = {
-    "granite-moe-1b-a400m": _MOE, "olmoe-1b-7b": _MOE, "glm4-9b": _LM_CFG,
-    "minicpm-2b": _LM_CFG,
-    "schnet": "the model zoo (ROADMAP queue A item 13: models/gnn)",
-    "bst": "the model zoo (ROADMAP queue A item 13: models/recsys/bst)",
-}
+_WAITING = {"granite-moe-1b-a400m": _MOE, "olmoe-1b-7b": _MOE}
 
 
 @dataclass
@@ -130,6 +131,28 @@ def lm_make_cell(arch_id: str, cfg, shape: str, *, batch: int,
                 make_args=make_args,
                 meta={"model_flops": lm_model_flops(cfg, kind, batch, seq),
                       "batch": batch, "seq": seq})
+
+
+LM_SMOKE_BATCH, LM_SMOKE_SEQ = 2, 64  # an LM cell at the smoke widths
+
+
+def lm_cell(arch_id: str, cfg, shape: str, *, skipped: dict,
+            cell_batch: dict) -> Cell:
+    """An LM config module's ``make_cell``: ``lm_make_cell`` at the
+    module's cut batch (``cell_batch``) and the shape's 32,768 positions
+    for the full widths, at (LM_SMOKE_BATCH, LM_SMOKE_SEQ) for the smoke
+    widths (a config named ``*-smoke``).  A shape in ``skipped`` raises
+    NotImplementedError with its reason."""
+    if shape in skipped:
+        raise NotImplementedError(f"{shape}: {skipped[shape]}")
+    if shape not in cell_batch:
+        raise KeyError(f"unknown shape {shape!r}; have "
+                       f"{sorted({*skipped, *cell_batch})}")
+    if cfg.name.endswith("-smoke"):
+        batch, seq = LM_SMOKE_BATCH, LM_SMOKE_SEQ
+    else:
+        batch, seq = cell_batch[shape], LM_SHAPES[shape]["seq"]
+    return lm_make_cell(arch_id, cfg, shape, batch=batch, seq=seq)
 
 
 def registered_shapes() -> tuple[str, ...]:

@@ -30,7 +30,7 @@ SKIPPED_SHAPES = {
                  "queue A item 18: a 55.8 GB bf16 cache at B = 1)",
 }
 CELL_BATCH = {"prefill_32k": 4, "decode_32k": 8}  # cut from 32 and 128
-SMOKE_BATCH, SMOKE_SEQ = 2, 64
+SMOKE_BATCH, SMOKE_SEQ = base.LM_SMOKE_BATCH, base.LM_SMOKE_SEQ
 
 
 def full_config() -> lm.LMConfig:
@@ -56,20 +56,6 @@ def smoke_config() -> lm.LMConfig:
     )
 
 
-def cell_size(shape: str, cfg: lm.LMConfig) -> tuple[int, int]:
-    """(batch, seq) of a cell: the cut batch at the shape's 32,768
-    positions for the full widths, (SMOKE_BATCH, SMOKE_SEQ) for the smoke
-    widths."""
-    if shape in SKIPPED_SHAPES:
-        raise NotImplementedError(f"{shape}: {SKIPPED_SHAPES[shape]}")
-    if shape not in CELL_BATCH:
-        raise KeyError(f"unknown shape {shape!r}; have {sorted(SHAPES)}")
-    if cfg.name.endswith("-smoke"):
-        return SMOKE_BATCH, SMOKE_SEQ
-    return CELL_BATCH[shape], base.LM_SHAPES[shape]["seq"]
-
-
 def make_cell(shape: str, cfg: lm.LMConfig | None = None) -> base.Cell:
-    cfg = cfg or full_config()
-    batch, seq = cell_size(shape, cfg)
-    return base.lm_make_cell(ARCH_ID, cfg, shape, batch=batch, seq=seq)
+    return base.lm_cell(ARCH_ID, cfg or full_config(), shape,
+                        skipped=SKIPPED_SHAPES, cell_batch=CELL_BATCH)

@@ -5,18 +5,26 @@
     python -m repro_torch.launch.cells --arch gemma2-2b \\
         --shape prefill_32k|decode_32k [--preset smoke|full] ...
     python -m repro_torch.launch.cells --arch din --shape train_batch ...
+    python -m repro_torch.launch.cells --arch bst \\
+        --shape train_batch|serve_p99|serve_bulk|retrieval_cand ...
+    python -m repro_torch.launch.cells --arch schnet \\
+        --shape full_graph_sm|minibatch_lg|ogb_products|molecule ...
+    python -m repro_torch.launch.cells --arch glm4-9b|minicpm-2b \\
+        --shape prefill_32k|decode_32k ...
     python -m repro_torch.launch.cells --arch greenflow-cascade \\
         --shape reward_serve|nearline_dual|reward_train|rank_serve ...
 
-builds the cell (``configs.get_arch(arch).make_cell(shape)``), draws its
+builds the cell (``configs.get_arch(arch).make_cell(shape, cfg)``, with
+``cfg`` None for the full preset, the module's own full config for the
+shape, and ``smoke_config()`` for the smoke preset), draws its
 weights and inputs from ``--seed`` on the device, calls it ``--calls``
 times and prints, for each call, its synchronised time in ms and the
 checksum (sum) of its logits.  It is the single-card counterpart of the
 JAX package's ``launch/dryrun.py --arch/--shape`` selection: the cell
 runs for real instead of being lowered.
 
-A train cell (DIN's ``train_batch``, greenflow-cascade's
-``reward_train``) is a train step: each call takes the state the last
+A train cell (DIN's and BST's ``train_batch``, SchNet's four cells,
+greenflow-cascade's ``reward_train``) is a train step: each call takes the state the last
 one returned and prints its loss instead of a checksum.  A cell that
 returns several tensors (greenflow-cascade's ``reward_serve``: the
 decisions and the rewards; ``nearline_dual``: the price and its gap
@@ -25,10 +33,13 @@ checksum is printed.
 
 ``--preset full`` is the published width (DLRM-RM2's table is 10.0 GB;
 gemma2-2b's cells hold 5.2 GB of bf16 weights and a 14.0 GB or 27.9 GB
-KV cache); ``--preset smoke`` the configs' small widths, at the cell's
-batch for the recsys archs and at 2 sequences of 64 positions for the
-LM.  A cell's logits are (B,) for the recsys archs and the last token's
-(B, V) for the LM.  It
+KV cache, glm4-9b's 18.8 GB and a 5.4 GB or 42.9 GB cache, minicpm-2b's
+5.45 GB and 48.3 GB; SchNet's ogb_products trains on 61.9 M edges);
+``--preset smoke`` the configs' small widths, at the cell's batch for
+the recsys archs, at 2 sequences of 64 positions for the LMs and on a
+40-node graph (or a subgraph sampled from a 300-node one) for SchNet.
+A cell's logits are (B,) for the recsys archs and the last token's
+(B, V) for the LMs.  It
 runs on the card unless ``--device cpu`` is given; without a card it
 stops with an error.
 """
@@ -63,8 +74,9 @@ def main(argv=None) -> int:
 
     device = resolve_device(args.device)
     mod = get_arch(args.arch)
-    cfg = mod.smoke_config() if args.preset == "smoke" else mod.full_config()
-    cell = mod.make_cell(args.shape, cfg=cfg)
+    cell = mod.make_cell(args.shape, cfg=(mod.smoke_config()
+                                          if args.preset == "smoke"
+                                          else None))
     name = (torch.cuda.get_device_name(device) if device.type == "cuda"
             else "cpu")
     print(f"cell {cell.arch_id} x {cell.shape_name} ({cell.kind}, preset "

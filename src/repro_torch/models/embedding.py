@@ -1,5 +1,9 @@
 """Embedding helpers.
 
+Ragged bags: (ids, segment_ids) pairs, the JAX package's
+``embedding_bag`` (a gather and a segment sum or max).  It reaches no
+Pallas kernel there, so its plain torch form here is its port.
+
 Fixed-size embedding bags: static (B, L) bags with a pad mask.  The sum
 and mean forms are the ``embedding_bag`` kernel (``kernels.ops``): the
 mean is its weighted form with weights mask / max(count, 1), so no
@@ -17,6 +21,39 @@ import numpy as np
 import torch
 
 from repro_torch.kernels import ops
+
+
+def embedding_bag(table, ids, segment_ids, num_bags: int, *,
+                  mode: str = "sum", per_sample_weights=None):
+    """table (V, D); ids (N,); segment_ids (N,) -> (num_bags, D).
+
+    As ``jax.ops.segment_sum``/``segment_max`` do, an empty bag is 0
+    under ``sum`` and ``mean`` and -inf under ``max``, and a segment id
+    outside [0, num_bags) is dropped: its row goes to a spare bag that is
+    cut off, so nothing raises and nothing syncs with the host (unlike
+    ``index_add_`` on such an id, or ``F.embedding_bag``, which gives 0
+    for an empty max bag and refuses weights with ``max``)."""
+    rows = table.index_select(0, ids.long())  # (N, D)
+    if per_sample_weights is not None:
+        rows = rows * per_sample_weights[:, None]
+    seg = segment_ids.long()
+    seg = torch.where((seg >= 0) & (seg < num_bags), seg,
+                      torch.full_like(seg, num_bags))
+    shape = (num_bags + 1, table.shape[-1])
+    if mode == "max":
+        out = torch.full(shape, -torch.inf, dtype=rows.dtype,
+                         device=rows.device)
+        out.scatter_reduce_(0, seg[:, None].expand_as(rows), rows, "amax")
+        return out[:num_bags]
+    if mode not in ("sum", "mean"):
+        raise ValueError(f"unknown mode {mode!r}")
+    out = torch.zeros(shape, dtype=rows.dtype, device=rows.device)
+    out.index_add_(0, seg, rows)
+    if mode == "sum":
+        return out[:num_bags]
+    cnt = torch.zeros(num_bags + 1, dtype=torch.float32, device=rows.device)
+    cnt.index_add_(0, seg, torch.ones_like(seg, dtype=torch.float32))
+    return out[:num_bags] / torch.clamp(cnt[:num_bags], min=1.0)[:, None]
 
 
 def fixed_bag(table, ids, mask=None, *, mode: str = "sum"):

@@ -156,6 +156,20 @@ def sigmoid_bce(logits, labels):
 # -- norms -------------------------------------------------------------------
 
 
+def layernorm_init(d: int, dtype=torch.float32, device=None) -> Params:
+    return {"scale": torch.ones(d, dtype=dtype, device=device),
+            "bias": torch.zeros(d, dtype=dtype, device=device)}
+
+
+def layernorm_apply(params: Params, x, *, eps: float = 1e-6):
+    """LayerNorm over the last axis with the JAX package's eps (1e-6, not
+    torch's 1e-5) and its biased variance."""
+    mu = x.mean(dim=-1, keepdim=True)
+    var = x.var(dim=-1, keepdim=True, correction=0)
+    y = (x - mu) * torch.rsqrt(var + eps)
+    return y * params["scale"] + params["bias"]
+
+
 def rmsnorm_init(d: int, dtype=torch.float32, device=None) -> Params:
     return {"scale": torch.ones(d, dtype=dtype, device=device)}
 

@@ -388,6 +388,22 @@ def test_flash_attention_kernel_edges(cuda, b, t, s, h, hk, d, kw, dtype,
     _flash_case(cuda, b, t, s, h, hk, d, dtype, tol, kw)
 
 
+@pytest.mark.parametrize("b,t,s,h,hk,d", [
+    (1, 300, 300, 32, 2, 128),  # glm4-9b: a GQA group of 16
+    (2, 200, 200, 16, 1, 128),  # group 16 on one kv head
+    (1, 300, 300, 36, 36, 64),  # minicpm-2b: 36 heads, no grouping
+    (2, 130, 130, 36, 36, 64),
+], ids=["glm4-group16", "group16-hkv1", "minicpm-h36", "minicpm-h36-b2"])
+@FLASH_DTYPES
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
+def test_flash_attention_kernel_dense_lm_heads(cuda, b, t, s, h, hk, d,
+                                               dtype, tol, causal):
+    """The head layouts of glm4-9b's and minicpm-2b's prefills: 32 query
+    heads on 2 kv heads at dh = 128, and 36 heads at dh = 64 (a single
+    64-wide chunk)."""
+    _flash_case(cuda, b, t, s, h, hk, d, dtype, tol, dict(causal=causal))
+
+
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-5),
                                        (torch.bfloat16, 2e-2)])
 def test_flash_attention_kernel_reads_strided_inputs(cuda, dtype, tol):

@@ -269,10 +269,12 @@ def test_normal_table_is_drawn_in_chunks_on_its_generator():
 def test_registry_names_what_waits():
     assert get_arch("dlrm-rm2") is dlrm_rm2
     assert get_arch("xdeepfm") is xdeepfm_arch
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        get_arch("glm4-9b")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        get_arch("bst")
+    for arch, name in (("bst", "bst_arch"), ("schnet", "schnet"),
+                       ("glm4-9b", "glm4_9b"), ("minicpm-2b", "minicpm_2b")):
+        assert get_arch(arch).__name__ == f"repro_torch.configs.{name}"
+    for arch in ("granite-moe-1b-a400m", "olmoe-1b-7b"):
+        with pytest.raises(NotImplementedError, match="item 16"):
+            get_arch(arch)
     with pytest.raises(KeyError):
         get_arch("nope")
     with pytest.raises(NotImplementedError, match="queue A item 25"):
