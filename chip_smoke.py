@@ -5,7 +5,7 @@
 
 In order, it
   1. prints the card's name and power limit (nvidia-smi);
-  2. builds the nine CUDA kernels and their PyTorch binding from
+  2. builds the twelve CUDA kernels and their PyTorch binding from
      ``src/repro_torch/kernels/csrc`` with ``torch.utils.cpp_extension``
      (ninja compiles the sources in parallel);
   3. holds every kernel against its plain-torch version on the card, at
@@ -46,7 +46,19 @@ In order, it
      int32 and int64 ids, a skewed id, a million rows, YDNN's experiment
      width and the window's shape, timed eager and graph-replayed beside
      the backward of ``F.embedding_bag``, with a profiled call that shows
-     its two kernels and nothing else on the device;
+     its two kernels and nothing else on the device; and the three
+     backward kernels training DLRM, xDeepFM and the LMs needs, each
+     gradient within 5e-5 (f32) or 2e-2 (bf16) of its largest magnitude
+     of the plain version, bitwise repeatable, at small shapes and at
+     the training shapes: ``dot_interact_bwd`` at DLRM's train_batch
+     (B = 65,536, bf16 and f32; library: dout placed into G and a bmm),
+     ``cin_layer_bwd`` at xDeepFM's (B = 65,536, Hp = 39 and 200;
+     library: the einsums in 8 chunks), ``flash_attention_bwd`` at
+     train_4k's T = S = 4,096 for gemma2's heads (global, a 1,024 window
+     and a ragged T = 4,000, in bf16 and f32; library: compiled
+     flex_attention's backward), glm4-9b's and minicpm-2b's (bf16),
+     each bf16 one also against an f32 reference by its relative
+     Frobenius error and its worst row's;
   4. serves full-width ``GeneratedSource`` windows through
      ``repro_torch.launch.serve`` (100k-user world, 4000-item corpus,
      paper chains, stage and reward models at full width, random
@@ -190,8 +202,21 @@ In order, it
      then the trained models and reward model serve 4 windows of 512
      through ``GeneratedSource`` over a 100,000-user ``StreamingWorld``
      (the JAX CLI's ``--source generated``) within budget at the eager
-     launch counts; last, DIN's smoke config trained 3 steps from one
-     init on the card and on the CPU, parameters within 1e-5;
+     launch counts; then DIN's smoke config trained 3 steps from one
+     init on the card and on the CPU, parameters within 1e-5.  9c: the
+     zoo's train cells at full width, one warm and 3 (recsys) or 2 (LM)
+     timed steps each, the counters reset before and read after:
+     DLRM-RM2's and xDeepFM's train_batch (B = 65,536, no cut; the
+     hybrid optimizer), gemma2-2b's, glm4-9b's and minicpm-2b's
+     train_4k (B = 8 of 4,096 in 2 microbatches, glm4 at 12 of 40
+     layers): ms a step, model TFLOP/s, peak memory, finite losses,
+     exactly each step's forward and backward kernel launches (and one
+     more xDeepFM and gemma2-2b step profiled: device busy, the CIN and
+     flash kernels' shares); then each
+     arch's smoke widths from one init on the card against the CPU (the
+     loss within 1e-5, every gradient within 5e-5 of its largest
+     magnitude, 2e-2 for the bf16 tables; the LMs' run the f32 flash
+     kernels);
  10. serves the JAX package's CLI on the card, on the trained stack of
      step 4c, each step's launches counted and held to its eager counts:
      (a) ``serve.main([])``, the CLI's defaults (12 spike windows of 96
@@ -1108,6 +1133,426 @@ def check_flash(dev):
                        for k, r in rows.items() if k[0] == 32768}
     return {"flash_attention": rows[(8192, "global", "f32")],
             "flash_attention_wgmma": wgmma}
+
+
+# the zoo's backward kernels against their plain versions, each
+# gradient relative to its largest magnitude: f32 as row 7's 5e-5 (f32
+# sums over up to 655,360 terms in another order than the plain
+# version's), bf16 2e-2 (bf16's own rounding of the outputs)
+NEW_BWD_TOL = {"float32": 5e-5, "bfloat16": 2e-2}
+
+
+def close_rel(got, want, what: str) -> tuple[float, float]:
+    """(the largest error of the gradients ``got`` against ``want``
+    relative to each one's largest magnitude, the largest absolute
+    error); raises above ``NEW_BWD_TOL`` of the dtype, for a shape or
+    dtype mismatch, or for a value that is not finite."""
+    import torch
+    torch.cuda.synchronize()
+    rel_worst = abs_worst = 0.0
+    for i, (g, w) in enumerate(zip(got, want)):
+        if g.shape != w.shape or g.dtype != w.dtype or \
+                not torch.isfinite(g).all():
+            raise AssertionError(f"{what}: gradient {i} {tuple(g.shape)} "
+                                 f"{g.dtype} vs {tuple(w.shape)} {w.dtype}, "
+                                 f"or not finite")
+        tol = NEW_BWD_TOL[str(w.dtype).split(".")[-1]]
+        err = float((g.double() - w.double()).abs().max()) if g.numel() \
+            else 0.0
+        rel = err / (float(w.double().abs().max()) or 1.0) if g.numel() \
+            else 0.0
+        if rel > tol:
+            raise AssertionError(f"{what}: gradient {i} off by {rel:.3e} of "
+                                 f"its largest magnitude (tol {tol})")
+        rel_worst, abs_worst = max(rel_worst, rel), max(abs_worst, err)
+    return rel_worst, abs_worst
+
+
+def repeat_bitwise(fn, first, what: str) -> None:
+    """Raises unless a second ``fn()`` gives ``first`` bit for bit."""
+    import torch
+    again = fn()
+    again = again if isinstance(again, tuple) else (again,)
+    first = first if isinstance(first, tuple) else (first,)
+    if not all(torch.equal(a, b) for a, b in zip(first, again)):
+        raise AssertionError(f"{what} is not bitwise repeatable")
+
+
+def counted(name: str, fn):
+    """``fn()``, held to have launched kernel ``name`` once."""
+    from repro_torch.kernels import ops
+    before = dict(ops.LAUNCHES)
+    out = fn()
+    if dict(ops.LAUNCHES) != {**before, name: before[name] + 1}:
+        raise AssertionError(f"{name} was not launched alone, once")
+    return out
+
+
+def check_dot_interact_bwd(dev):
+    """Small shapes (F = 1 and 2, D = 63), then DLRM-RM2's train_batch
+    (B = 65,536, F = 27, D = 64) in bf16 (the path's dtype) and f32,
+    against ``ref.dot_interact_bwd_ref``, bitwise repeats.  The library
+    time is the same function in the inputs' dtype by torch ops: dout
+    placed into G, then ``torch.bmm(G + G^T, X)``."""
+    import torch
+    from repro_torch.kernels import ops, ref
+
+    gen = torch.Generator(device=dev).manual_seed(21)
+
+    def inputs(b, f, d, dt):
+        x = (0.3 * torch.randn(b, f, d, generator=gen, device=dev)).to(dt)
+        g = torch.randn(b, f * (f - 1) // 2, generator=gen,
+                        device=dev).to(dt)
+        return g, x
+
+    for b, f, d in ((7, 13, 32), (5, 27, 63), (3, 1, 4), (4, 2, 8),
+                    (33, 27, 64)):
+        for dt in (torch.float32, torch.bfloat16):
+            g, x = inputs(b, f, d, dt)
+            got = counted("dot_interact_bwd",
+                          lambda: ops.dot_interact_bwd(g, x))
+            close_rel((got,), (ref.dot_interact_bwd_ref(g, x),),
+                      f"dot_interact_bwd {(b, f, d, dt)}")
+    rows = {}
+    b, f, d = 65_536, 27, 64
+    iu, ju = torch.tril_indices(f, f, offset=-1, device=dev)
+    for dt in (torch.bfloat16, torch.float32):
+        g, x = inputs(b, f, d, dt)
+        got = ops.dot_interact_bwd(g, x)
+        rel, err = close_rel((got,), (ref.dot_interact_bwd_ref(g, x),),
+                             f"dot_interact_bwd B={b} {dt}")
+        repeat_bitwise(lambda: ops.dot_interact_bwd(g, x), got,
+                       f"dot_interact_bwd B={b} {dt}")
+        ms = cuda_ms(lambda: ops.dot_interact_bwd(g, x), reps=20)
+        plain_ms = cuda_ms(lambda: ref.dot_interact_bwd_ref(g, x), reps=5)
+
+        def library():
+            m = torch.zeros((b, f, f), dtype=dt, device=dev)
+            m[:, iu, ju] = g
+            return torch.bmm(m + m.mT, x)
+
+        lib_ms = cuda_ms(library, reps=5)
+        esize = x.element_size()
+        p = f * (f - 1) // 2
+        nbytes = esize * (2.0 * b * f * d + b * p)
+        flops = 2.0 * b * f * f * d
+        b_ms, by = (bound(nbytes, flops, PEAK_BF16_S)
+                    if dt == torch.bfloat16
+                    else bound(nbytes, 0.0, tf32x3_ops=flops))
+        name = "bf16" if dt == torch.bfloat16 else "f32"
+        rows[name] = {"max_abs_err": err, "rel_err": rel, "ms": ms,
+                      "plain_ms": plain_ms, "bound_ms": b_ms,
+                      "bound_by": by, "library_ms": lib_ms,
+                      "shape": f"B={b} F={f} D={d} {name}"}
+        del g, x, got
+    for r in rows.values():
+        log(f"dot_interact_bwd [{r['shape']}]: rel err {r['rel_err']:.3e} "
+            f"(max abs {r['max_abs_err']:.3e}), bitwise repeat; "
+            f"{r['ms']:.4f} ms, {100 * r['bound_ms'] / r['ms']:.2f} % of "
+            f"the bound (plain {r['plain_ms']:.4f}, G + bmm "
+            f"{r['library_ms']:.4f}, bound {r['bound_ms']:.4f} by "
+            f"{r['bound_by']})")
+    return rows["bf16"]
+
+
+def check_cin_bwd(dev):
+    """Small shapes (D = 1, a ragged last column block, m = 64), B =
+    4,096 (columns cut into parts), then xDeepFM's train_batch layers,
+    B = 65,536, m = 39, D = 10, H_out = 200, at Hp = 39 (x_prev is x0)
+    and Hp = 200, against ``ref.cin_layer_bwd_ref``, bitwise repeats.
+    The kernel line reports Hp = 200; the library time is the einsum
+    composition on the same inputs in 8 chunks of 8,192 samples (whole,
+    Z and T would take 41 GB)."""
+    import torch
+    from repro_torch.kernels import ops, ref
+
+    gen = torch.Generator(device=dev).manual_seed(22)
+
+    def r(*shape, scale=1.0):
+        return scale * torch.randn(*shape, generator=gen, device=dev)
+
+    def args_of(b, hp, m, d, ho, shared=False):
+        k = hp * m
+        x0 = r(b, m, d)
+        xp = x0 if shared else r(b, hp, d)
+        return (r(b, ho, d), r(ho, k, scale=(2.0 / (ho + k)) ** 0.5), xp,
+                x0)
+
+    for shape in ((5, 8, 12, 4, 16), (3, 7, 5, 1, 41), (8, 39, 39, 10, 200),
+                  (13, 3, 64, 5, 7), (4096, 39, 39, 10, 200)):
+        a = args_of(*shape)
+        got = counted("cin_layer_bwd", lambda: ops.cin_layer_bwd(*a))
+        close_rel(got, ref.cin_layer_bwd_ref(*a), f"cin_layer_bwd {shape}")
+    rows = {}
+    b, m, d, ho = 65_536, 39, 10, 200
+    for hp in (39, 200):
+        a = args_of(b, hp, m, d, ho, shared=hp == m)
+        got = ops.cin_layer_bwd(*a)
+        rel, err = close_rel(got, ref.cin_layer_bwd_ref(*a),
+                             f"cin_layer_bwd B={b} Hp={hp}")
+        repeat_bitwise(lambda: ops.cin_layer_bwd(*a), got,
+                       f"cin_layer_bwd B={b} Hp={hp}")
+        ms = cuda_ms(lambda: ops.cin_layer_bwd(*a), reps=2, warm=1)
+        plain_ms = cuda_ms(lambda: ref.cin_layer_bwd_ref(*a), reps=1,
+                           warm=0)
+        lib_ms = cuda_ms(lambda: ref.cin_layer_bwd_ref(
+            *a, chunk_elems=8192 * hp * m * d), reps=1, warm=0)
+        k, n = hp * m, b * d
+        # read dz, w, x_prev and x0 (one tensor at Hp = m) once; write dw,
+        # dx_prev and dx0 once
+        nbytes = 4.0 * (n * ho + ho * k + (0 if hp == m else n * hp)
+                        + n * m + ho * k + n * hp + n * m)
+        # dw and T = w^T dz (2 Ho k a column each) in 3xTF32 on the
+        # tensor cores; Z (k) and T's two contractions into dx_prev and
+        # dx0 (2 k each) in f32
+        products, rest = n * 4.0 * ho * k, n * 5.0 * k
+        b_ms, by = bound(nbytes, rest, tf32x3_ops=products)
+        rows[hp] = {"max_abs_err": err, "rel_err": rel, "ms": ms,
+                    "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": by,
+                    "library_ms": lib_ms,
+                    "bound_all_f32_ms": bound(nbytes, products + rest)[0],
+                    "shape": f"B={b} Hp={hp} m={m} D={d} H_out={ho} f32"}
+        del a, got
+        torch.cuda.empty_cache()
+    for row in rows.values():
+        log(f"cin_layer_bwd [{row['shape']}]: rel err {row['rel_err']:.3e} "
+            f"(max abs {row['max_abs_err']:.3e}), bitwise repeat; "
+            f"{row['ms']:.4f} ms, {100 * row['bound_ms'] / row['ms']:.2f} % "
+            f"of the bound (plain {row['plain_ms']:.4f}, einsums in 8 "
+            f"chunks {row['library_ms']:.4f}, bound {row['bound_ms']:.4f} "
+            f"by {row['bound_by']}, all in f32 "
+            f"{row['bound_all_f32_ms']:.4f})")
+    return rows[200]
+
+
+def flash_bwd_bound(b, t, s, h, hk, dh, esize, window, causal=True,
+                    all_f32=False):
+    """q, k, v, the output and dO read once, dq, dk, dv written once; 8 dh
+    flops per admitted (query, key) pair and head (dq, dk, dv, dP), on the
+    tensor cores: bf16 at its peak, f32 as 3xTF32 (``all_f32``: at the
+    CUDA cores' f32 peak instead, which the log prints beside it)."""
+    nbytes = esize * (4.0 * b * t * h * dh + 2.0 * b * s * hk * dh
+                      + b * t * h * dh + 2.0 * b * s * hk * dh)
+    ops_n = 8.0 * dh * b * h * attention_pairs(t, s, causal, window)
+    if esize == 2:
+        return bound(nbytes, ops_n, PEAK_BF16_S)
+    if all_f32:
+        return bound(nbytes, ops_n)
+    return bound(nbytes, 0.0, tf32x3_ops=ops_n)
+
+
+def flex_backward_ms(dev, x, dout, window):
+    """``flex_attention`` compiled with gemma2's softcap score_mod and the
+    causal (or causal window) block mask: the time of its backward alone
+    (the forward run once, its graph kept), or the reason it fails."""
+    import torch
+    from torch.nn.attention.flex_attention import (create_block_mask,
+                                                   flex_attention)
+
+    def softcap(score, b, h, q_idx, kv_idx):
+        return 50.0 * torch.tanh(score / 50.0)
+
+    def mask_mod(b, h, q_idx, kv_idx):
+        ok = kv_idx <= q_idx
+        if window > 0:
+            ok = ok & (q_idx - kv_idx < window)
+        return ok
+
+    try:
+        t, s = x[0].shape[1], x[1].shape[1]
+        block = create_block_mask(mask_mod, None, None, t, s, device=dev)
+        flex = torch.compile(flex_attention, dynamic=False)
+        q, k, v = (y.detach().transpose(1, 2).requires_grad_(True)
+                   for y in x)
+        out = flex(q, k, v, score_mod=softcap, block_mask=block,
+                   scale=1 / 16, enable_gqa=True)
+        g = dout.transpose(1, 2)
+        return cuda_ms(lambda: torch.autograd.grad(out, (q, k, v), g,
+                                                   retain_graph=True),
+                       reps=3, warm=1), None
+    except Exception as e:  # a compile failure is recorded, not fatal
+        return None, f"{type(e).__name__}: {str(e).splitlines()[0][:200]}"
+
+
+# the bf16 backward against the f32 reference (``flash_bwd_f32_distance``):
+# each gradient's ||err|| / ||want|| and the worst (b, position, head)
+# row's, at the train_4k layers.  Set between the sound kernel's largest
+# readings and those of faults planted in throwaway copies of the kernel
+# (P or dS times 1.1, or P times 1.02, for the later half of the keys),
+# on an H100: sound rel 2.30e-3 to 2.37e-3, rows up to 5.07e-3 (the
+# plain version 1.67e-3 and 2.6e-3); P x 1.02 rel from 4.02e-3, rows
+# from 2.05e-2; x 1.1 rel from 1.67e-2, rows from 9.48e-2, so each
+# faulty gradient fails both limits.  The 2e-2 check against the plain
+# version passed 38 of those 40 faulty gradients (not dq at window 1,024)
+FLASH_BWD_F32_REL_TOL, FLASH_BWD_F32_ROW_TOL = 3.2e-3, 1.2e-2
+BWD_ROW_FLOOR = 1e-2
+
+
+def flash_bwd_f32_distance(grads: dict, x, **kw) -> dict:
+    """Each (dq, dk, dv) in ``grads`` (name -> the three gradients) against
+    ``ref.flash_attention_bwd_ref`` of ``x`` = (dout, q, k, v, out) upcast
+    to f32 (TF32 off; the kernel's function in f32): {name: {"dq" | "dk" |
+    "dv": {"rel": ||got - want|| / ||want||, "row": the largest over the
+    (b, position, head) rows of dh of the same ratio}}}.  In causal
+    attention the first keys' dk and dv are many times the later ones',
+    so the row ratio sees a fault in late kv tiles that a tolerance
+    relative to the largest magnitude cannot.  A row's norm is floored at
+    BWD_ROW_FLOOR of the rows' root mean square: dq's first row is 0 (one
+    key, dP = D), and the kernel's is its rounding."""
+    import torch
+    from repro_torch.kernels import ref
+
+    want = ref.flash_attention_bwd_ref(*(y.float() for y in x), **kw)
+    dist = {}
+    for n, got in grads.items():
+        dist[n] = {}
+        for g_name, g, w in zip(("dq", "dk", "dv"), got, want):
+            d = g.float() - w
+            wn = w.norm(dim=-1)
+            floor = BWD_ROW_FLOOR * float(wn.square().mean().sqrt())
+            row = d.norm(dim=-1) / wn.clamp(min=floor)
+            dist[n][g_name] = {"rel": float(d.norm() / w.norm()),
+                               "row": float(row.max())}
+            del d, wn, row
+    return dist
+
+
+def check_flash_bwd_f32(label: str, dist: dict) -> dict:
+    """Logs each backward's distance from the f32 reference (the kernel's
+    beside the plain version's, which rounds only its outputs to bf16) and
+    raises unless each of the kernel's gradients is within
+    FLASH_BWD_F32_REL_TOL and FLASH_BWD_F32_ROW_TOL."""
+    log(f"{label} vs f32 reference: " + "; ".join(
+        f"{n} " + ", ".join(f"{g} rel {d['rel']:.3e} row {d['row']:.3e}"
+                            for g, d in grads.items())
+        for n, grads in dist.items())
+        + f" (kernel tol rel {FLASH_BWD_F32_REL_TOL}, row "
+          f"{FLASH_BWD_F32_ROW_TOL})")
+    got = dist["kernel"]
+    if not all(d["rel"] <= FLASH_BWD_F32_REL_TOL
+               and d["row"] <= FLASH_BWD_F32_ROW_TOL for d in got.values()):
+        raise AssertionError(f"{label}: the kernel is {got} from the f32 "
+                             f"reference")
+    return got
+
+
+def check_flash_bwd(dev):
+    """Small shapes and every mask variant (causal, non-causal, window,
+    softcap, GQA, ragged T and S, dh 16 to 256) in f32 and bf16; then the
+    train_4k layers (B = 1, T = S = 4,096): gemma2-2b's heads (8 on 4, dh
+    256, scale 1/16, softcap 50) global, with a 1,024 window (< T; the
+    path's 4,096 window equals T) and at a ragged T = S = 4,000, in bf16
+    and f32; glm4-9b's (32 on 2, dh 128) and minicpm-2b's (36, dh 64) in
+    bf16; each against ``ref.flash_attention_bwd_ref`` with a bitwise
+    repeat, and the bf16 train_4k layers also against the f32 reference
+    (``check_flash_bwd_f32``).  The kernel line reports gemma2's global
+    layer in bf16, timed beside compiled ``flex_attention``'s
+    backward."""
+    import torch
+    from repro_torch.kernels import ops, ref
+
+    gen = torch.Generator(device=dev).manual_seed(23)
+
+    def inputs(b, t, s, h, hk, dh, dt, **kw):
+        q, k, v = (torch.randn(*shape, generator=gen, device=dev).to(dt)
+                   for shape in ((b, t, h, dh), (b, s, hk, dh),
+                                 (b, s, hk, dh)))
+        out = ops.flash_attention(q, k, v, **kw)
+        dout = torch.randn(out.shape, generator=gen, device=dev).to(dt)
+        return dout, q, k, v, out
+
+    f32_refs = {}
+
+    def check(shape, dt, label=None, **kw):
+        x = inputs(*shape, dt, **kw)
+        got = counted("flash_attention_bwd",
+                      lambda: ops.flash_attention_bwd(*x, **kw))
+        plain = ref.flash_attention_bwd_ref(*x, **kw)
+        errs = close_rel(got, plain, f"flash_attention_bwd {shape} {dt} {kw}")
+        repeat_bitwise(lambda: ops.flash_attention_bwd(*x, **kw), got,
+                       f"flash_attention_bwd {shape} {dt} {kw}")
+        if label is not None and dt == torch.bfloat16:
+            f32_refs[label] = check_flash_bwd_f32(
+                f"flash_attention_bwd [{label} {shape} bf16]",
+                flash_bwd_f32_distance({"kernel": got, "plain": plain}, x,
+                                       **kw))
+        return errs, x
+
+    for dt in (torch.float32, torch.bfloat16):
+        # dh 100 (f32) and 104 (bf16: the forward's TMA loads need a
+        # multiple of 8) fill part of the kernel's 128-wide rows
+        odd = 100 if dt == torch.float32 else 104
+        for shape in ((1, 32, 32, 2, 2, 64), (2, 77, 77, 4, 2, 16),
+                      (1, 100, 130, 4, 1, 128), (2, 64, 96, 8, 4, 256),
+                      (1, 45, 45, 3, 3, odd)):
+            check(shape, dt)
+        for kw in (dict(window=16), dict(softcap=50.0, scale=0.3),
+                   dict(window=40, softcap=30.0), dict(causal=False),
+                   dict(causal=False, window=33, softcap=50.0)):
+            check((2, 150, 150, 4, 2, 64), dt, **kw)
+    path = dict(softcap=50.0, scale=1 / 16)
+    rows = {}
+    cases = [("gemma2 global", (1, 4096, 4096, 8, 4, 256), path),
+             ("gemma2 window 1024", (1, 4096, 4096, 8, 4, 256),
+              dict(path, window=1024)),
+             ("gemma2 ragged T=S=4000", (1, 4000, 4000, 8, 4, 256), path)]
+    for dt in (torch.bfloat16, torch.float32):
+        for label, shape, kw in cases:
+            (rel, err), x = check(shape, dt, label, **kw)
+            rows[(label, dt)] = (rel, err, shape, kw)
+            if label == "gemma2 global":
+                dname = "bf16" if dt == torch.bfloat16 else "f32"
+                ms = cuda_ms(lambda: ops.flash_attention_bwd(*x, **kw),
+                             reps=3, warm=1)
+                plain_ms = cuda_ms(
+                    lambda: ref.flash_attention_bwd_ref(*x, **kw), reps=2,
+                    warm=1)
+                b_ms, by = flash_bwd_bound(*shape, x[1].element_size(), -1)
+                lib_ms, lib_err = (flex_backward_ms(dev, x[1:4], x[0], -1)
+                                   if dt == torch.bfloat16 else (None, None))
+                rows[("line", dname)] = {
+                    "max_abs_err": err, "rel_err": rel, "ms": ms,
+                    "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": by,
+                    "library_ms": lib_ms, "library_error": lib_err,
+                    "shape": f"B=1 T=S=4096 H=8 Hkv=4 dh=256 causal, "
+                             f"softcap 50, {dname}"}
+                if dname == "f32":
+                    rows[("line", dname)]["bound_all_f32_ms"] = \
+                        flash_bwd_bound(*shape, 4, -1, all_f32=True)[0]
+            del x
+            torch.cuda.empty_cache()
+    for label, shape in (("glm4-9b heads", (1, 4096, 4096, 32, 2, 128)),
+                         ("minicpm-2b heads", (1, 4096, 4096, 36, 36, 64))):
+        (rel, err), x = check(shape, torch.bfloat16, label)
+        ms = cuda_ms(lambda: ops.flash_attention_bwd(*x), reps=2, warm=1)
+        b_ms, by = flash_bwd_bound(*shape, 2, -1)
+        log(f"flash_attention_bwd [{label} {shape} bf16]: rel err {rel:.3e}, "
+            f"bitwise repeat; {ms:.3f} ms, bound {b_ms:.4f} by {by} "
+            f"({100 * b_ms / ms:.2f} %)")
+        del x
+        torch.cuda.empty_cache()
+    for (label, dt), v in rows.items():
+        if label != "line":
+            log(f"flash_attention_bwd [{label} {v[2]} {dt} {v[3]}]: rel err "
+                f"{v[0]:.3e} (max abs {v[1]:.3e}), bitwise repeat")
+    for dname in ("bf16", "f32"):
+        r = rows[("line", dname)]
+        lib = (f"flex_attention backward {r['library_ms']:.3f} ms"
+               if r["library_ms"] is not None
+               else f"flex_attention backward: {r['library_error']}")
+        all_f32 = (f", all in f32 {r['bound_all_f32_ms']:.4f}"
+                   if dname == "f32" else "")
+        log(f"flash_attention_bwd [{r['shape']}]: rel err "
+            f"{r['rel_err']:.3e} (max abs {r['max_abs_err']:.3e}); "
+            f"{r['ms']:.3f} ms, {100 * r['bound_ms'] / r['ms']:.2f} % of "
+            f"the bound (plain {r['plain_ms']:.3f}, bound "
+            f"{r['bound_ms']:.4f} by {r['bound_by']}{all_f32}; {lib})")
+    line = dict(rows[("line", "bf16")])
+    line["f32"] = {k: rows[("line", "f32")][k]
+                   for k in ("ms", "plain_ms", "bound_ms", "bound_all_f32_ms",
+                             "max_abs_err")}
+    line["f32_ref"] = f32_refs
+    return line
 
 
 # -- phase 4: the serving path at full width --------------------------------
@@ -2913,6 +3358,146 @@ def din_card_vs_cpu(seed: int) -> None:
         f"err {err:.3e} over every parameter (tol 1e-5)")
 
 
+# phase 9c: the zoo's train cells.  Timed steps after one warm
+# step: the LM steps take seconds each, so two; the recsys steps three
+ZOO_TRAIN = {"dlrm-rm2": ("train_batch", 3), "xdeepfm": ("train_batch", 3),
+             "gemma2-2b": ("train_4k", 2), "glm4-9b": ("train_4k", 2),
+             "minicpm-2b": ("train_4k", 2)}
+# the steps profiled after the count, with the kernels split out of the
+# device time: the CIN forward and backward, the bf16 flash forward and
+# the three backward launches (namespace tc)
+ZOO_TRAIN_PROFILED = {"xdeepfm": ("cin_wgmma_kernel", "cin_bwd_"),
+                      "gemma2-2b": ("flash_wgmma_kernel", "::tc::")}
+
+
+def zoo_train_launches(arch: str, cell, steps: int) -> dict:
+    """The launches ``steps`` steps of ``cell`` make and nothing else: a
+    DLRM step one ``dot_interact`` and its backward; an xDeepFM step a
+    ``cin_layer`` and a ``cin_layer_bwd`` a CIN layer; an LM step, for
+    each layer and microbatch, the bf16 flash forward twice (the
+    checkpointed layer runs again in the backward pass) and its backward
+    once."""
+    from repro_torch import configs
+    mod = configs.get_arch(arch)
+    if arch == "dlrm-rm2":
+        return {"dot_interact": steps, "dot_interact_bwd": steps}
+    if arch == "xdeepfm":
+        n = len(mod.full_config().cin_layers)
+        return {"cin_layer": n * steps, "cin_layer_bwd": n * steps}
+    n = cell.meta["n_layers"] * cell.meta["n_microbatches"] * steps
+    return {"flash_attention_wgmma": 2 * n, "flash_attention_bwd": n}
+
+
+def train_zoo_cell(arch: str, seed: int) -> dict:
+    """Phase 9c: ``arch``'s train cell at the full widths (DLRM-RM2 and
+    xDeepFM's train_batch at B = 65,536 with no cut; the LMs' train_4k at
+    their configs' cuts): one warm step and ZOO_TRAIN's timed ones, the
+    counters reset before and read after (``zoo_train_launches``, nothing
+    else), finite losses; ms a step, model TFLOP/s, peak GB; for the
+    archs of ZOO_TRAIN_PROFILED one more step profiled (device busy, the
+    kernels' shares), outside the count."""
+    import torch
+    from repro_torch import configs
+    from repro_torch.kernels import ops
+
+    shape, timed = ZOO_TRAIN[arch]
+    held_gb = torch.cuda.memory_allocated() / 1e9
+    cell = configs.get_arch(arch).make_cell(shape)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state, batch = cell.make_args(seed, "cuda")
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    losses, times = [], []
+    for i in range(1 + timed):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, loss = cell.fn(state, batch)
+        torch.cuda.synchronize()
+        if i:
+            times.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(loss))
+    got = {k: v for k, v in ops.LAUNCHES.items() if v}
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    reserved_gb = torch.cuda.max_memory_reserved() / 1e9
+    want = zoo_train_launches(arch, cell, 1 + timed)
+    if got != want:
+        raise AssertionError(f"{arch} {shape}: launches {got}, want {want}")
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"{arch} {shape}: losses {losses}")
+    if arch in ZOO_TRAIN_PROFILED:
+        profile_call(f"{arch} x {shape}, one step (outside the count)",
+                     lambda: cell.fn(state, batch), rows=10,
+                     kernel=ZOO_TRAIN_PROFILED[arch], warmup=True)
+    tflop = cell.meta["model_flops"] / 1e12
+    cuts = f"cuts {cell.meta['cuts']}" if "cuts" in cell.meta else "no cut"
+    log(f"{arch} x {shape} (full widths, {cuts}): set-up {setup_s:.2f} s; "
+        f"steps "
+        f"{', '.join(f'{t:.3f}' for t in times)} ms; "
+        f"{tflop / (min(times) * 1e-3):.3f} model TFLOP/s at the fastest "
+        f"({tflop * 1e3:.1f} GFLOP a step); peak memory {peak_gb:.2f} GB "
+        f"({held_gb:.2f} held before the cell; {reserved_gb:.2f} reserved of "
+        f"{torch.cuda.mem_get_info()[1] / 1e9:.2f}); "
+        f"losses {[round(x, 6) for x in losses]}; launches {got}")
+    del state, batch
+    return got
+
+
+def zoo_train_card_vs_cpu(seed: int) -> None:
+    """Each of the five archs' smoke-width train cells from one init on
+    the card and on the CPU: the loss within 1e-5 and every gradient
+    within NEW_BWD_TOL of its largest magnitude (5e-5 f32; 2e-2 for the
+    recsys tables' bf16 leaves); the card runs the backward kernels (the
+    LMs' smoke widths are f32: the f32 flash kernels), the CPU their
+    plain versions.  Then each cell's first step on both devices, the
+    losses within 1e-5.  Outside the path's count."""
+    import torch
+    from repro_torch import configs
+    from repro_torch.kernels import ops
+    from repro_torch.models import layers as L
+    from repro_torch.training.trainer import micro_value_and_grad
+    from repro_torch.tree import leaves, leaves_with_paths, tree_map
+
+    for arch, (shape, _) in ZOO_TRAIN.items():
+        mod = configs.get_arch(arch)
+        cfg = mod.smoke_config()
+        cell = mod.make_cell(shape, cfg)
+        state, batch = cell.make_args(seed, "cpu")
+        if shape == "train_batch":
+            batch = {k: v[:256] for k, v in batch.items()}
+        n = cell.meta.get("n_microbatches", 1)
+        ops.reset_launches()
+        out = {}
+        for dev in ("cpu", "cuda"):
+            params = L.to_device(state.params, dev)
+            data = L.to_device(batch, dev)
+            out[dev] = micro_value_and_grad(
+                lambda p, b: mod.smoke_loss(p, cfg, b), params, data, n)
+        launched = {k: v for k, v in ops.LAUNCHES.items() if v}
+        bwd = {"dlrm-rm2": "dot_interact_bwd", "xdeepfm": "cin_layer_bwd"
+               }.get(arch, "flash_attention_bwd")
+        if not launched.get(bwd):
+            raise AssertionError(f"{arch} smoke on the card launched "
+                                 f"{launched}, no {bwd}")
+        close(out["cuda"][0], out["cpu"][0].cuda(), 1e-5)
+        paths = [p for p, _ in leaves_with_paths(out["cpu"][1])]
+        rel, _ = close_rel(leaves(out["cuda"][1]),
+                           [g.cuda() for g in leaves(out["cpu"][1])],
+                           f"{arch} smoke gradients card vs cpu")
+        losses = {}
+        for dev in ("cpu", "cuda"):  # the step updates its state in place
+            st = tree_map(lambda x: x.to(dev, copy=True), state)
+            _, losses[dev] = cell.fn(st, L.to_device(batch, dev))
+        close(losses["cuda"], losses["cpu"].cuda(), 1e-5)
+        log(f"{arch} {shape} at smoke widths, card vs cpu from one init: "
+            f"loss {float(out['cuda'][0]):.6f} vs {float(out['cpu'][0]):.6f}, "
+            f"{len(paths)} gradients within {rel:.3e} of their largest "
+            f"magnitude, first step's loss equal within 1e-5; card launches "
+            f"{launched}")
+
+
 def train_experiment(seed: int) -> dict:
     """Phase 9b: the paper's offline experiment on the card at
     tests/conftest.py's ``system_exp`` config - the four cascade models
@@ -4076,6 +4661,7 @@ def main(argv=None) -> int:
     gen = torch.Generator().manual_seed(args.seed)
     # the main path's history bags: a real slab of the full-width world
     wcfg, hist_ids, hist_mask, layout = window_inputs(args.seed, dev)
+    t_phase = time.perf_counter()
     results = {
         "cascade_truncate": check_truncation(gen, dev, layout,
                                              serve.FULL_EXPOSE),
@@ -4088,7 +4674,12 @@ def main(argv=None) -> int:
         "target_attention_bwd": check_target_attention_bwd(gen, dev),
         "embedding_bag_bwd": check_embedding_bag_bwd(
             gen, dev, hist_ids, hist_mask, wcfg.n_items, 32),
+        "dot_interact_bwd": check_dot_interact_bwd(dev),
+        "cin_layer_bwd": check_cin_bwd(dev),
+        "flash_attention_bwd": check_flash_bwd(dev),
     }
+    log(f"phase 3 (the kernels against their plain versions): "
+        f"{time.perf_counter() - t_phase:.1f}s")
     for name, r in results.items():
         log(f"{name} [{r['shape']}]: max_abs_err {r['max_abs_err']:.3e}, "
             f"{r['ms']:.4f} ms (plain {r['plain_ms']:.4f} ms, bound "
@@ -4141,6 +4732,15 @@ def main(argv=None) -> int:
     din_card_vs_cpu(args.seed)
     gc.collect()
     torch.cuda.empty_cache()
+    t_phase = time.perf_counter()
+    zoo_train = {}
+    for arch in ZOO_TRAIN:
+        zoo_train[arch] = train_zoo_cell(arch, args.seed)
+        gc.collect()
+        torch.cuda.empty_cache()
+    zoo_train_card_vs_cpu(args.seed)
+    log(f"phase 9c (DLRM-RM2, xDeepFM, gemma2-2b, glm4-9b, minicpm-2b "
+        f"training): {time.perf_counter() - t_phase:.1f}s")
     cli = serve_trained_cli(args.seed, build_s)
     gc.collect()
     torch.cuda.empty_cache()
@@ -4167,6 +4767,8 @@ def main(argv=None) -> int:
                         + "; ".join(f"{a}'s f32 identity check"
                                     for a in DENSE_LMS))
     launches.update(zoo_launches)
+    by_path.update({k: {f"{arch} cells": zoo_launches[k]}
+                    for arch, k in ZOO.items()})
     launches[BF16_FLASH] = lm_launches + dense["bf16"]
     launches[F32_FLASH] = f32_launches + dense["f32"]
     by_path[BF16_FLASH] = {"gemma2-2b": lm_launches,
@@ -4190,6 +4792,11 @@ def main(argv=None) -> int:
     for k in WINDOW_KERNELS:
         train_counts.setdefault(k, {})["trained stack windows"] = \
             experiment["served"][k]
+    # phase 9c: the zoo's train cells
+    for arch, counts in zoo_train.items():
+        for k, c in counts.items():
+            train_counts.setdefault(k, {})[
+                f"{arch} {ZOO_TRAIN[arch][0]}"] = c
     # the CLI's trained stack (its training in phase 4c) and phase 10
     for k, c in trained_build.items():
         train_counts.setdefault(k, {})["CLI trained stack training"] = c
@@ -4214,7 +4821,13 @@ def main(argv=None) -> int:
                 "target_attention_bwd": "src/repro/models/recsys/din.py:65 "
                                         "attention_pool (jax.grad)",
                 "embedding_bag_bwd": "src/repro/models/embedding.py:58 "
-                                     "fixed_bag (jax.grad)"}
+                                     "fixed_bag (jax.grad)",
+                "dot_interact_bwd": "src/repro/models/recsys/dlrm.py:99 "
+                                    "dot_interact (jax.grad)",
+                "cin_layer_bwd": "src/repro/models/recsys/xdeepfm.py:79 "
+                                 "cin_layer (jax.grad)",
+                "flash_attention_bwd": "src/repro/models/lm.py:296 "
+                                       "_attention (jax.grad)"}
     line = {"kernels": [
         {"name": name, "route": "cuda",
          "source": f"src/repro_torch/kernels/csrc/{build.KERNELS[name]}",
@@ -4228,7 +4841,8 @@ def main(argv=None) -> int:
          **({"device_ms": r["device_ms"]} if "device_ms" in r else {}),
          **({"at_32k": r["at_32k"]} if "at_32k" in r else {}),
          **({"dense_lm_heads": r["dense_lm_heads"]}
-            if "dense_lm_heads" in r else {})}
+            if "dense_lm_heads" in r else {}),
+         **({"f32": r["f32"]} if "f32" in r else {})}
         for name, r in results.items()]}
     log(f"smoke wall {time.perf_counter() - t_smoke:.1f}s")
     print(json.dumps(line), flush=True)

@@ -11,8 +11,10 @@ package's configs::
                                           SchNet's to full_config(shape))
     init_smoke(gen, cfg, device) / smoke_batch(rng, cfg, device)
                                           (recsys; the LM has lm.init)
-    smoke_loss(params, cfg, batch)        (an arch that trains: din, bst,
-                                          schnet, greenflow-cascade)
+    smoke_loss(params, cfg, batch)        (every arch that trains: din,
+                                          dlrm-rm2, xdeepfm, bst, schnet,
+                                          the three dense LMs,
+                                          greenflow-cascade)
 
 A ``Cell`` is one (architecture x shape) on one card: a function and a
 way to make its arguments.  It is the single-card counterpart of the JAX
@@ -134,15 +136,84 @@ def lm_make_cell(arch_id: str, cfg, shape: str, *, batch: int,
 
 
 LM_SMOKE_BATCH, LM_SMOKE_SEQ = 2, 64  # an LM cell at the smoke widths
+LM_TRAIN_LR = 3e-4  # the JAX lm_train_cell's AdamW (weight decay 0.1)
+LM_TRAIN_MICRO = 2  # microbatches of a train_4k cell (B = 8: 2 of 4)
+
+
+def lm_batch(rng, vocab: int, batch: int, seq: int, device) -> dict:
+    """The JAX package's LM training batch: ``batch`` rows of ``seq + 1``
+    uniform tokens, tokens the first ``seq``, targets the last ``seq``,
+    mask ones (``lm_smoke_batch``'s draw)."""
+    import numpy as np
+    import torch
+
+    toks = rng.integers(0, vocab, size=(batch, seq + 1))
+    out = {"tokens": toks[:, :-1].astype(np.int32),
+           "targets": toks[:, 1:].astype(np.int32),
+           "mask": np.ones((batch, seq), np.float32)}
+    return {k: torch.from_numpy(v).to(device) for k, v in out.items()}
+
+
+def lm_train_cell(arch_id: str, cfg, shape: str, *, batch: int, seq: int,
+                  cuts: dict) -> Cell:
+    """The JAX package's ``lm_train_cell`` on one card: ``batch``
+    sequences of ``seq`` positions (``lm_batch``), the gradient of
+    ``lm.loss_fn`` averaged over ``LM_TRAIN_MICRO`` microbatches in a
+    Python loop
+    (``trainer.micro_value_and_grad``), then one AdamW step (weight decay
+    0.1, lr 3e-4, no clipping).  ``make_args(seed, device)`` -> (a
+    ``TrainState`` of ``lm.init``'s f32 parameters, the batch);
+    ``fn(state, batch) -> (state, loss)`` updates the state in place (the
+    JAX cell donates it).  ``meta``: ``model_flops`` = 6 x active
+    parameters x tokens at ``cfg``'s depth, and every cut of the JAX
+    cell in ``cuts`` (what -> "JAX value -> this cell's")."""
+    import numpy as np
+    import torch
+
+    from repro_torch.device import resolve_device
+    from repro_torch.models import lm
+    from repro_torch.training.optimizer import AdamW
+    from repro_torch.training.trainer import (TrainState, init_state,
+                                              micro_value_and_grad)
+
+    opt = AdamW(weight_decay=0.1)
+
+    def loss(params, mb):
+        return lm.loss_fn(params, cfg, mb)
+
+    def step(state: TrainState, data: dict):
+        l, grads = micro_value_and_grad(loss, state.params, data,
+                                        LM_TRAIN_MICRO)
+        params, opt_state = opt.update_(grads, state.opt_state,
+                                        state.params, LM_TRAIN_LR)
+        return TrainState(state.step + 1, params, opt_state), l
+
+    def make_args(seed: int, device=None):
+        device = resolve_device(device)
+        params = lm.init(torch.Generator().manual_seed(seed), cfg, device)
+        return (init_state(params, opt),
+                lm_batch(np.random.default_rng(seed), cfg.vocab, batch, seq,
+                         device))
+
+    n_tokens = batch * seq
+    return Cell(arch_id=arch_id, shape_name=shape, kind="train", fn=step,
+                make_args=make_args,
+                meta={"model_flops": 6.0 * cfg.n_active_params() * n_tokens,
+                      "n_tokens": n_tokens,
+                      "n_microbatches": LM_TRAIN_MICRO,
+                      "batch": batch, "seq": seq, "n_layers": cfg.n_layers,
+                      "cuts": dict(cuts)})
 
 
 def lm_cell(arch_id: str, cfg, shape: str, *, skipped: dict,
-            cell_batch: dict) -> Cell:
-    """An LM config module's ``make_cell``: ``lm_make_cell`` at the
-    module's cut batch (``cell_batch``) and the shape's 32,768 positions
-    for the full widths, at (LM_SMOKE_BATCH, LM_SMOKE_SEQ) for the smoke
-    widths (a config named ``*-smoke``).  A shape in ``skipped`` raises
-    NotImplementedError with its reason."""
+            cell_batch: dict, cuts: dict | None = None) -> Cell:
+    """An LM config module's ``make_cell``: for the full widths, the
+    module's cut batch (``cell_batch``) at the shape's positions (32,768;
+    4,096 for train_4k); for the smoke widths (a config named
+    ``*-smoke``) (LM_SMOKE_BATCH, LM_SMOKE_SEQ).  Prefill and decode go to
+    ``lm_make_cell``, train_4k to ``lm_train_cell`` with the module's
+    ``cuts``.  A shape in ``skipped``
+    raises NotImplementedError with its reason."""
     if shape in skipped:
         raise NotImplementedError(f"{shape}: {skipped[shape]}")
     if shape not in cell_batch:
@@ -152,6 +223,9 @@ def lm_cell(arch_id: str, cfg, shape: str, *, skipped: dict,
         batch, seq = LM_SMOKE_BATCH, LM_SMOKE_SEQ
     else:
         batch, seq = cell_batch[shape], LM_SHAPES[shape]["seq"]
+    if LM_SHAPES[shape]["kind"] == "train":
+        return lm_train_cell(arch_id, cfg, shape, batch=batch, seq=seq,
+                             cuts=cuts or {})
     return lm_make_cell(arch_id, cfg, shape, batch=batch, seq=seq)
 
 

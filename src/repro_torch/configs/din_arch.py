@@ -67,7 +67,7 @@ def smoke_loss(params, cfg, batch):
 
 def make_cell(shape: str, cfg: model.DINConfig | None = None) -> rc.Cell:
     cfg = cfg or full_config()
-    info = rc.check_shape(shape, SKIPPED_SHAPES)
+    info = rc.check_shape(shape)
     b = info["batch"]
 
     def make_params(gen, device):

@@ -15,8 +15,23 @@ one 80 GB card holds (``CELL_BATCH``):
     each sequence of 32,768 positions (2 L S Hkv dh values), so B = 32
     holds 42.9 GB of cache beside the weights (B = 128 would be 171.8
     GB).
+  * train_4k: B = 8 sequences of 4,096, cut from 256, in
+    ``base.LM_TRAIN_MICRO`` = 2 microbatches of 4 (the JAX cell: 8 of
+    32), and the depth cut to ``TRAIN_LAYERS`` = 12 of 40, the most that
+    fit.  The reckoning: f32 parameters, gradients and AdamW's two
+    moments cost 16 bytes a parameter; the untied embedding and head
+    take 1.24 B parameters (19.9 GB), a layer 204 M (3.27 GB), and with
+    its bf16 weight copy and checkpointed input about 4.1 GB of the
+    step's peak.  On an H100 (85.0 GB to allocate) 10 layers peaked at
+    67.4 GB; 13 peaked at 79.6 GB allocated (83.5 GB reserved) in a
+    process of their own, but ran out of memory after the smoke's earlier
+    cells, with 6.7 GB reserved and unallocated (a layer's gradient
+    arrives as a full-size (L, ...) buffer, 2.9 GB at 13 layers).  Each
+    layer is checkpointed.
 """
 from __future__ import annotations
+
+import dataclasses
 
 from repro_torch.configs import base
 from repro_torch.models import lm
@@ -25,12 +40,14 @@ ARCH_ID = "glm4-9b"
 FAMILY = "lm"
 SHAPES = ("train_4k", "prefill_32k", "decode_32k", "long_500k")
 SKIPPED_SHAPES = {
-    "train_4k": "training waits for the backward kernels of both flash "
-                "attention kernels (ROADMAP queue A item 25)",
     "long_500k": "pure full-attention stack (no sub-quadratic path); "
                  "skipped per brief - see DESIGN.md §5",
 }
-CELL_BATCH = {"prefill_32k": 4, "decode_32k": 32}  # cut from 32 and 128
+# cut from 32, 128 and 256
+CELL_BATCH = {"prefill_32k": 4, "decode_32k": 32, "train_4k": 8}
+TRAIN_LAYERS = 12  # of 40: the most whose f32 training state fits
+TRAIN_CUTS = {"batch": "256 -> 8", "microbatches": "8 of 32 -> 2 of 4",
+              "n_layers": f"40 -> {TRAIN_LAYERS}"}
 
 
 def full_config() -> lm.LMConfig:
@@ -46,9 +63,28 @@ def smoke_config() -> lm.LMConfig:
         name=ARCH_ID + "-smoke", n_layers=2, d_model=64, n_heads=4,
         n_kv_heads=2, d_head=16, d_ff=128, vocab=128, padded_vocab=128,
         rope_fraction=0.5, tie_embeddings=False, dtype="float32",
+        remat=False,
     )
 
 
 def make_cell(shape: str, cfg: lm.LMConfig | None = None) -> base.Cell:
-    return base.lm_cell(ARCH_ID, cfg or full_config(), shape,
-                        skipped=SKIPPED_SHAPES, cell_batch=CELL_BATCH)
+    """The cell of ``shape``; train_4k at the full widths runs
+    ``TRAIN_LAYERS`` layers (``cfg``'s depth is cut, its widths kept)."""
+    cfg = cfg or full_config()
+    if shape == "train_4k" and not cfg.name.endswith("-smoke"):
+        cfg = dataclasses.replace(cfg, n_layers=TRAIN_LAYERS)
+    return base.lm_cell(ARCH_ID, cfg, shape, skipped=SKIPPED_SHAPES,
+                        cell_batch=CELL_BATCH, cuts=TRAIN_CUTS)
+
+
+def init_smoke(gen, cfg, device=None):
+    return lm.init(gen, cfg, device)
+
+
+def smoke_batch(rng, cfg, device=None) -> dict:
+    """The JAX package's ``lm_smoke_batch``: 2 sequences of 16 tokens."""
+    return base.lm_batch(rng, cfg.vocab, 2, 16, device or "cpu")
+
+
+def smoke_loss(params, cfg, batch):
+    return lm.loss_fn(params, cfg, batch)

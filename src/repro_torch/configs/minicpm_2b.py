@@ -11,7 +11,11 @@ The cells keep every width and all 40 layers and cut the batch to what
 one 80 GB card holds (``CELL_BATCH``).  With 36 kv heads the bf16 KV
 cache is 12.1 GB a sequence of 32,768 positions (2 L S Hkv dh values),
 so both cells run B = 4 (48.3 GB of cache): prefill_32k is cut from 32
-(386.5 GB of cache), decode_32k from 128 (1,546 GB).
+(386.5 GB of cache), decode_32k from 128 (1,546 GB).  train_4k keeps all
+40 layers and is cut from 256 to 8 sequences of 4,096 in
+``base.LM_TRAIN_MICRO`` = 2 microbatches of 4 (the JAX cell: 8 of 32):
+f32 parameters, gradients and AdamW's two moments take 43.7 GB; each
+layer is checkpointed.
 """
 from __future__ import annotations
 
@@ -24,12 +28,12 @@ ARCH_ID = "minicpm-2b"
 FAMILY = "lm"
 SHAPES = ("train_4k", "prefill_32k", "decode_32k", "long_500k")
 SKIPPED_SHAPES = {
-    "train_4k": "training waits for the backward kernels of both flash "
-                "attention kernels (ROADMAP queue A item 25)",
     "long_500k": "pure full-attention stack (no sub-quadratic path); "
                  "skipped per brief - see DESIGN.md §5",
 }
-CELL_BATCH = {"prefill_32k": 4, "decode_32k": 4}  # cut from 32 and 128
+# cut from 32, 128 and 256
+CELL_BATCH = {"prefill_32k": 4, "decode_32k": 4, "train_4k": 8}
+TRAIN_CUTS = {"batch": "256 -> 8", "microbatches": "8 of 32 -> 2 of 4"}
 
 
 def full_config() -> lm.LMConfig:
@@ -47,10 +51,24 @@ def smoke_config() -> lm.LMConfig:
         name=ARCH_ID + "-smoke", n_layers=2, d_model=72, n_heads=6,
         n_kv_heads=6, d_head=12, d_ff=144, vocab=128, padded_vocab=128,
         embed_scale=12.0, residual_scale=1.4 / math.sqrt(2.0),
-        logit_divisor=72.0 / 16.0, dtype="float32",
+        logit_divisor=72.0 / 16.0, dtype="float32", remat=False,
     )
 
 
 def make_cell(shape: str, cfg: lm.LMConfig | None = None) -> base.Cell:
     return base.lm_cell(ARCH_ID, cfg or full_config(), shape,
-                        skipped=SKIPPED_SHAPES, cell_batch=CELL_BATCH)
+                        skipped=SKIPPED_SHAPES, cell_batch=CELL_BATCH,
+                        cuts=TRAIN_CUTS)
+
+
+def init_smoke(gen, cfg, device=None):
+    return lm.init(gen, cfg, device)
+
+
+def smoke_batch(rng, cfg, device=None) -> dict:
+    """The JAX package's ``lm_smoke_batch``: 2 sequences of 16 tokens."""
+    return base.lm_batch(rng, cfg.vocab, 2, 16, device or "cpu")
+
+
+def smoke_loss(params, cfg, batch):
+    return lm.loss_fn(params, cfg, batch)

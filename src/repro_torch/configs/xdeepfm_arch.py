@@ -1,7 +1,10 @@
 """xdeepfm [arXiv:1803.05170]: n_sparse=39 embed_dim=10
 cin_layers=200-200-200 mlp=400-400 interaction=CIN.  Stacked table of
 79,984,968 rows x 10 (1.6 GB in bf16) plus the linear table, whole on
-one card.
+one card.  ``train_batch`` is the JAX cell's hybrid step at B = 65,536,
+no cut: SGD (0.04) on the table and the linear table, AdamW (1e-3) on
+the CIN and DNN weights; three ``cin_layer`` and three ``cin_layer_bwd``
+launches a step.
 """
 from __future__ import annotations
 
@@ -13,8 +16,9 @@ from repro_torch.models.recsys import xdeepfm as model
 
 ARCH_ID = "xdeepfm"
 FAMILY = "recsys"
-SHAPES = rc.SERVE_SHAPES
-SKIPPED_SHAPES = rc.SKIPPED_SHAPES
+SHAPES = rc.SHAPES
+SKIPPED_SHAPES: dict = {}
+EMB_KEYS = ("tables", "linear")  # trained by the hybrid step's SGD
 
 PAD_TO = 1024
 N_ITEM_FIELDS = 6
@@ -41,6 +45,10 @@ def smoke_batch(rng: np.random.Generator, cfg, device=None) -> dict:
                  label=rng.integers(0, 2, b).astype(np.float32))
 
 
+def smoke_loss(params, cfg, batch):
+    return model.loss_fn(params, cfg, batch)
+
+
 def make_cell(shape: str,
               cfg: model.XDeepFMConfig | None = None) -> rc.Cell:
     cfg = cfg or full_config()
@@ -48,6 +56,19 @@ def make_cell(shape: str,
 
     def make_params(gen, device):
         return model.init(gen, cfg, pad_vocab_to=PAD_TO, device=device)
+
+    if shape == "train_batch":
+        b = info["batch"]
+
+        def make_batch(rng, device):
+            return rc.on(device,
+                         sparse=rc.sparse_ids(rng, cfg.vocab_sizes, b),
+                         label=rng.integers(0, 2, b).astype(np.float32))
+
+        return rc.hybrid_train_cell(
+            ARCH_ID, shape, loss_fn=lambda p, bb: model.loss_fn(p, cfg, bb),
+            make_params=make_params, make_batch=make_batch,
+            flops_fwd=b * model.flops_per_example(cfg), emb_keys=EMB_KEYS)
 
     if shape == "retrieval_cand":
         n = info["n_candidates"]

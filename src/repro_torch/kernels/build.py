@@ -26,7 +26,10 @@ KERNELS = {"cascade_truncate": "cascade_truncate.cu",
            "flash_attention": "flash_attention.cu",
            "flash_attention_wgmma": "flash_attention_wgmma.cu",
            "target_attention_bwd": "target_attention_bwd.cu",
-           "embedding_bag_bwd": "embedding_bag_bwd.cu"}
+           "embedding_bag_bwd": "embedding_bag_bwd.cu",
+           "dot_interact_bwd": "dot_interact_bwd.cu",
+           "cin_layer_bwd": "cin_bwd.cu",
+           "flash_attention_bwd": "flash_attention_bwd.cu"}
 CUDA_FLAGS = ["-gencode=arch=compute_90a,code=sm_90a", "-O3"]
 
 _LOCK = threading.Lock()

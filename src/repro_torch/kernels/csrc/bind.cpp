@@ -65,6 +65,20 @@ int flash_attention_wgmma_launch(const void* q, const void* k, const void* v,
                                  int T, int S, int H, int Hkv, int dh,
                                  int causal, int window, float scale,
                                  float softcap, void* stream);
+int dot_interact_bwd_launch(const void* dout, const void* feats,
+                            void* dfeats, int B, int F, int D, int bf16,
+                            void* stream);
+long long cin_layer_bwd_scratch_floats(int B, int Hp, int m, int D, int Ho);
+int cin_layer_bwd_launch(const float* w, const float* x_prev,
+                         const float* x0, const float* dz, float* dw,
+                         float* dx_prev, float* dx0, float* scratch, int B,
+                         int Hp, int m, int D, int Ho, void* stream);
+int flash_attention_bwd_launch(const void* q, const void* k, const void* v,
+                               const void* o, const void* dout, void* dq,
+                               void* dk, void* dv, float* scratch, int B,
+                               int T, int S, int H, int Hkv, int dh,
+                               int causal, int window, float scale,
+                               float softcap, int bf16, void* stream);
 }
 
 namespace {
@@ -549,6 +563,136 @@ torch::Tensor flash_attention_wgmma(torch::Tensor q, torch::Tensor k,
   return out;
 }
 
+// The backward of dot_interact: dout (B, F(F-1)/2) and feats (B, F, D),
+// both f32 or both bf16 -> dfeats (B, F, D) in that dtype.
+torch::Tensor dot_interact_bwd(const torch::Tensor& dout,
+                               const torch::Tensor& feats) {
+  same_device("dot_interact_bwd", feats, {&dout});
+  TORCH_CHECK(feats.dim() == 3 && dout.dim() == 2,
+              "want dout (B, F(F-1)/2) and feats (B, F, D)");
+  const int64_t bsz = feats.size(0), f = feats.size(1), d = feats.size(2);
+  TORCH_CHECK(dout.size(0) == bsz && dout.size(1) == f * (f - 1) / 2,
+              "dout must be (B, F(F-1)/2) for feats' B and F");
+  const auto dt = feats.scalar_type();
+  TORCH_CHECK((dt == torch::kFloat32 || dt == torch::kBFloat16) &&
+                  dout.scalar_type() == dt,
+              "dout and feats must both be f32 or both bf16");
+  const c10::cuda::CUDAGuard guard(feats.device());
+  const auto x = feats.contiguous(), g = dout.contiguous();
+  auto out = torch::empty({bsz, f, d}, x.options());
+  if (out.numel() == 0) return out;
+  check_launch(dot_interact_bwd_launch(g.data_ptr(), x.data_ptr(),
+                                       out.data_ptr(), as_int(bsz, "B"),
+                                       as_int(f, "F"), as_int(d, "D"),
+                                       dt == torch::kBFloat16, stream()),
+               "dot_interact_bwd");
+  return out;
+}
+
+// The backward of cin_layer: dz (B, H_out, D) and the forward's w
+// (H_out, Hp*m), x_prev (B, Hp, D), x0 (B, m, D), f32 -> [dw, dx_prev,
+// dx0] shaped like their inputs.
+std::vector<torch::Tensor> cin_layer_bwd(const torch::Tensor& dz,
+                                         const torch::Tensor& w,
+                                         const torch::Tensor& x_prev,
+                                         const torch::Tensor& x0) {
+  same_device("cin_layer_bwd", w, {&dz, &x_prev, &x0});
+  TORCH_CHECK(w.dim() == 2 && x_prev.dim() == 3 && x0.dim() == 3 &&
+                  dz.dim() == 3,
+              "want dz (B, H_out, D), w (H_out, Hp*m), x_prev (B, Hp, D), "
+              "x0 (B, m, D)");
+  const int64_t bsz = x_prev.size(0), hp = x_prev.size(1);
+  const int64_t d = x_prev.size(2), m = x0.size(1), ho = w.size(0);
+  TORCH_CHECK(x0.size(0) == bsz && x0.size(2) == d,
+              "x0 must be (B, m, D) like x_prev");
+  TORCH_CHECK(w.size(1) == hp * m, "w must have Hp*m = ", num(hp * m),
+              " columns, got ", num(w.size(1)));
+  TORCH_CHECK(dz.size(0) == bsz && dz.size(1) == ho && dz.size(2) == d,
+              "dz must be (B, H_out, D)");
+  for (const torch::Tensor* t : {&dz, &w, &x_prev, &x0})
+    TORCH_CHECK(t->scalar_type() == torch::kFloat32, "inputs must be f32");
+  TORCH_CHECK(m <= 64, "cin_layer_bwd supports m <= 64, got ", num(m));
+  const c10::cuda::CUDAGuard guard(w.device());
+  const auto wc = w.contiguous(), xp = x_prev.contiguous();
+  const auto xz = x0.contiguous(), g = dz.contiguous();
+  auto dw = torch::zeros({ho, hp * m}, wc.options());
+  auto dxp = torch::zeros({bsz, hp, d}, xp.options());
+  auto dx0 = torch::zeros({bsz, m, d}, xz.options());
+  if (bsz == 0 || d == 0 || ho == 0 || hp == 0 || m == 0)
+    return {dw, dxp, dx0};
+  as_int(bsz * d * std::max({hp, ho, m}), "B*D*max(Hp, H_out, m)");
+  as_int(ho * hp * m, "H_out*Hp*m");
+  const int bi = as_int(bsz, "B"), hpi = as_int(hp, "Hp");
+  const int mi = as_int(m, "m"), di = as_int(d, "D");
+  const int hoi = as_int(ho, "H_out");
+  const long long n_scratch =
+      cin_layer_bwd_scratch_floats(bi, hpi, mi, di, hoi);
+  auto scratch = torch::empty({std::max<long long>(n_scratch, 1)},
+                              wc.options());
+  check_launch(cin_layer_bwd_launch(
+                   wc.data_ptr<float>(), xp.data_ptr<float>(),
+                   xz.data_ptr<float>(), g.data_ptr<float>(),
+                   dw.data_ptr<float>(), dxp.data_ptr<float>(),
+                   dx0.data_ptr<float>(), scratch.data_ptr<float>(), bi, hpi,
+                   mi, di, hoi, stream()),
+               "cin_layer_bwd");
+  return {dw, dxp, dx0};
+}
+
+// The backward of both flash kernels: dout and the forward's output
+// (B, T, H, dh), q (B, T, H, dh), k and v (B, S, Hkv, dh), all f32 or all
+// bf16 -> [dq, dk, dv] in that dtype.  Inputs are made contiguous; the
+// rows' log-sum-exp and D are f32 scratch.
+std::vector<torch::Tensor> flash_attention_bwd(
+    const torch::Tensor& dout, const torch::Tensor& q, const torch::Tensor& k,
+    const torch::Tensor& v, const torch::Tensor& out, bool causal,
+    int64_t window, double softcap, double scale) {
+  const char* what = "flash_attention_bwd";
+  same_device(what, q, {&k, &v, &dout, &out});
+  const auto dt = q.scalar_type();
+  TORCH_CHECK(dt == torch::kFloat32 || dt == torch::kBFloat16, what,
+              ": inputs must be f32 or bf16");
+  const Attention a = attention_args(what, q, k, v, dt);
+  TORCH_CHECK(dout.sizes() == q.sizes() && out.sizes() == q.sizes() &&
+                  dout.scalar_type() == dt && out.scalar_type() == dt,
+              what, ": dout and out must be shaped and typed like q");
+  TORCH_CHECK(a.dh >= 1 && a.dh <= 256, what,
+              ": the kernel supports 1 <= dh <= 256");
+  const c10::cuda::CUDAGuard guard(q.device());
+  // contiguous, from a 16-byte boundary (the bf16 kernels load 16 bytes a
+  // copy)
+  const auto dense = [](const torch::Tensor& t) {
+    auto c = t.contiguous();
+    return reinterpret_cast<uintptr_t>(c.data_ptr()) % 16 ? c.clone() : c;
+  };
+  const auto qc = dense(a.q), kc = dense(a.k), vc = dense(a.v);
+  const auto oc = dense(out), gc = dense(dout);
+  auto dq = torch::empty(qc.sizes(), qc.options());
+  auto dk = torch::empty(kc.sizes(), kc.options());
+  auto dv = torch::empty(vc.sizes(), vc.options());
+  if (a.b == 0 || a.h == 0 || a.dh == 0 || a.t == 0 || a.s == 0) {
+    dq.zero_();
+    dk.zero_();
+    dv.zero_();
+    return {dq, dk, dv};
+  }
+  as_int(a.b * a.t * a.h * a.dh, "B*T*H*dh");
+  as_int(a.b * a.s * a.hk * a.dh, "B*S*Hkv*dh");
+  auto scratch = torch::empty({2 * a.b * a.h * a.t},
+                              qc.options().dtype(torch::kFloat32));
+  check_launch(
+      flash_attention_bwd_launch(
+          qc.data_ptr(), kc.data_ptr(), vc.data_ptr(), oc.data_ptr(),
+          gc.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+          scratch.data_ptr<float>(), as_int(a.b, "B"), as_int(a.t, "T"),
+          as_int(a.s, "S"), as_int(a.h, "H"), as_int(a.hk, "Hkv"),
+          as_int(a.dh, "dh"), causal, clamp_window(window),
+          static_cast<float>(scale), static_cast<float>(softcap),
+          dt == torch::kBFloat16, stream()),
+      what);
+  return {dq, dk, dv};
+}
+
 PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
   m.def("cascade_truncate", &cascade_truncate,
         "CompactPlan truncation: (B,) revenue@expose");
@@ -568,4 +712,10 @@ PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
         "(3xTF32 on the tensor cores)");
   m.def("flash_attention_wgmma", &flash_attention_wgmma,
         "the same in bf16 on the tensor cores (wgmma, TMA)");
+  m.def("dot_interact_bwd", &dot_interact_bwd,
+        "DLRM dot interaction's backward: dfeats = (G + G^T) X");
+  m.def("cin_layer_bwd", &cin_layer_bwd,
+        "xDeepFM CIN layer's backward: dw, dx_prev, dx0");
+  m.def("flash_attention_bwd", &flash_attention_bwd,
+        "flash attention's backward (f32 or bf16): dq, dk, dv");
 }

@@ -8,19 +8,16 @@ more than one device, or a kernel that fails to build or launch, raises
 types and layout and launches under the inputs' device guard, on that
 device's current stream; it never synchronises.
 
-Gradients.  ``target_attention`` and ``embedding_bag`` are
-``torch.autograd.Function``s when autograd needs them (grad mode on and
-an input that requires a gradient): the forward runs as above, and the
-backward runs the hand-written backward kernel on the card
-(``target_attention_bwd``, ``embedding_bag_bwd``) and its plain version
-in ``kernels.ref`` on the CPU.  Only the inputs are saved; the backward
-recomputes the rest.  Without autograd (serving, ``no_grad``, a CUDA
-graph capture) they launch exactly what they did before.  An input
-whose gradient no path needs (the attention mask, the bag's weights)
-raises if it requires one; so does a CUDA input that requires a
-gradient through a kernel that has no backward yet (``dot_interact``,
-``cin_layer``, ``flash_attention``: ROADMAP queue A item 25) - nothing
-returns a tensor without a ``grad_fn`` in its place.
+Gradients.  Every kernel but the truncation is a
+``torch.autograd.Function``: the forward runs as above, and the backward
+runs the hand-written backward kernel on the card
+(``target_attention_bwd``, ``embedding_bag_bwd``, ``dot_interact_bwd``,
+``cin_layer_bwd``, ``flash_attention_bwd``) and its plain version in
+``kernels.ref`` on the CPU.  The inputs are saved (and flash attention's
+output); the backward recomputes the rest.  Without autograd (serving,
+``no_grad``, a CUDA graph capture) each launches exactly what it
+launches without a backward.  An input whose gradient no path needs
+(the attention mask, the bag's weights) raises if it requires one.
 
 ``LAUNCHES`` counts kernel launches per kernel: each wrapper adds one
 right where it launches, and nowhere else, so a run can show that its
@@ -45,12 +42,9 @@ from repro_torch.kernels.build import load
 LAUNCHES = {"cascade_truncate": 0, "target_attention": 0,
             "embedding_bag": 0, "dot_interact": 0, "cin_layer": 0,
             "flash_attention": 0, "flash_attention_wgmma": 0,
-            "target_attention_bwd": 0, "embedding_bag_bwd": 0}
-
-NO_BACKWARD = ("has no backward kernel yet (ROADMAP queue A item 25: the "
-               "backward kernels of dot_interact, cin_layer and both flash "
-               "attention kernels, for DLRM's, xDeepFM's and gemma2-2b's "
-               "training)")
+            "target_attention_bwd": 0, "embedding_bag_bwd": 0,
+            "dot_interact_bwd": 0, "cin_layer_bwd": 0,
+            "flash_attention_bwd": 0}
 
 
 _LOCK = threading.Lock()
@@ -104,15 +98,6 @@ def _on_cpu(*ts) -> bool:
 def _needs_grad(*ts) -> bool:
     return torch.is_grad_enabled() and any(
         t is not None and t.requires_grad for t in ts)
-
-
-def _no_backward(name: str, *ts) -> None:
-    """Raise when autograd needs a gradient through kernel ``name``,
-    which has no backward, for inputs that are not all on the CPU (the
-    plain version there is differentiated by autograd)."""
-    if _needs_grad(*ts) and any(t.device.type != "cpu" for t in ts):
-        raise NotImplementedError(f"{name} {NO_BACKWARD}; its inputs on "
-                                  f"{ts[0].device} require a gradient")
 
 
 def cascade_truncate(p_sorted, clicks_sorted, groups, rows, n3, *,
@@ -215,30 +200,82 @@ def embedding_bag(table, ids, weights=None):
     return _EmbeddingBag.apply(table, ids, weights)
 
 
+def dot_interact_bwd(dout, feats):
+    """The backward of ``dot_interact``: dout (B, F(F-1)/2) -> dfeats
+    (B, F, D) in feats' dtype; see ``ref.dot_interact_bwd_ref``."""
+    if _on_cpu(dout, feats):
+        return ref.dot_interact_bwd_ref(dout, feats)
+    out = load().dot_interact_bwd(dout, feats)
+    if out.numel():  # launched for B, F, D > 0
+        _count("dot_interact_bwd")
+    return out
+
+
+class _DotInteract(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, feats):
+        ctx.save_for_backward(feats)
+        if _on_cpu(feats):
+            return ref.dot_interact_ref(feats)
+        out = load().dot_interact(feats)
+        if out.numel():  # launched for B > 0 and F > 1
+            _count("dot_interact")
+        return out
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, dout):
+        return dot_interact_bwd(dout, *ctx.saved_tensors)
+
+
 def dot_interact(feats):
     """(B, F, D) f32 or bf16 -> (B, F(F-1)/2) strictly-lower-triangle
-    pairwise dots in the input's dtype; see ``ref.dot_interact_ref``."""
-    _no_backward("dot_interact", feats)
-    if _on_cpu(feats):
-        return ref.dot_interact_ref(feats)
-    out = load().dot_interact(feats)
-    if out.numel():  # launched for B > 0 and F > 1
-        _count("dot_interact")
+    pairwise dots in the input's dtype; see ``ref.dot_interact_ref``.
+    Differentiable in feats."""
+    return _DotInteract.apply(feats)
+
+
+def cin_layer_bwd(dz, w, x_prev, x0):
+    """The backward of ``cin_layer``: dz (B, H_out, D) -> (dw, dx_prev,
+    dx0), each shaped like its input; see ``ref.cin_layer_bwd_ref``."""
+    if _on_cpu(dz, w, x_prev, x0):
+        return ref.cin_layer_bwd_ref(dz, w, x_prev, x0)
+    out = tuple(load().cin_layer_bwd(dz, w, x_prev, x0))
+    # one count a call: the binding launches the input gradients' kernel
+    # and dw's partial sums and, when it cuts the batch into parts, their
+    # sum in a fixed order
+    if dz.numel() and w.shape[1]:  # launched unless empty or K = 0
+        _count("cin_layer_bwd")
     return out
+
+
+class _CinLayer(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, w, x_prev, x0):
+        ctx.save_for_backward(w, x_prev, x0)
+        if _on_cpu(w, x_prev, x0):
+            return ref.cin_layer_ref(w, x_prev, x0)
+        out = load().cin_layer(w, x_prev, x0)
+        # one count a call: the binding launches w's TF32 split, the
+        # product and, when it cuts K into parts, their sum in a fixed
+        # order
+        if out.numel() and w.shape[1]:  # launched unless empty or K = 0
+            _count("cin_layer")
+        return out
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, dz):
+        grads = cin_layer_bwd(dz, *ctx.saved_tensors)
+        return tuple(g if n else None
+                     for g, n in zip(grads, ctx.needs_input_grad))
 
 
 def cin_layer(w, x_prev, x0):
     """w (H_out, Hp*m), x_prev (B, Hp, D), x0 (B, m, D), f32 ->
-    (B, H_out, D); see ``ref.cin_layer_ref``."""
-    _no_backward("cin_layer", w, x_prev, x0)
-    if _on_cpu(w, x_prev, x0):
-        return ref.cin_layer_ref(w, x_prev, x0)
-    out = load().cin_layer(w, x_prev, x0)
-    # one count a call: the binding launches w's TF32 split, the product
-    # and, when it cuts K into parts, their sum in a fixed order
-    if out.numel() and w.shape[1]:  # launched unless empty or K = 0
-        _count("cin_layer")
-    return out
+    (B, H_out, D); see ``ref.cin_layer_ref``.  Differentiable in all
+    three."""
+    return _CinLayer.apply(w, x_prev, x0)
 
 
 def flash_kernel(q, k, v) -> str:
@@ -275,6 +312,69 @@ def flash_kernel(q, k, v) -> str:
     return "flash_attention_wgmma"
 
 
+def _empty_query_rows(t: int, s: int, window: int) -> bool:
+    """Whether a query row admits no key: with a window, row t sees keys
+    in (t - window, t] (causal) or (t - window, S) and none once t >= S +
+    window - 1; without one, row t always sees key 0."""
+    return window > 0 and t > s + window - 1
+
+
+def flash_attention_bwd(dout, q, k, v, out, *, causal: bool = True,
+                        window: int = -1, softcap: float | None = None,
+                        scale: float | None = None):
+    """The backward of ``flash_attention``: dout and the forward's output
+    (B, T, H, dh) -> (dq, dk, dv) shaped and typed like q, k and v; see
+    ``ref.flash_attention_bwd_ref``.  Raises ValueError when a query row
+    admits no key (its forward weighs masked keys alike; no path needs
+    its gradient)."""
+    scale = 1.0 / math.sqrt(q.shape[-1]) if scale is None else scale
+    if _empty_query_rows(q.shape[1], k.shape[1], window):
+        raise ValueError(f"flash attention's backward needs every query "
+                         f"row to admit a key: T = {q.shape[1]} > S + "
+                         f"window - 1 = {k.shape[1] + window - 1}")
+    if _on_cpu(dout, q, k, v, out):
+        return ref.flash_attention_bwd_ref(dout, q, k, v, out, causal=causal,
+                                           window=window, softcap=softcap,
+                                           scale=scale)
+    grads = tuple(load().flash_attention_bwd(
+        dout, q, k, v, out, bool(causal), int(window), float(softcap or 0.0),
+        float(scale)))
+    # one count a call: the binding launches the rows' log-sum-exp and
+    # rowsum(dO o O), then dk and dv a kv tile a block, then dq a query
+    # tile a block
+    if q.numel() and k.shape[1]:  # launched for B, T, H, S > 0
+        _count("flash_attention_bwd")
+    return grads
+
+
+class _FlashAttention(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, softcap, scale):
+        if _on_cpu(q, k, v):
+            out = ref.flash_attention_ref(q, k, v, causal=causal,
+                                          window=window, softcap=softcap,
+                                          scale=scale)
+        else:
+            name = flash_kernel(q, k, v)
+            out = getattr(load(), name)(q, k, v, bool(causal), int(window),
+                                        float(softcap or 0.0), float(scale))
+            if out.numel():  # launched for B, T, H > 0
+                _count(name)
+        ctx.save_for_backward(q, k, v, out)
+        ctx.opts = dict(causal=causal, window=window, softcap=softcap,
+                        scale=scale)
+        return out
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, dout):
+        q, k, v, out = ctx.saved_tensors
+        grads = flash_attention_bwd(dout, q, k, v, out, **ctx.opts)
+        return (*(g if n else None
+                  for g, n in zip(grads, ctx.needs_input_grad)),
+                None, None, None, None)
+
+
 def flash_attention(q, k, v, *, causal: bool = True, window: int = -1,
                     softcap: float | None = None,
                     scale: float | None = None):
@@ -284,15 +384,7 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = -1,
     defaulting to 1/sqrt(dh); see ``ref.flash_attention_ref``.  Ragged T
     and S need no padding.  On the card both dtypes run on the tensor
     cores: bf16 on the wgmma kernel, f32 on the 3xTF32 one
-    (``flash_kernel``)."""
+    (``flash_kernel``).  Differentiable in q, k and v
+    (``flash_attention_bwd``)."""
     scale = 1.0 / math.sqrt(q.shape[-1]) if scale is None else scale
-    _no_backward("flash_attention", q, k, v)
-    if _on_cpu(q, k, v):
-        return ref.flash_attention_ref(q, k, v, causal=causal, window=window,
-                                       softcap=softcap, scale=scale)
-    name = flash_kernel(q, k, v)
-    out = getattr(load(), name)(q, k, v, bool(causal), int(window),
-                                float(softcap or 0.0), float(scale))
-    if out.numel():  # launched for B, T, H > 0
-        _count(name)
-    return out
+    return _FlashAttention.apply(q, k, v, causal, window, softcap, scale)

@@ -161,3 +161,87 @@ def embedding_bag_bwd_ref(dout, ids, weights, num_rows: int):
         g = g * weights[..., None]
     out = dout.new_zeros((num_rows, d))
     return out.index_add_(0, ids.reshape(-1).long(), g.reshape(-1, d))
+
+
+def dot_interact_bwd_ref(dout, feats):
+    """The backward of ``dot_interact_ref``: dout (B, F(F-1)/2) -> dfeats
+    (B, F, D) in feats' dtype.  Per sample, G (F, F) holds dout in its
+    strictly lower triangle (``np.tril_indices(F, k=-1)`` order) and
+    dfeats = (G + G^T) X, summed in f32."""
+    b, f, _ = feats.shape
+    iu, ju = torch.tril_indices(f, f, offset=-1, device=feats.device)
+    g = torch.zeros((b, f, f), dtype=torch.float32, device=feats.device)
+    g[:, iu, ju] = dout.float()
+    return torch.bmm(g + g.mT, feats.float()).to(feats.dtype)
+
+
+def cin_layer_bwd_ref(dz, w, x_prev, x0, *, chunk_elems: int = 1 << 26):
+    """The backward of ``cin_layer_ref``: dz (B, H_out, D) -> (dw (H_out,
+    Hp*m), dx_prev (B, Hp, D), dx0 (B, m, D)).  With Z = x_prev (x) x0
+    and T = w^T dz, both (B, Hp*m, D):
+
+        dw = sum_{b,d} dz (x) Z,
+        dx_prev[b,h,d] = sum_j x0[b,j,d] T[b,hm+j,d],
+        dx0[b,j,d] = sum_h x_prev[b,h,d] T[b,hm+j,d].
+
+    Z and T are formed ``chunk_elems`` floats' worth of samples at a time
+    (each is 20.4 GB whole at xDeepFM's train_batch), dw summed over the
+    chunks in order."""
+    b, hp, d = x_prev.shape
+    m = x0.shape[1]
+    step = max(1, chunk_elems // max(1, hp * m * d))
+    dw = torch.zeros_like(w)
+    dxp, dx0 = [x_prev.new_empty((0, hp, d))], [x0.new_empty((0, m, d))]
+    for s in range(0, b, step):
+        xp, xz, g = x_prev[s:s + step], x0[s:s + step], dz[s:s + step]
+        z = torch.einsum("bhd,bmd->bhmd", xp, xz).reshape(-1, hp * m, d)
+        dw += torch.einsum("bod,bcd->oc", g, z)
+        t = torch.einsum("oc,bod->bcd", w, g).reshape(-1, hp, m, d)
+        dxp.append(torch.einsum("bhmd,bmd->bhd", t, xz))
+        dx0.append(torch.einsum("bhmd,bhd->bmd", t, xp))
+    return dw, torch.cat(dxp), torch.cat(dx0)
+
+
+def flash_attention_bwd_ref(dout, q, k, v, out, *, causal=True, window=-1,
+                            softcap=None, scale=None):
+    """The backward of ``flash_attention_ref``: dout and the forward's
+    output ``out`` (B, T, H, dh) -> (dq, dk, dv) shaped and typed like q,
+    k and v.  Computed in f32 from the upcast inputs, as the kernel does:
+    P = exp(s - lse) from the recomputed logits s, dP = dO V^T, dS = P (dP
+    - D) with D = rowsum(dO o O), times the softcap's 1 - tanh^2 and the
+    scale; dq = dS K, dk = dS^T Q, dv = P^T dO, each query head adding
+    into its kv head.  Masked (query, key) pairs weigh 0.  A query row
+    that admits no key is refused by ``ops.flash_attention_bwd``; the
+    (B, Hkv, G, T, S) logits are formed whole."""
+    b, t, h, dh = q.shape
+    s, hk = k.shape[1], k.shape[2]
+    g = h // hk
+    scale = scale if scale is not None else 1.0 / math.sqrt(dh)
+    qg = q.float().reshape(b, t, hk, g, dh)
+    dog = dout.float().reshape(b, t, hk, g, dh)
+    kf, vf = k.float(), v.float()
+    logits = torch.einsum("btkgd,bskd->bkgts", qg, kf) * scale
+    if softcap:
+        th = torch.tanh(logits / softcap)
+        logits = softcap * th
+    q_pos = torch.arange(t, device=q.device)[:, None]
+    k_pos = torch.arange(s, device=q.device)[None, :]
+    mask = torch.ones((t, s), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= k_pos <= q_pos
+    if window > 0:
+        mask &= (q_pos - k_pos) < window
+    logits = torch.where(mask, logits, torch.tensor(-1e30, device=q.device))
+    lse = torch.logsumexp(logits, dim=-1, keepdim=True)
+    p = torch.where(mask, torch.exp(logits - lse), 0.0)
+    delta = (dout.float() * out.float()).sum(-1)  # (B, T, H)
+    delta = delta.reshape(b, t, hk, g).permute(0, 2, 3, 1)[..., None]
+    dp = torch.einsum("btkgd,bskd->bkgts", dog, vf)
+    ds = p * (dp - delta)
+    if softcap:
+        ds = ds * (1 - th * th)
+    ds = ds * scale
+    dq = torch.einsum("bkgts,bskd->btkgd", ds, kf).reshape(b, t, h, dh)
+    dk = torch.einsum("bkgts,btkgd->bskd", ds, qg)
+    dv = torch.einsum("bkgts,btkgd->bskd", p, dog)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)

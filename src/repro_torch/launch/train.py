@@ -8,10 +8,12 @@ Selects the arch from the registry, builds its deterministic batch
 pipeline and drives ``training.trainer.Trainer`` (checkpoints, resume,
 SIGTERM preemption) with the JAX CLI's flags.  ``--preset smoke``
 (default) trains the reduced config; ``--preset full`` the published
-one.  Any registered arch with a ``smoke_loss`` trains (``din``); the
-others raise, naming the ROADMAP item they wait for.  It runs on the
-card unless ``--device cpu`` is given; without a card it stops with an
-error.  Weights are drawn from ``--seed`` by the port's own inits.
+one.  Every registered arch trains through its ``smoke_loss`` (din,
+dlrm-rm2, xdeepfm, bst, schnet, gemma2-2b, glm4-9b, minicpm-2b,
+greenflow-cascade); the two MoE archs are not registered yet (ROADMAP
+queue A item 16) and raise in the registry.  It runs on the card unless
+``--device cpu`` is given; without a card it stops with an error.
+Weights are drawn from ``--seed`` by the port's own inits.
 """
 from __future__ import annotations
 
@@ -27,11 +29,6 @@ from repro_torch.training.optimizer import (AdamW, cosine_schedule,
                                             wsd_schedule)
 from repro_torch.training.trainer import (Trainer, TrainerConfig,
                                           build_train_step, init_state)
-
-NO_TRAINING = ("has no training step yet: it waits for the backward "
-               "kernels of dot_interact, cin_layer and flash attention "
-               "(ROADMAP queue A item 25)")
-
 
 def make_pipeline(mod, cfg, global_batch: int, seed: int):
     """The arch's smoke batches as NumPy arrays; the batch a step draws is
@@ -61,8 +58,6 @@ def main(argv=None) -> int:
 
     device = resolve_device(args.device)
     mod = get_arch(args.arch)
-    if not hasattr(mod, "smoke_loss"):
-        raise NotImplementedError(f"{args.arch!r} {NO_TRAINING}")
     cfg = mod.smoke_config() if args.preset == "smoke" else mod.full_config()
     params = mod.init_smoke(torch.Generator().manual_seed(args.seed), cfg,
                             device)

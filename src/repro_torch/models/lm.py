@@ -13,8 +13,13 @@ One implementation, config-selected features, as in the JAX package:
     ``lm.init``, so the bridge carries JAX weights over leaf by leaf.
 
 The layers run in a Python loop, so each layer's sliding window is a
-Python int and the self-attention of ``forward`` and ``prefill`` goes
-through the hand-written flash-attention kernel (``kernels.ops``).
+Python int and the self-attention of ``forward``, ``loss_fn`` and
+``prefill`` goes through the hand-written flash-attention kernel
+(``kernels.ops``), whose backward kernel carries ``loss_fn``'s gradient.
+Training checkpoints each layer when ``remat`` is set (the JAX
+package's ``jax.checkpoint`` of the layer scan): a layer's activations
+are recomputed in the backward pass, flash attention's forward kernel
+included.
 ``decode_step`` attends one query against the cache with the plain
 ``_attention``, as the JAX package does, reading only the positions its
 mask admits.  The KV cache is
@@ -31,11 +36,16 @@ from dataclasses import dataclass
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.kernels import ops
 from repro_torch.models import layers as L
 
 INT32_MAX = 2 ** 31 - 1
+# positions a chunk of the loss's logits: their f32 copy is 2.1 GB at
+# gemma2-2b's 256,000 vocabulary, and each chunk is recomputed in the
+# backward pass instead of kept
+LOSS_CHUNK = 2048
 MOE_ITEM = "the MoE FFN (ROADMAP queue A item 16: _moe_ref, then EP)"
 
 
@@ -76,6 +86,7 @@ class LMConfig:
     tie_embeddings: bool = True
     query_scale: float | None = None  # default 1/sqrt(d_head)
     dtype: str = "bfloat16"  # activation/compute dtype
+    remat: bool = True  # checkpoint each layer in training
 
     def __post_init__(self):
         # the JAX masks read 0 as "no key" in prefill, "global" in decode
@@ -378,16 +389,63 @@ def _final_norm(params, cfg: LMConfig, x):
                            zero_centered=cfg.zero_centered_norm)
 
 
-@torch.no_grad()
-def forward(params, cfg: LMConfig, tokens):
-    """tokens (B, T) -> logits (B, T, padded_vocab); no loss."""
+def _hidden(params, cfg: LMConfig, tokens):
+    """tokens (B, T) -> the final-normed hidden states (B, T, d).  With
+    grad mode on and ``cfg.remat``, each layer runs under
+    ``torch.utils.checkpoint`` (non-reentrant): only its input is kept,
+    and its activations are recomputed in the backward pass."""
     b, t = tokens.shape
     x = _embed(params, cfg, tokens)
     positions = _positions(b, t, tokens.device)
+    remat = cfg.remat and torch.is_grad_enabled()
     for i in range(cfg.n_layers):
-        x, _ = _block(_layer(params, i), cfg, x, positions,
-                      cfg.window_for_layer(i))
-    return _unembed(params, cfg, _final_norm(params, cfg, x))
+        def layer(x, i=i):
+            return _block(_layer(params, i), cfg, x, positions,
+                          cfg.window_for_layer(i))[0]
+
+        x = checkpoint(layer, x, use_reentrant=False) if remat else layer(x)
+    return _final_norm(params, cfg, x)
+
+
+@torch.no_grad()
+def forward(params, cfg: LMConfig, tokens):
+    """tokens (B, T) -> logits (B, T, padded_vocab); no loss."""
+    return _unembed(params, cfg, _hidden(params, cfg, tokens))
+
+
+def _token_nll(params, cfg: LMConfig, x, targets):
+    """x (N, d) final-normed states, targets (N,) -> (N,) f32 NLL from
+    f32 logits: logsumexp minus the target's logit."""
+    logits = _unembed(params, cfg, x).float()
+    picked = torch.gather(logits, 1, targets.long()[:, None])[:, 0]
+    return torch.logsumexp(logits, dim=-1) - picked
+
+
+def loss_fn(params, cfg: LMConfig, batch: dict):
+    """The JAX package's masked next-token loss: batch tokens, targets
+    (B, T) int and mask (B, T) -> sum(NLL * mask) / max(sum(mask), 1),
+    the NLL from f32 logits.  Differentiable (the flash kernel's backward
+    carries attention's gradient).  The logits are formed ``LOSS_CHUNK``
+    positions at a time, each chunk under ``torch.utils.checkpoint``
+    when grad mode is on, so no more than a chunk's (LOSS_CHUNK, V) f32
+    logits live at once; the per-position NLL is the same function."""
+    tokens = batch["tokens"]
+    x = _hidden(params, cfg, tokens)
+    x = x.reshape(-1, x.shape[-1])
+    targets = batch["targets"].reshape(-1)
+    grad = torch.is_grad_enabled()
+
+    def chunk(xs, ts):
+        return _token_nll(params, cfg, xs, ts)
+
+    nll = []
+    for lo in range(0, x.shape[0], LOSS_CHUNK):
+        xs, ts = x[lo:lo + LOSS_CHUNK], targets[lo:lo + LOSS_CHUNK]
+        nll.append(checkpoint(chunk, xs, ts, use_reentrant=False)
+                   if grad and x.shape[0] > LOSS_CHUNK else chunk(xs, ts))
+    mask = batch["mask"].float()
+    nll = torch.cat(nll).reshape(mask.shape) * mask
+    return nll.sum() / torch.clamp(mask.sum(), min=1.0)
 
 
 # -- serving: prefill + single-token decode with a KV cache -----------------

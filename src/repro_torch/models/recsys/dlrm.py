@@ -10,7 +10,9 @@ concat the 64-dim bottom output = 415, zero-padded to 512.  The 26
 vocabularies stack into one table of 78,046,168 rows (10.0 GB in bf16),
 which fits one card whole: the lookup is a plain gather.  The sharded
 lookups of the JAX package wait for the multi-process port.  The
-interaction runs in the ``dot_interact`` kernel.
+interaction runs in the ``dot_interact`` kernel, and its gradient in
+that kernel's backward; the table's gradient is torch's own index
+backward (the JAX gather lies outside any Pallas kernel).
 """
 from __future__ import annotations
 
@@ -103,6 +105,11 @@ def forward(params, cfg: DLRMConfig, batch: dict):
         raise ValueError("top_pad smaller than interaction width")
     z = F.pad(z, (0, pad))
     return L.mlp_apply(params["top"], z, act="relu")[..., 0]
+
+
+def loss_fn(params, cfg: DLRMConfig, batch: dict):
+    """Mean BCE of ``forward``'s logits against ``batch["label"]``."""
+    return L.sigmoid_bce(forward(params, cfg, batch), batch["label"])
 
 
 def retrieval_forward(params, cfg: DLRMConfig, user_batch: dict,

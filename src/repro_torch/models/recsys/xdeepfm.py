@@ -110,6 +110,13 @@ def forward(params, cfg: XDeepFMConfig, batch: dict):
     return y_lin + y_cin + y_dnn
 
 
+def loss_fn(params, cfg: XDeepFMConfig, batch: dict):
+    """Mean BCE of ``forward``'s logits against ``batch["label"]``; its
+    gradient runs the ``cin_layer`` kernel's backward, a launch a
+    layer."""
+    return L.sigmoid_bce(forward(params, cfg, batch), batch["label"])
+
+
 def retrieval_forward(params, cfg: XDeepFMConfig, user_batch: dict,
                       cand_sparse):
     """One request (sparse (1, 39)) against N candidates' item-side

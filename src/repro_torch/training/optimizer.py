@@ -7,7 +7,11 @@ Each optimizer is an (init, update) pair:
     state = opt.init(params)
     new_params, new_state = opt.update(grads, state, params, lr)
 
-``update`` returns new tensors and leaves its inputs as they are.  The
+``update`` returns new tensors and leaves its inputs as they are;
+``AdamW.update_`` and ``sgd_`` update in place instead, leaf by leaf, for
+the train cells whose JAX counterparts donate their state (a step then
+holds one leaf's temporaries, not a second copy of the parameters and
+moments: 31 GB at gemma2-2b's widths).  The
 moments are f32 on the parameters' device; the step count is a 0-d int32
 tensor kept on the CPU, so the bias corrections and the schedules cost
 the card no sync.  Schedules map a step (a 0-d tensor or an int) to a
@@ -23,7 +27,7 @@ from typing import Callable, NamedTuple
 import torch
 
 from repro_torch.models.layers import global_norm
-from repro_torch.tree import tree_map
+from repro_torch.tree import leaves, tree_map
 
 
 def _f32(x) -> torch.Tensor:
@@ -65,23 +69,32 @@ class AdamW:
 
     @torch.no_grad()
     def update(self, grads, state: AdamState, params, lr):
+        """``update_`` on copies: leaves ``state`` and ``params`` as they
+        are."""
+        return self.update_(grads, AdamState(state.step,
+                                             tree_map(torch.clone, state.mu),
+                                             tree_map(torch.clone, state.nu)),
+                            tree_map(torch.clone, params), lr)
+
+    @torch.no_grad()
+    def update_(self, grads, state: AdamState, params, lr):
+        """Overwrites the moments in ``state`` and the parameters in
+        ``params`` (returned, with the new state), one leaf at a time."""
         step = state.step + 1
         b1, b2 = self.b1, self.b2
-        mu = tree_map(lambda m, g: b1 * m + (1 - b1) * g.float(), state.mu,
-                      grads)
-        nu = tree_map(lambda v, g: b2 * v + (1 - b2) * g.float().square(),
-                      state.nu, grads)
         c1 = 1 - torch.pow(_f32(b1), step.float())
         c2 = 1 - torch.pow(_f32(b2), step.float())
         lr = _f32(lr)
-
-        def upd(p, m, v):
+        for p, g, m, v in zip(leaves(params), leaves(grads),
+                              leaves(state.mu), leaves(state.nu)):
+            g = g.float()
+            m.mul_(b1).add_((1 - b1) * g)
+            v.mul_(b2).add_((1 - b2) * g.square())
             u = (m / c1) / (torch.sqrt(v / c2) + self.eps)
             if self.weight_decay:
                 u = u + self.weight_decay * p.float()
-            return (p.float() - lr * u).to(p.dtype)
-
-        return tree_map(upd, params, mu, nu), AdamState(step, mu, nu)
+            p.copy_((p.float() - lr * u).to(p.dtype))
+        return params, AdamState(step, state.mu, state.nu)
 
 
 class SGDState(NamedTuple):
@@ -108,6 +121,16 @@ class SGD:
         new = tree_map(lambda p, u: (p.float() - lr * u).to(p.dtype), params,
                        eff)
         return new, SGDState(state.step + 1, m)
+
+
+@torch.no_grad()
+def sgd_(grads, params, lr: float):
+    """Stateless SGD in place, as the JAX hybrid cells write it for the
+    embedding tables: p <- (p - (lr g in p's dtype)) in p's dtype, each
+    product and difference rounded to p's dtype.  Overwrites ``params``
+    and the gradients (``grads`` holds lr g after)."""
+    for p, g in zip(leaves(params), leaves(grads)):
+        p.sub_(g.to(p.dtype).mul_(lr))
 
 
 # -- schedules ----------------------------------------------------------------

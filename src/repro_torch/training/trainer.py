@@ -9,8 +9,8 @@ a (state, batch) -> (state, metrics) step with
   * the optional gradient ``compress`` hook, then global-norm clipping;
   * the learning-rate schedule, read at the step before the update.
 
-Gradients come from ``torch.autograd.grad`` on detached copies of the
-parameters, so the state's parameters never require gradients: a trained
+Gradients come from ``backward`` into detached copies of the
+parameters (``micro_value_and_grad``), so the state's parameters never require gradients: a trained
 tree can go to scoring and CUDA-graph capture as it is.  A leaf that
 does not reach the loss gets a zero gradient, as under ``jax.grad``.
 
@@ -28,7 +28,7 @@ import torch
 
 from repro_torch.training import checkpoint as ckpt_lib
 from repro_torch.training.optimizer import clip_by_global_norm
-from repro_torch.tree import leaves, tree_map, unflatten
+from repro_torch.tree import leaves, unflatten
 
 
 @dataclass
@@ -44,13 +44,45 @@ def init_state(params, optimizer) -> TrainState:
 
 
 def value_and_grad(loss_fn: Callable, params, batch):
-    """(loss, gradient tree) of ``loss_fn(params, batch)``; both detached."""
+    """(loss, gradient tree) of ``loss_fn(params, batch)``; both detached.
+    ``batch`` is whatever ``loss_fn`` takes."""
+    return micro_value_and_grad(loss_fn, params, batch)
+
+
+def micro_value_and_grad(loss_fn: Callable, params, batch: dict,
+                         n_microbatches: int = 1):
+    """(loss, gradient tree) over ``n_microbatches`` microbatches, as the
+    JAX train steps take them: microbatch m is rows [m b, (m + 1) b) of
+    every batch leaf, the loss l_0 / n + l_1 / n + ... (the JAX LM cell's
+    order; the JAX trainer's (l_0 + l_1 + ...) / n rounds apart from it
+    by an ulp at most) and the gradient (g_0 + g_1 + ...) / n.  The f32
+    leaves' gradients accumulate in place (``backward`` into the leaves'
+    ``.grad``), so a step holds one gradient tree, not two; the other
+    leaves' sum in f32 beside them, as the JAX trainer's f32 accumulator
+    does."""
+    n = n_microbatches
     flat = [p.detach().requires_grad_(True) for p in leaves(params)]
-    with torch.enable_grad():
-        loss = loss_fn(unflatten(params, flat), batch)
-        grads = torch.autograd.grad(loss, flat, allow_unused=True,
-                                    materialize_grads=True)
-    return loss.detach(), unflatten(params, list(grads))
+    tree = unflatten(params, flat)
+    rows = next(iter(batch.values())).shape[0] // n if n > 1 else 0
+    loss, acc = None, {}
+    for m in range(n):
+        mb = ({k: v[m * rows:(m + 1) * rows] for k, v in batch.items()}
+              if n > 1 else batch)
+        with torch.enable_grad():
+            l_m = loss_fn(tree, mb)
+            l_m.backward()
+        l_m = l_m.detach() / n if n > 1 else l_m.detach()
+        loss = l_m if loss is None else loss + l_m
+        for i, p in enumerate(flat):
+            if n > 1 and p.grad is not None and p.dtype != torch.float32:
+                g = p.grad.float()
+                acc[i] = acc[i] + g if i in acc else g
+                p.grad = None
+    grads = [acc.get(i, p.grad) if p.grad is not None or i in acc
+             else torch.zeros_like(p) for i, p in enumerate(flat)]
+    if n > 1:
+        grads = [g.div_(n) for g in grads]
+    return loss, unflatten(params, grads)
 
 
 def build_train_step(loss_fn: Callable, optimizer, schedule, *,
@@ -61,23 +93,8 @@ def build_train_step(loss_fn: Callable, optimizer, schedule, *,
 
     def step_fn(state: TrainState, batch: dict):
         params = state.params
-        if n_microbatches == 1:
-            loss, grads = value_and_grad(loss_fn, params, batch)
-        else:
-            n = n_microbatches
-            grads = tree_map(lambda p: torch.zeros(p.shape,
-                                                   dtype=torch.float32,
-                                                   device=p.device), params)
-            loss = torch.zeros((), dtype=torch.float32)
-            for m in range(n):
-                mb = tree_map(lambda x: x[m * (x.shape[0] // n):
-                                          (m + 1) * (x.shape[0] // n)],
-                              batch)
-                l_m, g = value_and_grad(loss_fn, params, mb)
-                grads = tree_map(torch.add, grads, g)
-                loss = loss + l_m
-            grads = tree_map(lambda g: g / n, grads)
-            loss = loss / n
+        loss, grads = micro_value_and_grad(loss_fn, params, batch,
+                                           n_microbatches)
         if compress is not None:
             grads = compress(grads)
         grads, gnorm = clip_by_global_norm(grads, clip_norm)

@@ -9,8 +9,10 @@ inputs go through ``jax.grad`` of ``din.attention_pool`` (the training
 form, N = 1, and the scoring form that broadcasts each user's keys over
 N candidates) and of ``embedding.fixed_bag``; every gradient agrees
 within 1e-5 (f32 sums in another order).  Inputs whose gradient no path
-needs raise, and so does a gradient through a kernel without a backward
-on anything but the CPU.
+needs raise.  ``dot_interact``, ``cin_layer`` and ``flash_attention``
+are autograd Functions too: their CPU backward equals autograd of the
+plain forward (``tests/test_torch_backward_kernels.py`` holds them to
+``jax.grad``).
 """
 import jax
 import jax.numpy as jnp
@@ -209,28 +211,44 @@ def test_gradients_no_path_needs_raise():
                                               requires_grad=True),)),
     ("cin_layer", lambda dev: (torch.empty(5, 6, device=dev,
                                            requires_grad=True),
-                               torch.empty(2, 3, 4, device=dev),
-                               torch.empty(2, 2, 4, device=dev))),
+                               torch.empty(2, 3, 4, device=dev,
+                                           requires_grad=True),
+                               torch.empty(2, 2, 4, device=dev,
+                                           requires_grad=True))),
     ("flash_attention", lambda dev: tuple(
         torch.empty(1, 4, 2, 8, device=dev, requires_grad=True)
         for _ in range(3))),
 ])
 def test_kernels_without_a_backward_raise_off_the_cpu(name, make):
-    """A gradient through dot_interact, cin_layer or flash attention off
-    the CPU (here the meta device, which stands for the card: the check
-    runs before anything launches) raises, naming ROADMAP item 25; on
-    the CPU autograd still differentiates the plain version."""
+    """The three kernels that had no backward now have one.  Off the CPU
+    (the meta device stands for the card: the device check runs before
+    anything launches) a call goes to the kernel and raises naming the
+    CUDA device, with a gradient needed or not, never falling back to
+    autograd of the plain version; on the CPU the Function's backward
+    (``ref.*_bwd_ref``) equals autograd of the plain forward to 1e-6 of
+    each gradient's largest magnitude, for every input."""
     fn = getattr(ops, name)
-    with pytest.raises(NotImplementedError, match="queue A item 25"):
+    plain = getattr(ref, f"{name}_ref")
+    with pytest.raises(ValueError, match="CUDA device"):
         fn(*make("meta"))
-    cpu = [torch.randn(t.shape, requires_grad=t.requires_grad)
-           for t in make("meta")]
-    out = fn(*cpu)
-    out.sum().backward()
-    assert cpu[0].grad is not None
-    with torch.no_grad():  # no gradient needed: no error on any device
+    with torch.no_grad():
         with pytest.raises(ValueError, match="CUDA device"):
             fn(*make("meta"))
+    gen = torch.Generator().manual_seed(len(name))
+    shapes = [t.shape for t in make("meta")]
+    got = [torch.randn(sh, generator=gen, requires_grad=True)
+           for sh in shapes]
+    want = [t.detach().clone().requires_grad_(True) for t in got]
+    out = fn(*got)
+    assert out.grad_fn is not None and "Backward" in type(
+        out.grad_fn).__name__
+    dout = torch.randn(out.shape, generator=gen)
+    out.backward(dout)
+    plain(*want).backward(dout)
+    for g, w in zip(got, want):
+        scale = float(w.grad.abs().max())
+        torch.testing.assert_close(g.grad, w.grad, rtol=0,
+                                   atol=1e-6 * scale)
 
 
 def test_backward_counters_exist_and_the_cpu_counts_nothing():

@@ -951,11 +951,22 @@ def test_trained_stack_windows_graphs_bitwise_eager(cuda):
 
 
 def test_kernels_without_backward_raise_on_cuda_inputs_needing_grads(cuda):
+    """dot_interact has a backward kernel now (ROADMAP queue A item 25): a
+    gradient through it on CUDA inputs launches the forward and the
+    backward kernel once each and equals the plain backward; without a
+    gradient only the forward launches."""
     x = torch.randn(4, 5, 8, device=cuda, requires_grad=True)
-    with pytest.raises(NotImplementedError, match="item 25"):
-        ops.dot_interact(x)
+    ops.reset_launches()
+    out = ops.dot_interact(x)
+    g = torch.randn_like(out)
+    out.backward(g)
+    assert ops.LAUNCHES["dot_interact"] == 1
+    assert ops.LAUNCHES["dot_interact_bwd"] == 1
+    torch.testing.assert_close(x.grad, ref.dot_interact_bwd_ref(g, x.detach()),
+                               rtol=1e-5, atol=1e-5)
     with torch.no_grad():
         assert ops.dot_interact(x).shape == (4, 10)
+    assert ops.LAUNCHES["dot_interact_bwd"] == 1
 
 
 def _random_server(device, u_n=300, i_n=150, seed=0):
@@ -1112,3 +1123,156 @@ def test_two_processes_on_the_card_equal_one(cuda, tmp_path, job):
     for h in [*ref, *two]:
         assert h["host"]["platform"] == "gpu"
         assert h["jobs"][job]["steady_compiles"] == 0
+
+
+# -- the backward kernels of dot interaction, CIN and flash attention --------
+
+BWD_REL = {torch.float32: 5e-5, torch.bfloat16: 2e-2}
+
+
+def _close_rel(got, want):
+    """Each gradient within BWD_REL of its largest magnitude, same dtype."""
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert g.shape == w.shape and g.dtype == w.dtype
+        assert torch.isfinite(g).all()
+        scale = float(w.double().abs().max()) or 1.0
+        err = float((g.double() - w.double()).abs().max())
+        assert err <= BWD_REL[w.dtype] * scale, (err, scale)
+
+
+def _launched_once(name, fn):
+    ops.reset_launches()
+    out = fn()
+    assert {k: v for k, v in ops.LAUNCHES.items() if v} == {name: 1}
+    return out
+
+
+@pytest.mark.parametrize("b,f,d", [(7, 13, 32), (5, 27, 63), (3, 1, 4),
+                                   (4, 2, 8), (1000, 27, 64)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_dot_interact_bwd_kernel(cuda, b, f, d, dtype):
+    gen = torch.Generator(device=cuda).manual_seed(b + f)
+    x = (0.3 * torch.randn(b, f, d, generator=gen, device=cuda)).to(dtype)
+    g = torch.randn(b, f * (f - 1) // 2, generator=gen,
+                    device=cuda).to(dtype)
+    got = _launched_once("dot_interact_bwd",
+                         lambda: ops.dot_interact_bwd(g, x))
+    _close_rel((got,), (ref.dot_interact_bwd_ref(g, x),))
+    assert torch.equal(got, ops.dot_interact_bwd(g, x))
+
+
+@pytest.mark.parametrize("b,hp,m,d,ho", [(5, 8, 12, 4, 16), (3, 7, 5, 1, 41),
+                                         (8, 39, 39, 10, 200),
+                                         (13, 3, 64, 5, 7),
+                                         (4096, 39, 39, 10, 200),
+                                         (700, 200, 39, 10, 200)])
+def test_cin_layer_bwd_kernel(cuda, b, hp, m, d, ho):
+    """Ragged column blocks, m = 64 (four rows a thread), and B = 4,096
+    and 700 (the columns cut into parts summed in a fixed order)."""
+    gen = torch.Generator(device=cuda).manual_seed(hp + ho)
+    k = hp * m
+    args = (torch.randn(b, ho, d, generator=gen, device=cuda),
+            (2.0 / (ho + k)) ** 0.5 * torch.randn(ho, k, generator=gen,
+                                                  device=cuda),
+            torch.randn(b, hp, d, generator=gen, device=cuda),
+            torch.randn(b, m, d, generator=gen, device=cuda))
+    got = _launched_once("cin_layer_bwd", lambda: ops.cin_layer_bwd(*args))
+    _close_rel(got, ref.cin_layer_bwd_ref(*args))
+    assert all(torch.equal(a, b_) for a, b_ in
+               zip(got, ops.cin_layer_bwd(*args)))
+
+
+@pytest.mark.parametrize("shape,kw", [
+    ((1, 32, 32, 2, 2, 64), {}),
+    ((2, 77, 77, 4, 2, 16), dict(window=16)),
+    ((1, 100, 130, 4, 1, 128), dict(softcap=50.0, scale=0.3)),
+    ((2, 64, 96, 8, 4, 256), dict(window=40, softcap=30.0)),
+    ((1, 45, 45, 3, 3, 104), dict(causal=False)),
+    ((2, 150, 150, 4, 2, 64), dict(causal=False, window=33, softcap=50.0)),
+    ((1, 300, 300, 8, 4, 256), dict(window=100, softcap=50.0,
+                                    scale=1 / 16)),
+])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_bwd_kernel(cuda, shape, kw, dtype):
+    b, t, s, h, hk, dh = shape
+    gen = torch.Generator(device=cuda).manual_seed(t + dh)
+    q, k, v = (torch.randn(*sh, generator=gen, device=cuda).to(dtype)
+               for sh in ((b, t, h, dh), (b, s, hk, dh), (b, s, hk, dh)))
+    out = ops.flash_attention(q, k, v, **kw)
+    g = torch.randn(out.shape, generator=gen, device=cuda).to(dtype)
+    got = _launched_once("flash_attention_bwd",
+                         lambda: ops.flash_attention_bwd(g, q, k, v, out,
+                                                         **kw))
+    _close_rel(got, ref.flash_attention_bwd_ref(g, q, k, v, out, **kw))
+    assert all(torch.equal(a, b_) for a, b_ in
+               zip(got, ops.flash_attention_bwd(g, q, k, v, out, **kw)))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_autograd_launches_the_backward_kernels(cuda, dtype):
+    """A gradient through cin_layer (f32) and flash attention on CUDA
+    inputs launches each forward and backward kernel once and equals the
+    plain backward; under no_grad only the forwards launch."""
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    q, k, v = (torch.randn(2, 40, h, 64, generator=gen, device=cuda)
+               .to(dtype).requires_grad_(True) for h in (4, 2, 2))
+    fwd = "flash_attention_wgmma" if dtype == torch.bfloat16 \
+        else "flash_attention"
+    ops.reset_launches()
+    out = ops.flash_attention(q, k, v, window=16, softcap=50.0)
+    g = torch.randn(out.shape, generator=gen, device=cuda).to(dtype)
+    out.backward(g)
+    assert {k_: n for k_, n in ops.LAUNCHES.items() if n} == {
+        fwd: 1, "flash_attention_bwd": 1}
+    want = ref.flash_attention_bwd_ref(g, q.detach(), k.detach(), v.detach(),
+                                       out.detach(), window=16, softcap=50.0)
+    _close_rel((q.grad, k.grad, v.grad), want)
+    w = torch.randn(16, 6 * 5, generator=gen, device=cuda, requires_grad=True)
+    x0 = torch.randn(9, 5, 3, generator=gen, device=cuda, requires_grad=True)
+    xp = torch.randn(9, 6, 3, generator=gen, device=cuda, requires_grad=True)
+    ops.reset_launches()
+    y = ops.cin_layer(w, xp, x0)
+    dy = torch.randn(y.shape, generator=gen, device=cuda)
+    y.backward(dy)
+    assert {k_: n for k_, n in ops.LAUNCHES.items() if n} == {
+        "cin_layer": 1, "cin_layer_bwd": 1}
+    _close_rel((w.grad, xp.grad, x0.grad),
+               ref.cin_layer_bwd_ref(dy, w.detach(), xp.detach(),
+                                     x0.detach()))
+    ops.reset_launches()
+    with torch.no_grad():
+        ops.flash_attention(q, k, v)
+        ops.cin_layer(w, xp, x0)
+    assert {k_: n for k_, n in ops.LAUNCHES.items() if n} == {
+        fwd: 1, "cin_layer": 1}
+
+
+@pytest.mark.parametrize("arch", ["dlrm-rm2", "xdeepfm", "gemma2-2b",
+                                  "glm4-9b", "minicpm-2b"])
+def test_smoke_train_step_card_vs_cpu(cuda, arch):
+    """Each arch's smoke-width train cell from one init, on the card and
+    on the CPU: the loss within 1e-5 and every gradient within BWD_REL of
+    its largest magnitude (the LMs' smoke widths run the f32 flash
+    kernels; the recsys tables are bf16)."""
+    from repro_torch.configs import get_arch
+    from repro_torch.models import layers as L
+    from repro_torch.training.trainer import micro_value_and_grad
+    from repro_torch.tree import leaves
+
+    mod = get_arch(arch)
+    cfg = mod.smoke_config()
+    shape = "train_batch" if mod.FAMILY == "recsys" else "train_4k"
+    cell = mod.make_cell(shape, cfg)
+    state, batch = cell.make_args(0, "cpu")
+    batch = {k_: v[:256] for k_, v in batch.items()}
+    n = cell.meta.get("n_microbatches", 1)
+    out = {}
+    for dev in ("cpu", cuda):
+        out[str(dev)] = micro_value_and_grad(
+            lambda p, b: mod.smoke_loss(p, cfg, b),
+            L.to_device(state.params, dev), L.to_device(batch, dev), n)
+    torch.testing.assert_close(out["cuda"][0].cpu(), out["cpu"][0],
+                               rtol=1e-5, atol=1e-5)
+    _close_rel([g.cpu() for g in leaves(out["cuda"][1])],
+               leaves(out["cpu"][1]))

@@ -213,10 +213,11 @@ def test_kernel_build_compiles_every_source_for_sm90a(monkeypatch,
     assert "-gencode=arch=compute_90a,code=sm_90a" in \
         seen["extra_cuda_cflags"]
     assert sorted(os.path.basename(s) for s in seen["sources"]) == [
-        "bind.cpp", "cascade_truncate.cu", "cin.cu", "dot_interact.cu",
-        "embedding_bag.cu", "embedding_bag_bwd.cu", "flash_attention.cu",
-        "flash_attention_wgmma.cu", "target_attention.cu",
-        "target_attention_bwd.cu"]
+        "bind.cpp", "cascade_truncate.cu", "cin.cu", "cin_bwd.cu",
+        "dot_interact.cu", "dot_interact_bwd.cu", "embedding_bag.cu",
+        "embedding_bag_bwd.cu", "flash_attention.cu",
+        "flash_attention_bwd.cu", "flash_attention_wgmma.cu",
+        "target_attention.cu", "target_attention_bwd.cu"]
     assert all(os.path.exists(s) for s in seen["sources"])
     assert seen["build_directory"] == str(tmp_path / "b")
 

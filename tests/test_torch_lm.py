@@ -327,7 +327,7 @@ def test_configs_mirror_jax():
         b = dataclasses.asdict(getattr(gemma2_2b, fn)())
         assert {k: v for k, v in a.items() if k in b} == b, fn
     assert gemma2_2b.SHAPES == jgemma.SHAPES
-    assert set(gemma2_2b.SKIPPED_SHAPES) == {"train_4k", "long_500k"}
+    assert set(gemma2_2b.SKIPPED_SHAPES) == {"long_500k"}
     assert base.LM_SHAPES == jbase.LM_SHAPES
 
 
@@ -375,14 +375,15 @@ def test_registry_returns_gemma_and_names_what_waits():
     for arch in ("granite-moe-1b-a400m", "olmoe-1b-7b"):
         with pytest.raises(NotImplementedError, match="item 16"):
             get_arch(arch)
-    for arch in ("glm4-9b", "minicpm-2b"):
+    for arch in ("glm4-9b", "minicpm-2b", "gemma2-2b"):
         mod = get_arch(arch)
         assert mod.ARCH_ID == arch and mod.FAMILY == "lm"
-        with pytest.raises(NotImplementedError, match="item 25"):
-            mod.make_cell("train_4k")
-    for shape, item in (("train_4k", "item 25"), ("long_500k", "item 18")):
-        with pytest.raises(NotImplementedError, match=item):
-            gemma2_2b.make_cell(shape)
+        # train_4k is ported (ROADMAP queue A item 25): B = 8 of 4,096
+        cell = mod.make_cell("train_4k")
+        assert cell.kind == "train" and cell.meta["batch"] == 8
+        assert cell.meta["seq"] == 4096 and cell.meta["n_microbatches"] == 2
+    with pytest.raises(NotImplementedError, match="item 18"):
+        gemma2_2b.make_cell("long_500k")
 
 
 def test_full_cells_are_cut_in_batch_only():

@@ -361,8 +361,18 @@ def test_train_cli_trains_din_smoke_and_resumes(tmp_path, capsys):
     assert train_cli.main(args[:-4] + ["--steps", "8", "--ckpt-dir",
                                        str(tmp_path), "--resume"]) == 0
     assert "resumed from step 6" in capsys.readouterr().out
-    with pytest.raises(NotImplementedError, match="queue A item 25"):
-        train_cli.main(["--arch", "dlrm-rm2", "--device", "cpu"])
+    # dlrm-rm2 trains too (ROADMAP queue A item 25), and resumes
+    dl = tmp_path / "dlrm"
+    args = ["--arch", "dlrm-rm2", "--device", "cpu", "--steps", "4",
+            "--ckpt-dir", str(dl), "--ckpt-every", "2"]
+    assert train_cli.main(args) == 0
+    out = capsys.readouterr().out
+    assert "arch=dlrm-rm2" in out and "nan" not in out
+    assert ck.latest_step(str(dl)) == 4
+    assert train_cli.main(args[:4] + ["--steps", "6", "--ckpt-dir", str(dl),
+                                      "--resume"]) == 0
+    assert "resumed from step 4" in capsys.readouterr().out
+    assert ck.latest_step(str(dl)) == 6
 
 
 def test_din_train_cell_matches_jax_step_at_smoke_widths():

@@ -277,8 +277,11 @@ def test_registry_names_what_waits():
             get_arch(arch)
     with pytest.raises(KeyError):
         get_arch("nope")
-    with pytest.raises(NotImplementedError, match="queue A item 25"):
-        dlrm_rm2.make_cell("train_batch")
+    # train_batch is ported (ROADMAP queue A item 25): the hybrid cell
+    for mod in (dlrm_rm2, xdeepfm_arch):
+        assert "train_batch" in mod.SHAPES and mod.SKIPPED_SHAPES == {}
+        cell = mod.make_cell("train_batch")
+        assert cell.kind == "train" and "hybrid" in cell.meta["optimizer"]
 
 
 @pytest.mark.parametrize("name", sorted(MODELS))
