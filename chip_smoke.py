@@ -1256,8 +1256,9 @@ def check_dot_interact_bwd(dev):
 
 
 def check_cin_bwd(dev):
-    """Small shapes (D = 1, a ragged last column block, m = 64), B =
-    4,096 (columns cut into parts), then xDeepFM's train_batch layers,
+    """Small shapes (D = 1, a ragged last column block, m = 64, a last
+    channel tile short of h), B = 4,096 (columns cut into parts), then
+    xDeepFM's train_batch layers,
     B = 65,536, m = 39, D = 10, H_out = 200, at Hp = 39 (x_prev is x0)
     and Hp = 200, against ``ref.cin_layer_bwd_ref``, bitwise repeats.
     The kernel line reports Hp = 200; the library time is the einsum
@@ -1278,8 +1279,11 @@ def check_cin_bwd(dev):
         return (r(b, ho, d), r(ho, k, scale=(2.0 / (ho + k)) ** 0.5), xp,
                 x0)
 
+    # the last two: the dx kernel's last channel tile short of its three
+    # h at D = 1, and m = 64 with the columns cut into three parts
     for shape in ((5, 8, 12, 4, 16), (3, 7, 5, 1, 41), (8, 39, 39, 10, 200),
-                  (13, 3, 64, 5, 7), (4096, 39, 39, 10, 200)):
+                  (13, 3, 64, 5, 7), (4096, 39, 39, 10, 200),
+                  (257, 17, 39, 1, 200), (4096, 5, 64, 3, 100)):
         a = args_of(*shape)
         got = counted("cin_layer_bwd", lambda: ops.cin_layer_bwd(*a))
         close_rel(got, ref.cin_layer_bwd_ref(*a), f"cin_layer_bwd {shape}")
@@ -1438,7 +1442,8 @@ def check_flash_bwd_f32(label: str, dist: dict) -> dict:
 
 def check_flash_bwd(dev):
     """Small shapes and every mask variant (causal, non-causal, window,
-    softcap, GQA, ragged T and S, dh 16 to 256) in f32 and bf16; then the
+    softcap, GQA groups of 1 to 16, ragged T and S, a window edge inside
+    a tile, dh 8 to 256) in f32 and bf16; then the
     train_4k layers (B = 1, T = S = 4,096): gemma2-2b's heads (8 on 4, dh
     256, scale 1/16, softcap 50) global, with a 1,024 window (< T; the
     path's 4,096 window equals T) and at a ragged T = S = 4,000, in bf16
@@ -1484,8 +1489,9 @@ def check_flash_bwd(dev):
         odd = 100 if dt == torch.float32 else 104
         for shape in ((1, 32, 32, 2, 2, 64), (2, 77, 77, 4, 2, 16),
                       (1, 100, 130, 4, 1, 128), (2, 64, 96, 8, 4, 256),
-                      (1, 45, 45, 3, 3, odd)):
+                      (1, 45, 45, 3, 3, odd), (1, 200, 200, 16, 1, 8)):
             check(shape, dt)
+        check((1, 130, 190, 2, 2, 64), dt, window=70)
         for kw in (dict(window=16), dict(softcap=50.0, scale=0.3),
                    dict(window=40, softcap=30.0), dict(causal=False),
                    dict(causal=False, window=33, softcap=50.0)):
@@ -3364,10 +3370,11 @@ ZOO_TRAIN = {"dlrm-rm2": ("train_batch", 3), "xdeepfm": ("train_batch", 3),
              "gemma2-2b": ("train_4k", 2), "glm4-9b": ("train_4k", 2),
              "minicpm-2b": ("train_4k", 2)}
 # the steps profiled after the count, with the kernels split out of the
-# device time: the CIN forward and backward, the bf16 flash forward and
-# the three backward launches (namespace tc)
+# device time: the CIN forward and backward (its pre-passes, dx, dw and
+# parts' sum kernels), the bf16 flash forward and the backward's
+# launches (namespace hw)
 ZOO_TRAIN_PROFILED = {"xdeepfm": ("cin_wgmma_kernel", "cin_bwd_"),
-                      "gemma2-2b": ("flash_wgmma_kernel", "::tc::")}
+                      "gemma2-2b": ("flash_wgmma_kernel", "::hw::")}
 
 
 def zoo_train_launches(arch: str, cell, steps: int) -> dict:

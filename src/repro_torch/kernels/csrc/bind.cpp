@@ -107,6 +107,16 @@ void check_launch(int err, const char* what) {
   C10_CUDA_KERNEL_LAUNCH_CHECK();
 }
 
+// The same for a launcher that builds TMA maps, which also returns -1 when
+// libcuda has no cuTensorMapEncodeTiled and -(1000 + r) when it refuses a
+// map with CUresult r.
+void check_tma_launch(int err, const char* what) {
+  TORCH_CHECK(err != -1, what, ": libcuda offers no cuTensorMapEncodeTiled");
+  TORCH_CHECK(err > -1000, what, ": cuTensorMapEncodeTiled refused a map "
+              "(CUresult ", num(-err - 1000), ")");
+  check_launch(err, what);
+}
+
 void* stream() { return at::cuda::getCurrentCUDAStream().stream(); }
 
 int as_int(int64_t v, const char* what) {
@@ -445,7 +455,7 @@ torch::Tensor cin_layer(const torch::Tensor& w, const torch::Tensor& x_prev,
       out.data_ptr<float>(), bi, hpi, mi, di, hoi, scratch_floats, &scratch,
       stream());
   if (scratch.error) std::rethrow_exception(scratch.error);
-  check_launch(err, "cin_layer");
+  check_tma_launch(err, "cin_layer");
   return out;
 }
 
@@ -555,11 +565,7 @@ torch::Tensor flash_attention_wgmma(torch::Tensor q, torch::Tensor k,
       as_int(a.h, "H"), as_int(a.hk, "Hkv"), as_int(a.dh, "dh"), causal,
       clamp_window(window), static_cast<float>(scale),
       static_cast<float>(softcap), stream());
-  TORCH_CHECK(err != -1, what,
-              ": libcuda offers no cuTensorMapEncodeTiled");
-  TORCH_CHECK(err > -1000, what, ": cuTensorMapEncodeTiled refused a map "
-              "(CUresult ", num(-err - 1000), ")");
-  check_launch(err, what);
+  check_tma_launch(err, what);
   return out;
 }
 
@@ -591,7 +597,8 @@ torch::Tensor dot_interact_bwd(const torch::Tensor& dout,
 
 // The backward of cin_layer: dz (B, H_out, D) and the forward's w
 // (H_out, Hp*m), x_prev (B, Hp, D), x0 (B, m, D), f32 -> [dw, dx_prev,
-// dx0] shaped like their inputs.
+// dx0] shaped like their inputs.  The kernel's scratch (its layout
+// pre-passes' copies and dw's part slabs) is one f32 tensor.
 std::vector<torch::Tensor> cin_layer_bwd(const torch::Tensor& dz,
                                          const torch::Tensor& w,
                                          const torch::Tensor& x_prev,
@@ -612,6 +619,8 @@ std::vector<torch::Tensor> cin_layer_bwd(const torch::Tensor& dz,
   for (const torch::Tensor* t : {&dz, &w, &x_prev, &x0})
     TORCH_CHECK(t->scalar_type() == torch::kFloat32, "inputs must be f32");
   TORCH_CHECK(m <= 64, "cin_layer_bwd supports m <= 64, got ", num(m));
+  TORCH_CHECK(ho <= 256, "cin_layer_bwd supports H_out <= 256, got ",
+              num(ho));
   const c10::cuda::CUDAGuard guard(w.device());
   const auto wc = w.contiguous(), xp = x_prev.contiguous();
   const auto xz = x0.contiguous(), g = dz.contiguous();
@@ -629,20 +638,21 @@ std::vector<torch::Tensor> cin_layer_bwd(const torch::Tensor& dz,
       cin_layer_bwd_scratch_floats(bi, hpi, mi, di, hoi);
   auto scratch = torch::empty({std::max<long long>(n_scratch, 1)},
                               wc.options());
-  check_launch(cin_layer_bwd_launch(
-                   wc.data_ptr<float>(), xp.data_ptr<float>(),
-                   xz.data_ptr<float>(), g.data_ptr<float>(),
-                   dw.data_ptr<float>(), dxp.data_ptr<float>(),
-                   dx0.data_ptr<float>(), scratch.data_ptr<float>(), bi, hpi,
-                   mi, di, hoi, stream()),
-               "cin_layer_bwd");
+  check_tma_launch(cin_layer_bwd_launch(
+                       wc.data_ptr<float>(), xp.data_ptr<float>(),
+                       xz.data_ptr<float>(), g.data_ptr<float>(),
+                       dw.data_ptr<float>(), dxp.data_ptr<float>(),
+                       dx0.data_ptr<float>(), scratch.data_ptr<float>(), bi,
+                       hpi, mi, di, hoi, stream()),
+                   "cin_layer_bwd");
   return {dw, dxp, dx0};
 }
 
 // The backward of both flash kernels: dout and the forward's output
 // (B, T, H, dh), q (B, T, H, dh), k and v (B, S, Hkv, dh), all f32 or all
 // bf16 -> [dq, dk, dv] in that dtype.  Inputs are made contiguous; the
-// rows' log-sum-exp and D are f32 scratch.
+// rows' log-sum-exp and D are f32 scratch.  bf16 loads by TMA, so it
+// needs dh a multiple of 8.
 std::vector<torch::Tensor> flash_attention_bwd(
     const torch::Tensor& dout, const torch::Tensor& q, const torch::Tensor& k,
     const torch::Tensor& v, const torch::Tensor& out, bool causal,
@@ -658,9 +668,12 @@ std::vector<torch::Tensor> flash_attention_bwd(
               what, ": dout and out must be shaped and typed like q");
   TORCH_CHECK(a.dh >= 1 && a.dh <= 256, what,
               ": the kernel supports 1 <= dh <= 256");
+  TORCH_CHECK(dt == torch::kFloat32 || a.dh % 8 == 0, what,
+              ": the bf16 kernels load by TMA, which needs dh a multiple of "
+              "8, got ", num(a.dh));
   const c10::cuda::CUDAGuard guard(q.device());
-  // contiguous, from a 16-byte boundary (the bf16 kernels load 16 bytes a
-  // copy)
+  // contiguous, from a 16-byte boundary (the bf16 kernels' TMA loads need
+  // it)
   const auto dense = [](const torch::Tensor& t) {
     auto c = t.contiguous();
     return reinterpret_cast<uintptr_t>(c.data_ptr()) % 16 ? c.clone() : c;
@@ -678,17 +691,19 @@ std::vector<torch::Tensor> flash_attention_bwd(
   }
   as_int(a.b * a.t * a.h * a.dh, "B*T*H*dh");
   as_int(a.b * a.s * a.hk * a.dh, "B*S*Hkv*dh");
+  const int bi = as_int(a.b, "B"), ti = as_int(a.t, "T");
+  const int si = as_int(a.s, "S"), hi = as_int(a.h, "H");
+  const int hki = as_int(a.hk, "Hkv"), dhi = as_int(a.dh, "dh");
+  const int bf16 = dt == torch::kBFloat16;
   auto scratch = torch::empty({2 * a.b * a.h * a.t},
                               qc.options().dtype(torch::kFloat32));
-  check_launch(
+  check_tma_launch(
       flash_attention_bwd_launch(
           qc.data_ptr(), kc.data_ptr(), vc.data_ptr(), oc.data_ptr(),
           gc.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-          scratch.data_ptr<float>(), as_int(a.b, "B"), as_int(a.t, "T"),
-          as_int(a.s, "S"), as_int(a.h, "H"), as_int(a.hk, "Hkv"),
-          as_int(a.dh, "dh"), causal, clamp_window(window),
-          static_cast<float>(scale), static_cast<float>(softcap),
-          dt == torch::kBFloat16, stream()),
+          scratch.data_ptr<float>(), bi, ti, si, hi, hki, dhi, causal,
+          clamp_window(window), static_cast<float>(scale),
+          static_cast<float>(softcap), bf16, stream()),
       what);
   return {dq, dk, dv};
 }

@@ -65,13 +65,13 @@
 //   eight consecutive rows of a column are mostly consecutive d, and the
 //   output is 1/300 of the bytes the products are worth.
 
-#include <cuda.h>  // CUtensorMap and its enums; libcuda is reached at run time
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "hopper.cuh"
 
 #include <algorithm>
 
 namespace {
+
+using namespace hopper;
 
 constexpr int kRows = 128;     // rows (b, d) per block, 64 per consumer
 constexpr int kKB = 32;        // k per k-block: one 128-byte row of f32
@@ -95,137 +95,6 @@ struct Params {
   int kb_per_chunk;        // k-blocks per staged chunk of x_prev
   int hc;                  // x_prev rows (h) the chunk buffer holds
 };
-
-// -- shared memory, barriers, TMA ------------------------------------------
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar),
-               "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(
-                   bar),
-               "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(bar)
-               : "memory");
-}
-
-// Waits until the phase of parity `parity` has completed.
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "LAB_WAIT:\n"
-      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
-      "@p bra.uni DONE;\n"
-      "bra.uni LAB_WAIT;\n"
-      "DONE:\n"
-      "}\n" ::"r"(bar),
-      "r"(parity)
-      : "memory");
-}
-
-// One box of a 2-D map (k, channel) into shared memory; completion
-// counts its bytes on `bar`.
-__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
-                                         uint32_t bar, int c0, int c1) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::"
-      "bytes [%0], [%1, {%3, %4}], [%2];" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1)
-      : "memory");
-}
-
-// The consumers' own barrier (id 1, 256 threads); the producer never
-// joins it.
-__device__ __forceinline__ void consumers_sync() {
-  asm volatile("bar.sync 1, 256;" ::: "memory");
-}
-
-// -- 3xTF32 -------------------------------------------------------------------
-
-__device__ __forceinline__ uint32_t tf32_rna(float x) {
-  uint32_t y;
-  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(y) : "f"(x));
-  return y;
-}
-
-// x = hi + lo + (what neither keeps): hi = tf32(x), lo = tf32(x - hi).
-__device__ __forceinline__ void split_tf32(float x, uint32_t& hi,
-                                           uint32_t& lo) {
-  hi = tf32_rna(x);
-  lo = tf32_rna(x - __uint_as_float(hi));
-}
-
-// -- wgmma -------------------------------------------------------------------
-
-// K-major operand under the 128-byte swizzle: 8-row groups 1,024 bytes
-// apart (the leading offset is unused); start, offsets in 16-byte units.
-__device__ __forceinline__ uint64_t desc_kmajor(uint32_t addr) {
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
-         (static_cast<uint64_t>(16 >> 4) << 16) |
-         (static_cast<uint64_t>((8 * kRowBytes) >> 4) << 32) | (1ull << 62);
-}
-
-__device__ __forceinline__ void wg_fence() {
-  asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
-}
-__device__ __forceinline__ void wg_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
-}
-__device__ __forceinline__ void wg_wait_all() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
-}
-
-// Keeps the compiler from moving register accesses across the
-// asynchronous wgmma that reads or writes them.
-__device__ __forceinline__ void fence_regs(float (&d)[kNT / 2]) {
-#pragma unroll
-  for (int i = 0; i < kNT / 2; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
-__device__ __forceinline__ void fence_regs(uint32_t (&a)[4][4]) {
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int r = 0; r < 4; ++r) asm volatile("" : "+r"(a[i][r])::"memory");
-}
-
-// d (64 x 104, f32) += A (64 x 8, tf32 in registers) B (104 x 8 from
-// shared memory, K-major); `accumulate` 0 overwrites d.
-__device__ __forceinline__ void wgmma_tf32(float (&d)[52],
-                                           const uint32_t (&a)[4],
-                                           uint64_t db, int accumulate) {
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "setp.ne.b32 p, %57, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n104k8.f32.tf32.tf32 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
-      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
-      "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, "
-      "%41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51}, "
-      "{%52, %53, %54, %55}, %56, p, 1, 1;\n"
-      "}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
-        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
-        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
-        "+f"(d[50]), "+f"(d[51])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
-        "r"(accumulate));
-}
 
 // -- the kernels ---------------------------------------------------------------
 
@@ -357,10 +226,10 @@ __global__ void __launch_bounds__(kThreads, 1)
       const int c1 = min(kb1, c0 + p.kb_per_chunk);
       const int h_lo = c0 * kKB / p.m;
       const int h_hi = min(p.Hp, (c1 * kKB - 1) / p.m + 1);
-      consumers_sync();  // the previous chunk's x_prev is consumed
+      bar_sync(1);  // the previous chunk's x_prev is consumed
       stage_rows(xp_s, p.xp, r0, p.n_rows, p.D, p.Hp, h_lo, h_hi - h_lo,
                  ctid);
-      consumers_sync();
+      bar_sync(1);
       // this thread's k = c0 * 32 + t + 4 i, as (h, j) = (k / m, k % m)
       int k = c0 * kKB + t;
       int j = k % p.m;
@@ -399,9 +268,9 @@ __global__ void __launch_bounds__(kThreads, 1)
           const uint64_t dhi = desc_kmajor(tile(s, 0) + 32 * kk);
           const uint64_t dlo = desc_kmajor(tile(s, 1) + 32 * kk);
           // the first product of a chain overwrites acc
-          wgmma_tf32(acc, alo[kk], dhi, kk > 0 || i % kPromote != 0);
-          wgmma_tf32(acc, ahi[kk], dlo, 1);
-          wgmma_tf32(acc, ahi[kk], dhi, 1);
+          wgmma_tf32<kNT>(acc, alo[kk], dhi, kk > 0 || i % kPromote != 0);
+          wgmma_tf32<kNT>(acc, ahi[kk], dlo, 1);
+          wgmma_tf32<kNT>(acc, ahi[kk], dhi, 1);
         }
         wg_commit();
         wg_wait_all();
@@ -438,33 +307,6 @@ __global__ void __launch_bounds__(kThreads, 1)
 }
 
 // -- host side ---------------------------------------------------------------
-
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                                 void*, const cuuint64_t*, const cuuint64_t*,
-                                 const cuuint32_t*, const cuuint32_t*,
-                                 CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion,
-                                 CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled from libcuda, looked up through the runtime (no
-// link flag).
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* ptr = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    const cudaError_t err = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &ptr, 12000, cudaEnableDefault, &found);
-#else
-    const cudaError_t err = cudaGetDriverEntryPoint(
-        "cuTensorMapEncodeTiled", &ptr, cudaEnableDefault, &found);
-#endif
-    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiled>(ptr);
-  }
-  return fn;
-}
 
 // A (Ho, Kp) f32 matrix as boxes of 32 k x 104 channels, 128-byte
 // swizzle; channels past Ho read as 0.

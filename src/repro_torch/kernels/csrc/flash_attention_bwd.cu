@@ -19,12 +19,11 @@
 //
 // Bound: operations.  dq, dk, dv and dP are four products of 2 dh flops
 // a (query, key) pair admitted, against the forward's two: at gemma2-2b's
-// train_4k (T = S = 4,096, 8 heads on 4, dh = 256, causal) some 172
-// GFLOP a layer and sequence, 0.17 ms at the bf16 tensor cores' 989
-// TFLOP/s.  bf16 runs every product on the tensor cores (mma.sync
-// m16n8k16, f32 sums); f32, which only the smoke widths train in, runs
-// them on the CUDA cores in f32.  Neither is a Hopper design yet (wgmma,
-// TMA): later work.
+// train_4k (T = S = 4,096, 8 heads on 4, dh = 256, causal) some 137
+// GFLOP a layer and sequence, 0.14 ms at the bf16 tensor cores' 989
+// TFLOP/s.  The bf16 route (every layer the LMs train) is a Hopper design
+// on wgmma and TMA; the f32 route, which only the smoke widths and the
+// identity checks run, keeps the CUDA cores (not redesigned).
 //
 // Determinism: every sum runs in one fixed order and no atomics are
 // used, so the same inputs give the same bits.
@@ -45,20 +44,48 @@
 // (c) q kernel, a block a (query tile, head): holds Q and dO, walks its
 //     admitted kv tiles in order, recomputes P and dS the same way and
 //     adds dS K into dq rows in registers.
-// Design, bf16: the same three launches on the tensor cores (namespace
-// tc below): 64-row blocks of warps that own 16 rows each, bf16 tiles
-// read by ldmatrix, the scores' fragments reused in registers as the
-// accumulating products' operands, the streamed tiles double-buffered
-// (cp.async: the next tile loads while this one is used).
+// Design, bf16 (namespace hw below; sm_90a, the forward's machinery in
+// flash_attention_wgmma.cu: 384 threads, a producer warpgroup whose one
+// thread starts TMA loads of 4-D maps with the 128-byte swizzle into
+// full/empty mbarrier rings, two consumer warpgroups on wgmma m64nNk16;
+// the same three launches, each score computed once a launch):
+// (a) prologue, 128 query rows of a head: S = Q K^T over kv tiles of 64
+//     keys (both operands in shared memory), an online max and sum for
+//     lse; three producer warps take D = rowsum(dO o O).
+// (b) kv kernel, 64 keys of a kv head, walking the group's (head, query
+//     tile) pairs in order (64 rows, 128 at dh <= 64), Q and dO streamed
+//     through a ring.  Warpgroup 0 computes S^T = K Q^T once, P and G = P
+//     (1 - tanh^2) scale, hands G to warpgroup 1 through shared memory
+//     (in its own fragment order, named barriers both ways) and adds dV
+//     += P^T dO; warpgroup 1 computes dP^T = V dO^T once, dS = G (dP - D)
+//     and adds dK += dS^T Q.  P and dS round to bf16 as the register A
+//     operand (the score accumulator's layout is the A-fragment layout),
+//     Q and dO are read MN-major; each warpgroup holds its 64 x dh
+//     accumulator (128 registers a thread at dh = 256) and writes dk, dv
+//     once.
+// (c) q kernel, 128 query rows of a head (64 a consumer warpgroup), Q
+//     and dO loaded once, kv tiles streamed (32 keys, 64 at dh <= 128):
+//     S = Q K^T and dP = dO V^T once each, dS in bf16 as the A operand of
+//     dQ += dS K.
+// Scores s = c tanh(x / c) take tanh as 1 - 2 / (e^{2x} + 1) on
+// ex2.approx and rcp.approx (absolute error a few 1e-7: s enters P by
+// its absolute error), not tanhf, in all three launches alike.
+// Products a pair: 8 (1 + 4 + 3).
+// Masks apply only on tiles that cross the diagonal, the window's edge,
+// T or S; kv blocks start in order of their walks' length (the causal
+// kv tile 0 first), q and prologue blocks from the last query tile.
 //
-// Limits: 1 <= dh <= 256; shared memory 140 KB a block at dh = 256 (f32),
-// 135 KB (bf16).
+// Limits: 1 <= dh <= 256, in bf16 a multiple of 8 (TMA reads 16-byte
+// rows); shared memory 140 KB a block at dh = 256 (f32), 214 KB (bf16 kv
+// kernel).
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "hopper.cuh"
+
+#include <type_traits>
 
 namespace {
+
+using namespace hopper;
 
 constexpr int kB = 32;          // rows of a query tile and of a kv tile
 constexpr int kThreads = 256;   // 16 x 16 for the scores, 32 x 8 for sums
@@ -398,254 +425,314 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_q_kernel(Params p) {
   }
 }
 
-// -- bf16 on the tensor cores ----------------------------------------------
+// -- bf16 on Hopper's tensor cores ------------------------------------------
 //
-// The same three launches with bf16 tiles in shared memory (rows padded
-// by 16 bytes, so the 8 rows an ldmatrix phase reads fall in distinct
-// bank groups) and every product on mma.sync m16n8k16 (bf16 in, f32
-// sums).  A warp owns 16 rows of its block's tile (keys in the kv kernel,
-// queries in the others) and, at dh = 256, one half of the dims of its
-// accumulators (DW = 128 a warp, the scores computed by both halves):
-// the accumulators of a thread are DW / 2 floats each.  The scores' C
-// fragments become the A fragments of the accumulating products in
-// registers (two n8 tiles are one k16 block); P and dS round to bf16
-// there, as the forward rounds P before PV.
+// Three launches, each 384 threads: consumer warpgroups 0 and 1 and a
+// producer warpgroup whose thread 256 starts every TMA load (4-D maps of
+// the contiguous tensors, dh cut into 64-wide chunks of 128-byte
+// swizzled rows, zeros past dh, T and S), with full (TMA bytes) and
+// empty (256 consumer arrivals) mbarriers a ring slot.  Every product is
+// a wgmma m64nNk16 (bf16 in, f32 sums): scores with both operands in
+// shared memory, K-major; the accumulating products with P or dS as the
+// register A operand (the accumulator layout of a 64 x 64 score tile is
+// the A-fragment layout of two k16 steps) and Q, dO or K read MN-major.
 
-namespace tc {
+namespace hw {
 
-typedef __nv_bfloat16 bf16;
-constexpr int kPad = 8;  // bf16 elements of padding a shared-memory row
+constexpr int kThreads = 384;
+constexpr int kRow = 128;   // bytes of one swizzled row: 64 bf16
+constexpr int kKv = 64;     // keys of a kv block
+constexpr int kQb = 128;    // query rows of a q or prologue block
+constexpr int kKp = 64;     // keys a prologue block takes a step
 
-template <int DH>
-struct Cfg {
-  static constexpr int DW = DH == 256 ? 128 : DH;  // dims a warp owns
-  static constexpr int SPLIT = DH / DW;            // warps a row group
-  static constexpr int LD = DH + kPad;             // row stride, elements
-  static constexpr int NTD = DW / 8;               // n8 tiles of a warp's dims
+// Tile shapes and ring slots by dh's 64-wide chunks.  A short dh makes
+// a step brief, so the kv kernel takes 128 queries a step at dh <= 64 and
+// the q kernel 64 keys at dh <= 128 (their registers allow it), and the
+// rings hold as many slots as shared memory leaves (two leave a load's
+// latency exposed).
+template <int NC>
+struct Tiles {
+  static constexpr int kv_rows = NC == 1 ? 128 : 64;  // queries a kv step
+  static constexpr int q_keys = NC <= 2 ? 64 : 32;    // keys a q step
+  static constexpr int pro = NC == 1 ? 8 : NC == 2 ? 6 : 4;
+  static constexpr int kv = NC <= 2 ? 5 : NC == 3 ? 3 : 2;
+  static constexpr int q = NC == 1 ? 8 : NC == 2 ? 4 : NC == 3 ? 5 : 3;
 };
 
-__device__ __forceinline__ uint32_t saddr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void ldsm4(uint32_t* r, const bf16* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(saddr(p)));
-}
-
-__device__ __forceinline__ void ldsm4t(uint32_t* r, const bf16* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
-      "[%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(saddr(p)));
-}
-
-__device__ __forceinline__ void mma(float* c, const uint32_t* a,
-                                    uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
-      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t pack(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// A fragment of rows [r0, r0 + 16), columns [c0, c0 + 16) of s
-template <int LD>
-__device__ __forceinline__ void frag_a(uint32_t* a, const bf16* s, int r0,
-                                       int c0, int lane) {
-  ldsm4(a, s + (r0 + (lane & 7) + ((lane >> 3) & 1) * 8) * LD + c0 +
-               (lane >> 4) * 8);
-}
-
-// B fragments of two n8 tiles, B[k][n] = s[n][k]: s's rows [n0, n0 + 16)
-// are n, its columns [k0, k0 + 16) are k.  b[0..1] tile n0, b[2..3] n0+8.
-template <int LD>
-__device__ __forceinline__ void frag_b(uint32_t* b, const bf16* s, int n0,
-                                       int k0, int lane) {
-  ldsm4(b, s + (n0 + (lane & 7) + (lane >> 4) * 8) * LD + k0 +
-               ((lane >> 3) & 1) * 8);
-}
-
-// B fragments of two n8 tiles, B[k][n] = s[k][n]: s's rows [k0, k0 + 16)
-// are k, its columns [n0, n0 + 16) are n.
-template <int LD>
-__device__ __forceinline__ void frag_bt(uint32_t* b, const bf16* s, int k0,
-                                        int n0, int lane) {
-  ldsm4t(b, s + (k0 + (lane & 7) + ((lane >> 3) & 1) * 8) * LD + n0 +
-                (lane >> 4) * 8);
-}
-
-__device__ __forceinline__ void cp16(void* dst, const void* src, int n) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-               :
-               : "r"(saddr(dst)), "l"(src), "r"(n));
-}
-__device__ __forceinline__ void cp_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-template <int N>
-__device__ __forceinline__ void cp_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-// Rows [r0, r0 + n) of head hh of x (B, L, nh, dh) into s (stride LD), 16
-// bytes a copy, zero past L and past dh: by cp.async where dh is a
-// multiple of 8 (complete after the next cp_wait and barrier), else by
-// plain loads (complete after the barrier).
-template <int DH>
-__device__ void load_rows(bf16* s, const void* xv, int b, int r0, int n,
-                          int L, int nh, int hh, int dh) {
-  constexpr int LD = Cfg<DH>::LD, CH = DH / 8;
-  const bf16* x = static_cast<const bf16*>(xv);
-  const bool vec = dh % 8 == 0;
-  for (int e = threadIdx.x; e < n * CH; e += blockDim.x) {
-    const int r = e / CH, c = (e % CH) * 8;
-    const int row = r0 + r;
-    const bool live = row < L && c < dh;
-    const bf16* src =
-        live ? x + ((static_cast<long long>(b) * L + row) * nh + hh) * dh + c
-             : x;
-    if (vec) {
-      cp16(s + r * LD + c, src, live ? 16 : 0);
-      continue;
-    }
-    union {
-      uint4 u;
-      bf16 h[8];
-    } tmp;
-    for (int i = 0; i < 8; ++i)
-      tmp.h[i] = live && c + i < dh ? src[i] : __float2bfloat16(0.f);
-    *reinterpret_cast<uint4*>(s + r * LD + c) = tmp.u;
-  }
-}
-
-// P and dS of one score from its dot, dP, and its row's lse and D (0 for
-// a pair the mask refuses).
-__device__ __forceinline__ void p_ds(const Params& p, int qp, int kp,
-                                     float dot, float dpv, float lse,
-                                     float dd, float* pv, float* ds) {
-  *pv = *ds = 0.f;
-  if (!admitted(p, qp, kp)) return;
-  float th;
-  const float s = score(p, dot, &th);
-  *pv = __expf(s - lse);
-  float d = *pv * (dpv - dd);
-  if (p.softcap > 0.f) d *= 1.f - th * th;
-  *ds = d * p.scale;
-}
-
-constexpr int kRows = 64;  // rows of a prologue block and of a q block
-constexpr int kKv = 64;    // keys of a kv block
-constexpr int kQt = 32;    // query rows a kv block takes at a time
-constexpr int kKt = 32;    // keys a q block takes at a time
-
-// (a) lse and D of query rows [64 x, 64 x + 64) of head y, batch z: 4
-// warps of 16 rows, kv tiles of 64 keys, the next tile loading while this
-// one is scored.
-template <int DH>
-__global__ void __launch_bounds__(128) prologue_tc(Params p) {
-  constexpr int LD = Cfg<DH>::LD;
-  extern __shared__ __align__(16) unsigned char raw[];
-  bf16* qs = reinterpret_cast<bf16*>(raw);
-  bf16* kbuf[2] = {qs + kRows * LD, qs + (kRows + kKv) * LD};
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int g = lane >> 2, t4 = lane & 3;
-  const int b = blockIdx.z, h = blockIdx.y, r0 = blockIdx.x * kRows;
-  const int hk = h / p.group, kd = (p.dh + 15) / 16;
-
-  int lo, hi;
-  kv_range(p, r0, kRows, kKv, &lo, &hi);
-  load_rows<DH>(qs, p.q, b, r0, kRows, p.T, p.H, h, p.dh);
-  if (lo < hi) load_rows<DH>(kbuf[0], p.k, b, lo * kKv, kKv, p.S, p.Hkv, hk,
-                             p.dh);
-  cp_commit();
-
-  const bf16* o = static_cast<const bf16*>(p.o);
-  const bf16* gd = static_cast<const bf16*>(p.dout);
-  for (int r = warp; r < kRows; r += 4) {
-    const int row = r0 + r;
-    if (row >= p.T) break;
-    const long long base =
-        ((static_cast<long long>(b) * p.T + row) * p.H + h) * p.dh;
-    float sum = 0.f;
-    for (int d = lane; d < p.dh; d += 32)
-      sum = fmaf(__bfloat162float(gd[base + d]), __bfloat162float(o[base + d]),
-                 sum);
+// dh's NC chunks of `rows` rows of a (B, L, heads, dh) tensor into dst,
+// chunk c at dst + c rows kRow, completing on `bar`.
+template <int NC>
+__device__ __forceinline__ void tma_rows(uint32_t dst, const CUtensorMap* map,
+                                         uint32_t bar, int rows, int head,
+                                         int r0, int b) {
 #pragma unroll
-    for (int off = 16; off > 0; off /= 2)
-      sum += __shfl_xor_sync(0xffffffffu, sum, off);
-    if (lane == 0)
-      p.delta[(static_cast<long long>(b) * p.H + h) * p.T + row] = sum;
-  }
+  for (int c = 0; c < NC; ++c)
+    tma_load(dst + c * rows * kRow, map, bar, 64 * c, head, r0, b);
+}
 
-  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
-  for (int j = lo; j < hi; ++j) {
-    const int c0 = j * kKv;
-    const bf16* ks = kbuf[(j - lo) & 1];
-    if (j + 1 < hi) {
-      load_rows<DH>(kbuf[(j + 1 - lo) & 1], p.k, b, c0 + kKv, kKv, p.S,
-                    p.Hkv, hk, p.dh);
-      cp_commit();
-      cp_wait<1>();
+// MN-major (Q, dO or K as the B operand of an accumulating product, dims
+// along N): 8 rows of 128 bytes a k group, groups 1024 bytes apart; the
+// next 64 dims would be a chunk of `rows` rows away.
+__device__ __forceinline__ uint64_t desc_mnmajor(uint32_t addr, int rows) {
+  return desc_sw128(addr, rows * kRow, 8 * kRow);
+}
+
+__device__ __forceinline__ float rcp(float x) {
+  float y;
+  asm("rcp.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// admitted() without a branch a test: the bf16 kernels call it inside
+// their unrolled score loops.
+__device__ __forceinline__ bool admits(const Params& p, int qp, int kp) {
+  return qp < p.T && kp < p.S && !(p.causal && kp > qp) &&
+         !(p.window > 0 && qp - kp >= p.window);
+}
+
+// The scaled score s and, soft-capped (kCap), the softcap's tanh: s =
+// cap tanh(dot scale / cap).  tanh(x) = 1 - 2 / (e^{2x} + 1) on
+// ex2.approx and rcp.approx: an absolute error of a few 1e-7, which is
+// what s needs (it enters P = exp(s - lse) by its absolute error), for
+// some 20 instructions a score less than tanhf's relative accuracy near
+// 0.
+struct Score {
+  float scale, k, cap;  // k = scale / cap, where cap > 0
+  template <bool kCap>
+  __device__ __forceinline__ float at(float dot, float* th) const {
+    if constexpr (kCap) {
+      *th = 1.f - 2.f * rcp(ex2(dot * k * 2.885390081777927f) + 1.f);
+      return cap * *th;
     } else {
-      cp_wait<0>();
+      *th = 0.f;
+      return dot * scale;
     }
-    __syncthreads();
-    float sc[kKv / 8][4] = {};
-    for (int kk = 0; kk < kd; ++kk) {
-      uint32_t a[4];
-      frag_a<LD>(a, qs, 16 * warp, 16 * kk, lane);
+  }
+};
+
+__device__ __forceinline__ Score score_of(const Params& p) {
+  return {p.scale, p.softcap > 0.f ? p.scale / p.softcap : 0.f, p.softcap};
+}
+
+// body(std::true_type()) where the scores are soft-capped, else
+// body(std::false_type()): a loop over a tile's scores then holds no
+// branch a score.  (Branches a score split the unrolled loop into a block
+// a score, each waiting out its exp: at dh = 64 the kv kernel took half
+// again as long.)
+template <class F>
+__device__ __forceinline__ void by_cap(const Params& p, F&& body) {
+  if (p.softcap > 0.f)
+    body(std::true_type());
+  else
+    body(std::false_type());
+}
+
+// The block's tile and (head, batch) from a linear block index, tiles
+// slowest so that every head's first tile starts before any head's
+// second: `reverse` walks the tiles from the last (the causal q tiles,
+// whose rows see the most keys, then start first).
+__device__ __forceinline__ void decode(int x, int heads, int B, int n_tiles,
+                                       bool reverse, int* tile, int* head,
+                                       int* b) {
+  const int hb = heads * B, rank = x / hb, rem = x - rank * hb;
+  *tile = reverse ? n_tiles - 1 - rank : rank;
+  *b = rem / heads;
+  *head = rem - *b * heads;
+}
+
+// Writes rows row0 and row0 + 8 of a 64 x (64 NC) accumulator into x
+// (B, L, heads, dh) at head hh, rows below L and dims below dh: bf16
+// (rounded) or f32.
+__device__ __forceinline__ void store_pair(void* x, long long at, float a,
+                                           float b) {
+  *reinterpret_cast<uint32_t*>(static_cast<__nv_bfloat16*>(x) + at) =
+      pack_bf16(a, b);
+}
+__device__ __forceinline__ void store_pair(float* x, long long at, float a,
+                                           float b) {
+  *reinterpret_cast<float2*>(x + at) = make_float2(a, b);
+}
+
+template <int NC, typename Out>
+__device__ __forceinline__ void store_rows(Out* x, const float (&acc)[NC][32],
+                                           int b, int row0, int L, int heads,
+                                           int hh, int dh, int t) {
 #pragma unroll
-      for (int np = 0; np < kKv / 16; ++np) {
-        uint32_t bb[4];
-        frag_b<LD>(bb, ks, 16 * np, 16 * kk, lane);
-        mma(sc[2 * np], a, bb[0], bb[1]);
-        mma(sc[2 * np + 1], a, bb[2], bb[3]);
+  for (int half = 0; half < 2; ++half) {
+    const int row = row0 + 8 * half;
+    if (row >= L) continue;
+    const long long at =
+        ((static_cast<long long>(b) * L + row) * heads + hh) * dh;
+#pragma unroll
+    for (int c = 0; c < NC; ++c)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int col = 64 * c + 8 * j + 2 * t;
+        if (col < dh)  // dh is a multiple of 8: pairs never straddle
+          store_pair(x, at + col, acc[c][4 * j + 2 * half],
+                     acc[c][4 * j + 2 * half + 1]);
+      }
+  }
+}
+
+// (a) lse and D of query rows [128 q, 128 q + 128) of head h, batch b:
+// the consumers' scores S = Q K^T over kv tiles of 64 keys with an online
+// max and sum (masked scores -1e30, as the forward kernels), warps 9-11
+// D = rowsum(dO o O), a warp four rows at a time.
+template <int NC>
+__global__ void __launch_bounds__(kThreads, 1)
+    prologue_hw(const __grid_constant__ CUtensorMap tq,
+                const __grid_constant__ CUtensorMap tk, const Params p) {
+  constexpr uint32_t kQBytes = NC * kQb * kRow;
+  constexpr uint32_t kKBytes = NC * kKp * kRow;
+  constexpr int kS = Tiles<NC>::pro;  // ring slots
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t sq = smem_base(smem_raw);
+  const uint32_t sk = sq + kQBytes;
+  const uint32_t bars = sk + kS * kKBytes;
+  const uint32_t q_full = bars;
+  auto k_full = [&](int s) -> uint32_t { return bars + 8 + 8 * s; };
+  auto k_empty = [&](int s) -> uint32_t {
+    return bars + 8 + 8 * (kS + s);
+  };
+  const int n_qt = (p.T + kQb - 1) / kQb;
+  int qt, h, b;
+  decode(blockIdx.x, p.H, p.B, n_qt, p.causal, &qt, &h, &b);
+  const Score sfn = score_of(p);
+  const int hk = h / p.group, q0 = qt * kQb;
+  int lo, hi;
+  kv_range(p, q0, kQb, kKp, &lo, &hi);
+
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    for (int s = 0; s < kS; ++s) {
+      mbar_init(k_full(s), 1);
+      mbar_init(k_empty(s), 256);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / 128;
+  const int lane = threadIdx.x % 32;
+  if (wg == 2) {
+    if (threadIdx.x == 256) {
+      mbar_expect_tx(q_full, kQBytes);
+      tma_rows<NC>(sq, &tq, q_full, kQb, h, q0, b);
+      for (int i = 0; i < hi - lo; ++i) {
+        const int s = i % kS;
+        mbar_wait(k_empty(s), ((i / kS) & 1) ^ 1);
+        mbar_expect_tx(k_full(s), kKBytes);
+        tma_rows<NC>(sk + s * kKBytes, &tk, k_full(s), kKp, hk,
+                     (lo + i) * kKp, b);
+      }
+    } else if (threadIdx.x >= 288) {
+      // D = rowsum(dO o O): a warp four rows at a time (their loads in
+      // flight together), lanes over dh in 16-byte runs, a fixed tree
+      const uint4* o = static_cast<const uint4*>(p.o);
+      const uint4* g = static_cast<const uint4*>(p.dout);
+      const int chunks = p.dh / 8;
+      for (int r0 = 4 * ((threadIdx.x - 288) / 32); r0 < kQb; r0 += 12) {
+        uint4 ov[4], gv[4];
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+          const int row = q0 + r0 + u;
+          ov[u] = gv[u] = make_uint4(0, 0, 0, 0);
+          if (row < p.T && lane < chunks) {
+            const long long at =
+                ((static_cast<long long>(b) * p.T + row) * p.H + h) * chunks +
+                lane;
+            ov[u] = o[at];
+            gv[u] = g[at];
+          }
+        }
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+          const __nv_bfloat16* oe =
+              reinterpret_cast<const __nv_bfloat16*>(&ov[u]);
+          const __nv_bfloat16* ge =
+              reinterpret_cast<const __nv_bfloat16*>(&gv[u]);
+          float sum = 0.f;
+#pragma unroll
+          for (int e = 0; e < 8; ++e)
+            sum = fmaf(__bfloat162float(ge[e]), __bfloat162float(oe[e]), sum);
+#pragma unroll
+          for (int off = 16; off > 0; off /= 2)
+            sum += __shfl_xor_sync(0xffffffffu, sum, off);
+          const int row = q0 + r0 + u;
+          if (lane == 0 && row < p.T)
+            p.delta[(static_cast<long long>(b) * p.H + h) * p.T + row] = sum;
+        }
       }
     }
+    return;
+  }
+
+  // ---- consumers: 64 query rows each ----
+  const int tid = threadIdx.x % 128, t = lane % 4;
+  const int rq0 = q0 + 64 * wg;
+  const int row0 = rq0 + 16 * (tid / 32) + lane / 4;  // and row0 + 8
+  int wlo, whi;  // the kv tiles this warpgroup's rows may admit
+  kv_range(p, rq0, 64, kKp, &wlo, &whi);
+  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
+  mbar_wait(q_full, 0);
+  for (int i = 0; i < hi - lo; ++i) {
+    const int s = i % kS, j = lo + i, k0 = j * kKp;
+    mbar_wait(k_full(s), (i / kS) & 1);
+    const bool live = j >= wlo && j < whi;
+    float sc[32];
+    if (live) {
+      wg_fence();
+#pragma unroll
+      for (int c = 0; c < NC; ++c)
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+          wgmma_ss(sc,
+                     desc_kmajor(sq + (c * kQb + 64 * wg) * kRow + 32 * kk),
+                     desc_kmajor(sk + s * kKBytes + c * kKp * kRow + 32 * kk),
+                     c | kk);
+      wg_commit();
+      wg_wait_all();
+      fence_regs(sc);
+    }
+    mbar_arrive(k_empty(s));
+    if (!live) continue;
+    const bool need_mask = k0 + kKp > p.S || (p.causal && k0 + kKp - 1 > rq0) ||
+                           (p.window > 0 && rq0 + 63 - k0 >= p.window);
+    by_cap(p, [&](auto cap) {
+#pragma unroll
+      for (int e = 0; e < 32; ++e) {
+        const int qp = row0 + 8 * ((e >> 1) & 1);
+        const int kp = k0 + 8 * (e / 4) + 2 * t + (e & 1);
+        float th;
+        const float v = sfn.at<decltype(cap)::value>(sc[e], &th);
+        sc[e] = !need_mask || admits(p, qp, kp) ? v : kNegInf;
+      }
+    });
 #pragma unroll
     for (int hr = 0; hr < 2; ++hr) {
-      const int qp = r0 + 16 * warp + g + 8 * hr;
       float mt = kNegInf;
 #pragma unroll
-      for (int nt = 0; nt < kKv / 8; ++nt)
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const int kp = c0 + 8 * nt + 2 * t4 + e;
-          float th;
-          const float v = admitted(p, qp, kp)
-                              ? score(p, sc[nt][2 * hr + e], &th)
-                              : kNegInf;
-          sc[nt][2 * hr + e] = v;
-          mt = fmaxf(mt, v);
-        }
+      for (int jj = 0; jj < 8; ++jj)
+        mt = fmaxf(mt, fmaxf(sc[4 * jj + 2 * hr], sc[4 * jj + 2 * hr + 1]));
       mt = fmaxf(mt, __shfl_xor_sync(0xffffffffu, mt, 1));
       mt = fmaxf(mt, __shfl_xor_sync(0xffffffffu, mt, 2));
       const float mn = fmaxf(m[hr], mt);
       float sum = 0.f;
 #pragma unroll
-      for (int nt = 0; nt < kKv / 8; ++nt)
-        sum += expf(sc[nt][2 * hr] - mn) + expf(sc[nt][2 * hr + 1] - mn);
+      for (int jj = 0; jj < 8; ++jj)
+        sum += __expf(sc[4 * jj + 2 * hr] - mn) +
+               __expf(sc[4 * jj + 2 * hr + 1] - mn);
       sum += __shfl_xor_sync(0xffffffffu, sum, 1);
       sum += __shfl_xor_sync(0xffffffffu, sum, 2);
-      l[hr] = l[hr] * expf(m[hr] - mn) + sum;
+      l[hr] = l[hr] * __expf(m[hr] - mn) + sum;
       m[hr] = mn;
     }
-    __syncthreads();  // this buffer is free for the tile after next
   }
-  cp_wait<0>();  // no copy outlives the block (none left unless no tile)
-  if (t4 == 0) {
+  if (t == 0) {
 #pragma unroll
     for (int hr = 0; hr < 2; ++hr) {
-      const int row = r0 + 16 * warp + g + 8 * hr;
+      const int row = row0 + 8 * hr;
       if (row < p.T)
         p.lse[(static_cast<long long>(b) * p.H + h) * p.T + row] =
             m[hr] + logf(l[hr]);
@@ -653,231 +740,350 @@ __global__ void __launch_bounds__(128) prologue_tc(Params p) {
   }
 }
 
-// (b) dk, dv of keys [64 x, 64 x + 64) of kv head y, batch z: 4 key
-// groups of 16 x SPLIT dim slices; the (query head, 32-row query tile)
-// pairs in order, the next pair's Q and dO loading while this one's are
-// used.
-template <int DH>
-__global__ void __launch_bounds__(128 * Cfg<DH>::SPLIT) kv_tc(Params p) {
-  using C = Cfg<DH>;
-  constexpr int LD = C::LD;
-  extern __shared__ __align__(16) unsigned char raw[];
-  bf16* ks = reinterpret_cast<bf16*>(raw);
-  bf16* vs = ks + kKv * LD;
-  bf16* qbuf[2] = {vs + kKv * LD, vs + (kKv + kQt) * LD};
-  bf16* dbuf[2] = {vs + (kKv + 2 * kQt) * LD, vs + (kKv + 3 * kQt) * LD};
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int kg = warp & 3, sl = warp >> 2;
-  const int g = lane >> 2, t4 = lane & 3;
-  const int b = blockIdx.z, hk = blockIdx.y, c0 = blockIdx.x * kKv;
-  const int kd = (p.dh + 15) / 16;
-  float dk[C::NTD][4] = {}, dv[C::NTD][4] = {};
+// (b) dk, dv of keys [64 x, 64 x + 64) of kv head hk, batch b.  K and V
+// load once; the (query head, query tile of QS rows) pairs of the group
+// stream through the ring in order.  Warpgroup 0 computes S^T = K Q^T,
+// P and G = P (1 - tanh^2) scale (the factor of dS but dP - D), hands G
+// to warpgroup 1 through shared memory in its own fragment order, and
+// adds dV += P^T dO; warpgroup 1 computes dP^T = V dO^T, dS = G (dP - D)
+// and adds dK += dS^T Q.  Each owns its accumulator over all of dh; the
+// scores of a step are QS / 64 accumulators of 64 queries.
+template <int NC>
+__global__ void __launch_bounds__(kThreads, 1)
+    kv_hw(const __grid_constant__ CUtensorMap tq,
+          const __grid_constant__ CUtensorMap tdo,
+          const __grid_constant__ CUtensorMap tk,
+          const __grid_constant__ CUtensorMap tv, const Params p) {
+  constexpr int QS = Tiles<NC>::kv_rows, NQ = QS / 64;
+  constexpr uint32_t kTile = NC * kKv * kRow;  // K or V: 64 keys of dh
+  constexpr uint32_t kQTile = NC * QS * kRow;  // Q or dO: QS rows of dh
+  constexpr int kS = Tiles<NC>::kv;            // ring slots
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t sk = smem_base(smem_raw);
+  const uint32_t sv = sk + kTile;
+  const uint32_t ring = sv + kTile;  // slot s: Q at 2 s kQTile, dO after
+  const uint32_t sg = ring + kS * 2 * kQTile;  // G, 32 NQ x 128 floats
+  float* g_s = reinterpret_cast<float*>(
+      smem_raw +
+      (sg - static_cast<uint32_t>(__cvta_generic_to_shared(smem_raw))));
+  const uint32_t bars = sg + 32 * NQ * 128 * 4;
+  const uint32_t kv_full = bars;
+  auto full = [&](int s) -> uint32_t { return bars + 8 + 8 * s; };
+  auto empty = [&](int s) -> uint32_t { return bars + 8 + 8 * (kS + s); };
+  auto sq = [&](int s) -> uint32_t { return ring + 2 * s * kQTile; };
+  auto sdo = [&](int s) -> uint32_t { return ring + (2 * s + 1) * kQTile; };
+  // blocks: kv tiles slowest (the causal tile 0 walks the most query
+  // tiles and starts first), then kv head, batch
+  int kt, hk, b;
+  decode(blockIdx.x, p.Hkv, p.B, 0, false, &kt, &hk, &b);
+  const int h0 = hk * p.group, nh = p.group;
+  const Score sfn = score_of(p);
+  const int c0 = kt * kKv;
   int lo, hi;
-  q_range(p, c0, kKv, kQt, &lo, &hi);
-  const int nq = hi - lo, total = p.group * nq;
-  auto issue = [&](int t) {
-    const int h = hk * p.group + t / nq, r0 = (lo + t % nq) * kQt;
-    load_rows<DH>(qbuf[t & 1], p.q, b, r0, kQt, p.T, p.H, h, p.dh);
-    load_rows<DH>(dbuf[t & 1], p.dout, b, r0, kQt, p.T, p.H, h, p.dh);
-  };
-  load_rows<DH>(ks, p.k, b, c0, kKv, p.S, p.Hkv, hk, p.dh);
-  load_rows<DH>(vs, p.v, b, c0, kKv, p.S, p.Hkv, hk, p.dh);
-  if (total > 0) issue(0);
-  cp_commit();
-  for (int t = 0; t < total; ++t) {
-    const int h = hk * p.group + t / nq, r0 = (lo + t % nq) * kQt;
-    const long long rows = (static_cast<long long>(b) * p.H + h) * p.T;
-    const bf16* qs = qbuf[t & 1];
-    const bf16* dos = dbuf[t & 1];
-    if (t + 1 < total) {
-      issue(t + 1);
-      cp_commit();
-      cp_wait<1>();
-    } else {
-      cp_wait<0>();
+  q_range(p, c0, kKv, QS, &lo, &hi);
+  const int nq = hi - lo, total = nh * nq;
+
+  if (threadIdx.x == 0) {
+    mbar_init(kv_full, 1);
+    for (int s = 0; s < kS; ++s) {
+      mbar_init(full(s), 1);
+      mbar_init(empty(s), 256);
     }
-    __syncthreads();
-    // S^T = K Q^T and dP^T = V dO^T, 16 keys x 32 queries a warp
-    float st[kQt / 8][4] = {}, dpt[kQt / 8][4] = {};
-    for (int kk = 0; kk < kd; ++kk) {
-      uint32_t ak[4], av[4];
-      frag_a<LD>(ak, ks, 16 * kg, 16 * kk, lane);
-      frag_a<LD>(av, vs, 16 * kg, 16 * kk, lane);
-#pragma unroll
-      for (int np = 0; np < kQt / 16; ++np) {
-        uint32_t bq[4], bo[4];
-        frag_b<LD>(bq, qs, 16 * np, 16 * kk, lane);
-        frag_b<LD>(bo, dos, 16 * np, 16 * kk, lane);
-        mma(st[2 * np], ak, bq[0], bq[1]);
-        mma(st[2 * np + 1], ak, bq[2], bq[3]);
-        mma(dpt[2 * np], av, bo[0], bo[1]);
-        mma(dpt[2 * np + 1], av, bo[2], bo[3]);
-      }
-    }
-#pragma unroll
-    for (int nt = 0; nt < kQt / 8; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int kp = c0 + 16 * kg + g + 8 * (e >> 1);
-        const int qp = r0 + 8 * nt + 2 * t4 + (e & 1);
-        const bool ok = qp < p.T;
-        p_ds(p, qp, kp, st[nt][e], dpt[nt][e], ok ? p.lse[rows + qp] : 0.f,
-             ok ? p.delta[rows + qp] : 0.f, &st[nt][e], &dpt[nt][e]);
-      }
-    // dV += P^T dO, dK += dS^T Q over the tile's 32 queries
-#pragma unroll
-    for (int kb = 0; kb < kQt / 16; ++kb) {
-      const uint32_t ap[4] = {pack(st[2 * kb][0], st[2 * kb][1]),
-                              pack(st[2 * kb][2], st[2 * kb][3]),
-                              pack(st[2 * kb + 1][0], st[2 * kb + 1][1]),
-                              pack(st[2 * kb + 1][2], st[2 * kb + 1][3])};
-      const uint32_t ad[4] = {pack(dpt[2 * kb][0], dpt[2 * kb][1]),
-                              pack(dpt[2 * kb][2], dpt[2 * kb][3]),
-                              pack(dpt[2 * kb + 1][0], dpt[2 * kb + 1][1]),
-                              pack(dpt[2 * kb + 1][2], dpt[2 * kb + 1][3])};
-#pragma unroll
-      for (int nd = 0; nd < C::NTD / 2; ++nd) {
-        uint32_t bo[4], bq[4];
-        frag_bt<LD>(bo, dos, 16 * kb, sl * C::DW + 16 * nd, lane);
-        frag_bt<LD>(bq, qs, 16 * kb, sl * C::DW + 16 * nd, lane);
-        mma(dv[2 * nd], ap, bo[0], bo[1]);
-        mma(dv[2 * nd + 1], ap, bo[2], bo[3]);
-        mma(dk[2 * nd], ad, bq[0], bq[1]);
-        mma(dk[2 * nd + 1], ad, bq[2], bq[3]);
-      }
-    }
-    __syncthreads();  // this buffer is free for the pair after next
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
   }
-  cp_wait<0>();  // no copy outlives the block (none left unless no pair)
-  bf16* dkp = static_cast<bf16*>(p.dk);
-  bf16* dvp = static_cast<bf16*>(p.dv);
-#pragma unroll
-  for (int nt = 0; nt < C::NTD; ++nt)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int kp = c0 + 16 * kg + g + 8 * (e >> 1);
-      const int d = sl * C::DW + 8 * nt + 2 * t4 + (e & 1);
-      if (kp < p.S && d < p.dh) {
-        const long long at =
-            ((static_cast<long long>(b) * p.S + kp) * p.Hkv + hk) * p.dh + d;
-        dkp[at] = __float2bfloat16(dk[nt][e]);
-        dvp[at] = __float2bfloat16(dv[nt][e]);
+  __syncthreads();
+
+  const int wg = threadIdx.x / 128;
+  if (wg == 2) {
+    // ---- producer ----
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n" ::: "memory");
+    if (threadIdx.x == 256) {
+      mbar_expect_tx(kv_full, 2 * kTile);
+      tma_rows<NC>(sk, &tk, kv_full, kKv, hk, c0, b);
+      tma_rows<NC>(sv, &tv, kv_full, kKv, hk, c0, b);
+      for (int i = 0; i < total; ++i) {
+        const int s = i % kS;
+        const int h = h0 + i / nq, r0 = (lo + i % nq) * QS;
+        mbar_wait(empty(s), ((i / kS) & 1) ^ 1);
+        mbar_expect_tx(full(s), 2 * kQTile);
+        tma_rows<NC>(sq(s), &tq, full(s), QS, h, r0, b);
+        tma_rows<NC>(sdo(s), &tdo, full(s), QS, h, r0, b);
       }
     }
+    return;
+  }
+
+  // ---- consumers: the block's 64 keys, warpgroup 0 dV, 1 dK ----
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n" ::: "memory");
+  const int tid = threadIdx.x % 128, lane = tid % 32, t = lane % 4;
+  const int kr0 = c0 + 16 * (tid / 32) + lane / 4;  // keys kr0, kr0 + 8
+  float acc[NC][32];  // dV (warpgroup 0) or dK (1)
+#pragma unroll
+  for (int c = 0; c < NC; ++c)
+#pragma unroll
+    for (int e = 0; e < 32; ++e) acc[c][e] = 0.f;
+  mbar_wait(kv_full, 0);
+  for (int i = 0; i < total; ++i) {
+    const int s = i % kS;
+    const int h = h0 + i / nq, r0 = (lo + i % nq) * QS;
+    const long long rows = (static_cast<long long>(b) * p.H + h) * p.T;
+    // the pairs' admissions: every one, unless the tile crosses the
+    // diagonal, the window's edge, T or S
+    const bool need_mask = r0 + QS > p.T || c0 + kKv > p.S ||
+                           (p.causal && c0 + kKv - 1 > r0) ||
+                           (p.window > 0 && r0 + QS - 1 - c0 >= p.window);
+    // this thread's query columns: r0 + 64 u + 8 jj + 2 t + e
+    float rowv[NQ][16];  // lse (warpgroup 0) or D (1) of those queries
+    const float* src = wg == 0 ? p.lse : p.delta;
+#pragma unroll
+    for (int u = 0; u < NQ; ++u)
+#pragma unroll
+      for (int jj = 0; jj < 8; ++jj)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int qp = r0 + 64 * u + 8 * jj + 2 * t + e;
+          rowv[u][2 * jj + e] = qp < p.T ? src[rows + qp] : 0.f;
+        }
+    mbar_wait(full(s), (i / kS) & 1);
+    // S^T = K Q^T (warpgroup 0) or dP^T = V dO^T (1), 64 queries an
+    // accumulator
+    float st[NQ][32];
+    const uint32_t a_tile = wg == 0 ? sk : sv;
+    const uint32_t b_tile = wg == 0 ? sq(s) : sdo(s);
+    wg_fence();
+#pragma unroll
+    for (int u = 0; u < NQ; ++u)
+#pragma unroll
+      for (int c = 0; c < NC; ++c)
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+          wgmma_ss(st[u], desc_kmajor(a_tile + c * kKv * kRow + 32 * kk),
+                   desc_kmajor(b_tile + (c * QS + 64 * u) * kRow + 32 * kk),
+                   c | kk);
+    wg_commit();
+    wg_wait_all();
+#pragma unroll
+    for (int u = 0; u < NQ; ++u) fence_regs(st[u]);
+    // element e of st[u]: key kr0 + 8 ((e >> 1) & 1), query r0 + 64 u +
+    // 8 (e / 4) + 2 t + (e & 1)
+    if (wg == 0) {
+      if (i > 0) bar_sync(2);  // warpgroup 1 has read the last G
+      by_cap(p, [&](auto cap) {
+        constexpr bool kCap = decltype(cap)::value;
+#pragma unroll
+        for (int u = 0; u < NQ; ++u)
+#pragma unroll
+          for (int e = 0; e < 32; ++e) {
+            const int kp = kr0 + 8 * ((e >> 1) & 1);
+            const int qp = r0 + 64 * u + 8 * (e / 4) + 2 * t + (e & 1);
+            float th;
+            const float sv_ = sfn.at<kCap>(st[u][e], &th);
+            const float pv =
+                !need_mask || admits(p, qp, kp)
+                    ? __expf(sv_ - rowv[u][2 * (e / 4) + (e & 1)])
+                    : 0.f;
+            float gv = pv * p.scale;
+            if constexpr (kCap) gv *= 1.f - th * th;
+            st[u][e] = pv;
+            g_s[(32 * u + e) * 128 + tid] = gv;
+          }
+      });
+      bar_arrive(1);  // G is ready
+    } else {
+      bar_sync(1);
+#pragma unroll
+      for (int u = 0; u < NQ; ++u)
+#pragma unroll
+        for (int e = 0; e < 32; ++e)
+          st[u][e] = g_s[(32 * u + e) * 128 + tid] *
+                     (st[u][e] - rowv[u][2 * (e / 4) + (e & 1)]);
+      if (i + 1 < total) bar_arrive(2);  // G is read
+    }
+    // dV += P^T dO (warpgroup 0) or dK += dS^T Q (1): the k16 step 4 u +
+    // kk of the QS queries takes blocks 2 kk and 2 kk + 1 of st[u],
+    // rounded to bf16
+    uint32_t pa[4 * NQ][4];
+#pragma unroll
+    for (int u = 0; u < NQ; ++u)
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+        for (int r = 0; r < 4; ++r)
+          pa[4 * u + kk][r] =
+              pack_bf16(st[u][8 * kk + 2 * r], st[u][8 * kk + 2 * r + 1]);
+    const uint32_t bt = wg == 0 ? sdo(s) : sq(s);
+#pragma unroll
+    for (int c = 0; c < NC; ++c) fence_regs(acc[c]);
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4 * NQ; ++kk)
+#pragma unroll
+      for (int c = 0; c < NC; ++c)
+        wgmma_rs(acc[c], pa[kk],
+                   desc_mnmajor(bt + (c * QS + 16 * kk) * kRow, QS));
+    wg_commit();
+    wg_wait_all();
+#pragma unroll
+    for (int c = 0; c < NC; ++c) fence_regs(acc[c]);
+    fence_regs(pa);
+    mbar_arrive(empty(s));
+  }
+  store_rows<NC>(wg == 0 ? p.dv : p.dk, acc, b, kr0, p.S, p.Hkv, hk, p.dh, t);
 }
 
-// (c) dq of query rows [64 x, 64 x + 64) of head y, batch z: 4 row groups
-// of 16 x SPLIT dim slices, kv tiles of 32 keys, the next tile loading
-// while this one is used.
-template <int DH>
-__global__ void __launch_bounds__(128 * Cfg<DH>::SPLIT) q_tc(Params p) {
-  using C = Cfg<DH>;
-  constexpr int LD = C::LD;
-  extern __shared__ __align__(16) unsigned char raw[];
-  bf16* qs = reinterpret_cast<bf16*>(raw);
-  bf16* dos = qs + kRows * LD;
-  bf16* kbuf[2] = {dos + kRows * LD, dos + (kRows + kKt) * LD};
-  bf16* vbuf[2] = {dos + (kRows + 2 * kKt) * LD,
-                   dos + (kRows + 3 * kKt) * LD};
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int qg = warp & 3, sl = warp >> 2;
-  const int g = lane >> 2, t4 = lane & 3;
-  const int b = blockIdx.z, h = blockIdx.y, r0 = blockIdx.x * kRows;
-  const int hk = h / p.group, kd = (p.dh + 15) / 16;
-  float dq[C::NTD][4] = {};
-  float lse[2], dd[2];  // this thread's rows g and g + 8 of its group
+// (c) dq of query rows [128 x, 128 x + 128) of head h, batch b: Q and dO
+// load once, kv tiles of KS keys stream through the ring; each consumer
+// warpgroup recomputes S and dP for its 64 rows and adds dQ += dS K over
+// all of dh.
+template <int NC>
+__global__ void __launch_bounds__(kThreads, 1)
+    q_hw(const __grid_constant__ CUtensorMap tq,
+         const __grid_constant__ CUtensorMap tdo,
+         const __grid_constant__ CUtensorMap tk,
+         const __grid_constant__ CUtensorMap tv, const Params p) {
+  constexpr uint32_t kQTile = NC * kQb * kRow;  // 128 rows of dh
+  constexpr int KS = Tiles<NC>::q_keys;
+  constexpr uint32_t kKTile = NC * KS * kRow;  // K or V: KS keys of dh
+  constexpr int kS = Tiles<NC>::q;  // ring slots
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t sq = smem_base(smem_raw);
+  const uint32_t sdo = sq + kQTile;
+  const uint32_t ring = sdo + kQTile;  // slot s: K at 2 s kKTile, V after
+  const uint32_t bars = ring + kS * 2 * kKTile;
+  const uint32_t qd_full = bars;
+  auto full = [&](int s) -> uint32_t { return bars + 8 + 8 * s; };
+  auto empty = [&](int s) -> uint32_t { return bars + 8 + 8 * (kS + s); };
+  auto sk = [&](int s) -> uint32_t { return ring + 2 * s * kKTile; };
+  auto sv = [&](int s) -> uint32_t { return ring + (2 * s + 1) * kKTile; };
+  const int n_qt = (p.T + kQb - 1) / kQb;
+  int qt, h, b;
+  decode(blockIdx.x, p.H, p.B, n_qt, p.causal, &qt, &h, &b);
+  const Score sfn = score_of(p);
+  const int hk = h / p.group, q0 = qt * kQb;
+  int lo, hi;
+  kv_range(p, q0, kQb, KS, &lo, &hi);
+
+  if (threadIdx.x == 0) {
+    mbar_init(qd_full, 1);
+    for (int s = 0; s < kS; ++s) {
+      mbar_init(full(s), 1);
+      mbar_init(empty(s), 256);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / 128;
+  if (wg == 2) {
+    // ---- producer ----
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n" ::: "memory");
+    if (threadIdx.x == 256) {
+      mbar_expect_tx(qd_full, 2 * kQTile);
+      tma_rows<NC>(sq, &tq, qd_full, kQb, h, q0, b);
+      tma_rows<NC>(sdo, &tdo, qd_full, kQb, h, q0, b);
+      for (int i = 0; i < hi - lo; ++i) {
+        const int s = i % kS, k0 = (lo + i) * KS;
+        mbar_wait(empty(s), ((i / kS) & 1) ^ 1);
+        mbar_expect_tx(full(s), 2 * kKTile);
+        tma_rows<NC>(sk(s), &tk, full(s), KS, hk, k0, b);
+        tma_rows<NC>(sv(s), &tv, full(s), KS, hk, k0, b);
+      }
+    }
+    return;
+  }
+
+  // ---- consumers: 64 query rows each ----
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n" ::: "memory");
+  const int tid = threadIdx.x % 128, lane = tid % 32, t = lane % 4;
+  const int rq0 = q0 + 64 * wg;
+  const int row0 = rq0 + 16 * (tid / 32) + lane / 4;  // and row0 + 8
+  int wlo, whi;  // the kv tiles this warpgroup's rows may admit
+  kv_range(p, rq0, 64, KS, &wlo, &whi);
+  float lse[2], dd[2];
   {
     const long long rows = (static_cast<long long>(b) * p.H + h) * p.T;
 #pragma unroll
     for (int hr = 0; hr < 2; ++hr) {
-      const int qp = r0 + 16 * qg + g + 8 * hr;
+      const int qp = row0 + 8 * hr;
       lse[hr] = qp < p.T ? p.lse[rows + qp] : 0.f;
       dd[hr] = qp < p.T ? p.delta[rows + qp] : 0.f;
     }
   }
-  int lo, hi;
-  kv_range(p, r0, kRows, kKt, &lo, &hi);
-  load_rows<DH>(qs, p.q, b, r0, kRows, p.T, p.H, h, p.dh);
-  load_rows<DH>(dos, p.dout, b, r0, kRows, p.T, p.H, h, p.dh);
-  if (lo < hi) {
-    load_rows<DH>(kbuf[0], p.k, b, lo * kKt, kKt, p.S, p.Hkv, hk, p.dh);
-    load_rows<DH>(vbuf[0], p.v, b, lo * kKt, kKt, p.S, p.Hkv, hk, p.dh);
+  float acc[NC][32];  // dQ
+#pragma unroll
+  for (int c = 0; c < NC; ++c)
+#pragma unroll
+    for (int e = 0; e < 32; ++e) acc[c][e] = 0.f;
+  const uint32_t q_rows = sq + 64 * wg * kRow, do_rows = sdo + 64 * wg * kRow;
+  mbar_wait(qd_full, 0);
+  for (int i = 0; i < hi - lo; ++i) {
+    const int s = i % kS, j = lo + i, k0 = j * KS;
+    mbar_wait(full(s), (i / kS) & 1);
+    if (j >= wlo && j < whi) {
+      // S = Q K^T and dP = dO V^T
+      float sc[KS / 2], dp[KS / 2];
+      wg_fence();
+#pragma unroll
+      for (int c = 0; c < NC; ++c)
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) {
+          wgmma_ss(sc, desc_kmajor(q_rows + c * kQb * kRow + 32 * kk),
+                   desc_kmajor(sk(s) + c * KS * kRow + 32 * kk), c | kk);
+          wgmma_ss(dp, desc_kmajor(do_rows + c * kQb * kRow + 32 * kk),
+                   desc_kmajor(sv(s) + c * KS * kRow + 32 * kk), c | kk);
+        }
+      wg_commit();
+      wg_wait_all();
+      fence_regs(sc);
+      fence_regs(dp);
+      const bool need_mask = k0 + KS > p.S ||
+                             (p.causal && k0 + KS - 1 > rq0) ||
+                             (p.window > 0 && rq0 + 63 - k0 >= p.window);
+      // element e: row row0 + 8 ((e >> 1) & 1), key k0 + 8 (e / 4) + 2 t +
+      // (e & 1)
+      by_cap(p, [&](auto cap) {
+        constexpr bool kCap = decltype(cap)::value;
+#pragma unroll
+        for (int e = 0; e < KS / 2; ++e) {
+          const int hr = (e >> 1) & 1;
+          const int qp = row0 + 8 * hr;
+          const int kp = k0 + 8 * (e / 4) + 2 * t + (e & 1);
+          float th;
+          const float sv_ = sfn.at<kCap>(sc[e], &th);
+          float d = __expf(sv_ - lse[hr]) * (dp[e] - dd[hr]);
+          if constexpr (kCap) d *= 1.f - th * th;
+          dp[e] = !need_mask || admits(p, qp, kp) ? d * p.scale : 0.f;
+        }
+      });
+      // dQ += dS K: dS in bf16 as the A operand (k16 step kk: blocks 2 kk,
+      // 2 kk + 1), K read MN-major
+      uint32_t da[KS / 16][4];
+#pragma unroll
+      for (int kk = 0; kk < KS / 16; ++kk)
+#pragma unroll
+        for (int r = 0; r < 4; ++r)
+          da[kk][r] = pack_bf16(dp[8 * kk + 2 * r], dp[8 * kk + 2 * r + 1]);
+#pragma unroll
+      for (int c = 0; c < NC; ++c) fence_regs(acc[c]);
+      wg_fence();
+#pragma unroll
+      for (int kk = 0; kk < KS / 16; ++kk)
+#pragma unroll
+        for (int c = 0; c < NC; ++c)
+          wgmma_rs(acc[c], da[kk],
+                     desc_mnmajor(sk(s) + (c * KS + 16 * kk) * kRow, KS));
+      wg_commit();
+      wg_wait_all();
+#pragma unroll
+      for (int c = 0; c < NC; ++c) fence_regs(acc[c]);
+      fence_regs(da);
+    }
+    mbar_arrive(empty(s));
   }
-  cp_commit();
-  for (int j = lo; j < hi; ++j) {
-    const int c0 = j * kKt, buf = (j - lo) & 1;
-    const bf16* ks = kbuf[buf];
-    const bf16* vs = vbuf[buf];
-    if (j + 1 < hi) {
-      load_rows<DH>(kbuf[buf ^ 1], p.k, b, c0 + kKt, kKt, p.S, p.Hkv, hk,
-                    p.dh);
-      load_rows<DH>(vbuf[buf ^ 1], p.v, b, c0 + kKt, kKt, p.S, p.Hkv, hk,
-                    p.dh);
-      cp_commit();
-      cp_wait<1>();
-    } else {
-      cp_wait<0>();
-    }
-    __syncthreads();
-    float sc[kKt / 8][4] = {}, dp[kKt / 8][4] = {};
-    for (int kk = 0; kk < kd; ++kk) {
-      uint32_t aq[4], ao[4];
-      frag_a<LD>(aq, qs, 16 * qg, 16 * kk, lane);
-      frag_a<LD>(ao, dos, 16 * qg, 16 * kk, lane);
-#pragma unroll
-      for (int np = 0; np < kKt / 16; ++np) {
-        uint32_t bk[4], bv[4];
-        frag_b<LD>(bk, ks, 16 * np, 16 * kk, lane);
-        frag_b<LD>(bv, vs, 16 * np, 16 * kk, lane);
-        mma(sc[2 * np], aq, bk[0], bk[1]);
-        mma(sc[2 * np + 1], aq, bk[2], bk[3]);
-        mma(dp[2 * np], ao, bv[0], bv[1]);
-        mma(dp[2 * np + 1], ao, bv[2], bv[3]);
-      }
-    }
-#pragma unroll
-    for (int nt = 0; nt < kKt / 8; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int hr = e >> 1;
-        const int qp = r0 + 16 * qg + g + 8 * hr;
-        const int kp = c0 + 8 * nt + 2 * t4 + (e & 1);
-        float pv;
-        p_ds(p, qp, kp, sc[nt][e], dp[nt][e], lse[hr], dd[hr], &pv,
-             &dp[nt][e]);
-      }
-    // dQ += dS K over the tile's 32 keys
-#pragma unroll
-    for (int kb = 0; kb < kKt / 16; ++kb) {
-      const uint32_t ad[4] = {pack(dp[2 * kb][0], dp[2 * kb][1]),
-                              pack(dp[2 * kb][2], dp[2 * kb][3]),
-                              pack(dp[2 * kb + 1][0], dp[2 * kb + 1][1]),
-                              pack(dp[2 * kb + 1][2], dp[2 * kb + 1][3])};
-#pragma unroll
-      for (int nd = 0; nd < C::NTD / 2; ++nd) {
-        uint32_t bk[4];
-        frag_bt<LD>(bk, ks, 16 * kb, sl * C::DW + 16 * nd, lane);
-        mma(dq[2 * nd], ad, bk[0], bk[1]);
-        mma(dq[2 * nd + 1], ad, bk[2], bk[3]);
-      }
-    }
-    __syncthreads();  // this buffer is free for the tile after next
-  }
-  cp_wait<0>();  // no copy outlives the block (none left unless no tile)
-  bf16* dqp = static_cast<bf16*>(p.dq);
-#pragma unroll
-  for (int nt = 0; nt < C::NTD; ++nt)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int qp = r0 + 16 * qg + g + 8 * (e >> 1);
-      const int d = sl * C::DW + 8 * nt + 2 * t4 + (e & 1);
-      if (qp < p.T && d < p.dh)
-        dqp[((static_cast<long long>(b) * p.T + qp) * p.H + h) * p.dh + d] =
-            __float2bfloat16(dq[nt][e]);
-    }
+  store_rows<NC>(p.dq, acc, b, row0, p.T, p.H, h, p.dh, t);
 }
 
-}  // namespace tc
+}  // namespace hw
 
 template <typename K>
 int set_smem(K kernel, long long bytes) {
@@ -907,55 +1113,110 @@ int launch(const Params& p, cudaStream_t s) {
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int DH>
-int launch_tc(const Params& p, cudaStream_t s) {
-  using C = tc::Cfg<DH>;
-  // bf16 tiles, the streamed ones twice (double buffers)
-  const long long pro = (tc::kRows + 2LL * tc::kKv) * C::LD * 2;
-  const long long kv = (2LL * tc::kKv + 4LL * tc::kQt) * C::LD * 2;
-  const long long q = (2LL * tc::kRows + 4LL * tc::kKt) * C::LD * 2;
-  int err = set_smem(tc::prologue_tc<DH>, pro);
-  if (err == 0) err = set_smem(tc::kv_tc<DH>, kv);
-  if (err == 0) err = set_smem(tc::q_tc<DH>, q);
-  if (err != 0) return err;
-  const unsigned qt = (p.T + tc::kRows - 1) / tc::kRows;
-  const unsigned kt = (p.S + tc::kKv - 1) / tc::kKv;
-  tc::prologue_tc<DH><<<dim3(qt, p.H, p.B), 128, pro, s>>>(p);
-  err = static_cast<int>(cudaGetLastError());
-  if (err != 0) return err;
-  tc::kv_tc<DH><<<dim3(kt, p.Hkv, p.B), 128 * C::SPLIT, kv, s>>>(p);
-  err = static_cast<int>(cudaGetLastError());
-  if (err != 0) return err;
-  tc::q_tc<DH><<<dim3(qt, p.H, p.B), 128 * C::SPLIT, q, s>>>(p);
-  return static_cast<int>(cudaGetLastError());
-}
-
 int launch_dh(const Params& p, cudaStream_t s) {
   if (p.dh <= 64) return launch<64>(p, s);
   if (p.dh <= 128) return launch<128>(p, s);
   return launch<256>(p, s);
 }
 
-int launch_dh_tc(const Params& p, cudaStream_t s) {
-  if (p.dh <= 64) return launch_tc<64>(p, s);
-  if (p.dh <= 128) return launch_tc<128>(p, s);
-  return launch_tc<256>(p, s);
+// A contiguous bf16 (batch, rows, heads, dh) tensor as a 4-D map (dh,
+// heads, rows, batch) with boxes of 64 dims x 1 head x box_rows rows x 1
+// and the 128-byte swizzle; past dh and rows reads 0.
+CUresult make_map(EncodeTiled encode, CUtensorMap* map, const void* ptr,
+                  int dh, int heads, int rows, int batch, int box_rows) {
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(dh),
+                              static_cast<cuuint64_t>(heads),
+                              static_cast<cuuint64_t>(rows),
+                              static_cast<cuuint64_t>(batch)};
+  const cuuint64_t st_h = static_cast<cuuint64_t>(dh) * 2;
+  const cuuint64_t strides[3] = {st_h, st_h * heads, st_h * heads * rows};
+  const cuuint32_t box[4] = {64, 1, static_cast<cuuint32_t>(box_rows), 1};
+  const cuuint32_t step[4] = {1, 1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
+                const_cast<void*>(ptr), dims, strides, box, step,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+}
+
+// NC: 64-wide chunks of dh (dh <= 64 NC).
+template <int NC>
+int launch_hw(const Params& p, EncodeTiled encode, cudaStream_t s) {
+  using S = hw::Tiles<NC>;
+  // Q and dO in boxes of 128 rows (the q and prologue blocks) and of the
+  // kv kernel's step; K and V in boxes of 64 (the kv and prologue blocks)
+  // and of the q kernel's step
+  CUtensorMap q128, qkv, do128, dokv, k64, kq, v64, vq;
+  CUresult r = make_map(encode, &q128, p.q, p.dh, p.H, p.T, p.B, hw::kQb);
+  if (r == CUDA_SUCCESS)
+    r = make_map(encode, &qkv, p.q, p.dh, p.H, p.T, p.B, S::kv_rows);
+  if (r == CUDA_SUCCESS)
+    r = make_map(encode, &do128, p.dout, p.dh, p.H, p.T, p.B, hw::kQb);
+  if (r == CUDA_SUCCESS)
+    r = make_map(encode, &dokv, p.dout, p.dh, p.H, p.T, p.B, S::kv_rows);
+  if (r == CUDA_SUCCESS)
+    r = make_map(encode, &k64, p.k, p.dh, p.Hkv, p.S, p.B, hw::kKv);
+  if (r == CUDA_SUCCESS)
+    r = make_map(encode, &kq, p.k, p.dh, p.Hkv, p.S, p.B, S::q_keys);
+  if (r == CUDA_SUCCESS)
+    r = make_map(encode, &v64, p.v, p.dh, p.Hkv, p.S, p.B, hw::kKv);
+  if (r == CUDA_SUCCESS)
+    r = make_map(encode, &vq, p.v, p.dh, p.Hkv, p.S, p.B, S::q_keys);
+  if (r != CUDA_SUCCESS) return -(1000 + static_cast<int>(r));
+  constexpr long long pro = 1024 + NC * (hw::kQb + S::pro * hw::kKp) *
+                                       hw::kRow + 8 * (1 + 2 * S::pro);
+  constexpr long long kv =
+      1024 + NC * (2 * hw::kKv + 2 * S::kv * S::kv_rows) * hw::kRow +
+      S::kv_rows / 2 * 128 * 4 + 8 * (1 + 2 * S::kv);
+  constexpr long long qk =
+      1024 + NC * (2 * hw::kQb + 2 * S::q * S::q_keys) * hw::kRow +
+      8 * (1 + 2 * S::q);
+  int err = set_smem(hw::prologue_hw<NC>, pro);
+  if (err == 0) err = set_smem(hw::kv_hw<NC>, kv);
+  if (err == 0) err = set_smem(hw::q_hw<NC>, qk);
+  if (err != 0) return err;
+  const unsigned qb =
+      static_cast<unsigned>((p.T + hw::kQb - 1) / hw::kQb) * p.H * p.B;
+  const unsigned kb =
+      static_cast<unsigned>((p.S + hw::kKv - 1) / hw::kKv) * p.Hkv * p.B;
+  hw::prologue_hw<NC><<<qb, hw::kThreads, pro, s>>>(q128, k64, p);
+  err = static_cast<int>(cudaGetLastError());
+  if (err != 0) return err;
+  hw::kv_hw<NC><<<kb, hw::kThreads, kv, s>>>(qkv, dokv, k64, v64, p);
+  err = static_cast<int>(cudaGetLastError());
+  if (err != 0) return err;
+  hw::q_hw<NC><<<qb, hw::kThreads, qk, s>>>(q128, do128, kq, vq, p);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int launch_dh_hw(const Params& p, cudaStream_t s) {
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return -1;
+  switch ((p.dh + 63) / 64) {
+    case 1: return launch_hw<1>(p, encode, s);
+    case 2: return launch_hw<2>(p, encode, s);
+    case 3: return launch_hw<3>(p, encode, s);
+    default: return launch_hw<4>(p, encode, s);
+  }
 }
 
 }  // namespace
 
 // q, o, dout, dq (B, T, H, dh); k, v, dk, dv (B, S, Hkv, dh); all
-// contiguous, f32 or (bf16 != 0) bf16; scratch 2 B H T floats (lse, D).
-// softcap <= 0 means none, window <= 0 global.  Requires B, T, S, H > 0,
-// H a multiple of Hkv, 1 <= dh <= 256 (else cudaErrorInvalidValue) and
-// every query row admitting a key.  Returns the first failing launch's
-// cudaGetLastError(), else 0.
+// contiguous, f32 or (bf16 != 0) bf16, bf16 ones 16-byte aligned; scratch
+// 2 B H T floats (the rows' lse and D).  softcap <= 0 means none,
+// window <= 0 global.  Requires B, T, S, H > 0, H a multiple of Hkv, 1 <=
+// dh <= 256 and, in bf16, dh a multiple of 8 (else cudaErrorInvalidValue),
+// and every query row admitting a key.  Returns 0, the first failing
+// launch's cudaGetLastError(), -1 when libcuda has no
+// cuTensorMapEncodeTiled or -(1000 + r) when it refuses a map with
+// CUresult r.
 extern "C" int flash_attention_bwd_launch(
     const void* q, const void* k, const void* v, const void* o,
     const void* dout, void* dq, void* dk, void* dv, float* scratch, int B,
     int T, int S, int H, int Hkv, int dh, int causal, int window,
     float scale, float softcap, int bf16, void* stream) {
-  if (dh < 1 || dh > 256 || Hkv < 1 || H % Hkv)
+  if (dh < 1 || dh > 256 || Hkv < 1 || H % Hkv || (bf16 && dh % 8))
     return static_cast<int>(cudaErrorInvalidValue);
   Params p;
   p.q = q;
@@ -980,5 +1241,5 @@ extern "C" int flash_attention_bwd_launch(
   p.scale = scale;
   p.softcap = softcap;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return bf16 ? launch_dh_tc(p, s) : launch_dh(p, s);
+  return bf16 ? launch_dh_hw(p, s) : launch_dh(p, s);
 }

@@ -52,12 +52,11 @@
 // - q tiles start in reverse order, so the longest causal walks go
 //   first.
 
-#include <cuda.h>  // CUtensorMap and its enums; libcuda is reached at run time
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "hopper.cuh"
 
 namespace {
+
+using namespace hopper;
 
 constexpr int kBQ = 128;        // query rows per block, 64 per consumer
 constexpr int kBK = 64;         // keys per kv tile
@@ -76,70 +75,7 @@ struct Params {
   float cap_log2;    // softcap * log2(e); 0: no softcap
 };
 
-// -- shared memory, barriers, TMA ------------------------------------------
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar),
-               "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(
-                   bar),
-               "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(bar)
-               : "memory");
-}
-
-// Waits until the phase of parity `parity` has completed.
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "LAB_WAIT:\n"
-      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
-      "@p bra.uni DONE;\n"
-      "bra.uni LAB_WAIT;\n"
-      "DONE:\n"
-      "}\n" ::"r"(bar),
-      "r"(parity)
-      : "memory");
-}
-
-// One box of a 4-D map (coordinates innermost first) into shared memory;
-// completion counts its bytes on `bar`.
-__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
-                                         uint32_t bar, int c0, int c1, int c2,
-                                         int c3) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::"
-      "bytes [%0], [%1, {%3, %4, %5, %6}], [%2];" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
-      "r"(c2), "r"(c3)
-      : "memory");
-}
-
-// -- wgmma -------------------------------------------------------------------
-
-// Shared-memory matrix descriptor, 128-byte swizzle: start address, leading
-// and stride byte offsets, all in 16-byte units.
-__device__ __forceinline__ uint64_t desc_sw128(uint32_t addr, uint32_t lbo,
-                                               uint32_t sbo) {
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
-         (static_cast<uint64_t>(lbo >> 4) << 16) |
-         (static_cast<uint64_t>(sbo >> 4) << 32) | (1ull << 62);
-}
-
-// K-major (Q, K): 8-row groups 1024 bytes apart; the leading offset is
-// unused under the swizzle.
-__device__ __forceinline__ uint64_t desc_kmajor(uint32_t addr) {
-  return desc_sw128(addr, 16, 8 * kRow);
-}
+// -- wgmma and arithmetic ------------------------------------------------------
 
 // MN-major (V as the B operand of PV): 8 keys of 128 bytes a group,
 // groups 1024 bytes apart; the next 64 columns would be a chunk away.
@@ -147,82 +83,10 @@ __device__ __forceinline__ uint64_t desc_mnmajor(uint32_t addr) {
   return desc_sw128(addr, kBK * kRow, 8 * kRow);
 }
 
-__device__ __forceinline__ void wg_fence() {
-  asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
-}
-__device__ __forceinline__ void wg_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
-}
-__device__ __forceinline__ void wg_wait_all() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
-}
-
-// Keeps the compiler from moving accumulator accesses across the
-// asynchronous wgmma that owns them.
-__device__ __forceinline__ void fence_acc(float (&d)[32]) {
-#pragma unroll
-  for (int i = 0; i < 32; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
-
-#define WG_ACC32(d)                                                          \
-  "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),    \
-      "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]),           \
-      "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),       \
-      "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),       \
-      "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),       \
-      "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),       \
-      "+f"(d[31])
-
-#define WG_D32                                                            \
-  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, " \
-  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "  \
-  "%30, %31}"
-
-// d (64 x 64, f32) (+)= A (64 x 16) B (16 x 64), both from shared memory,
-// K-major; `accumulate` 0 overwrites d.
-__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t da,
-                                         uint64_t db, int accumulate) {
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "setp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " WG_D32
-      ", %32, %33, p, 1, 1, 0, 0;\n"
-      "}\n"
-      : WG_ACC32(d)
-      : "l"(da), "l"(db), "r"(accumulate));
-}
-
-// d (64 x 64, f32) += A (64 x 16, bf16 pairs in registers) B (16 x 64)
-// from shared memory, MN-major (transposed).
-__device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t (&a)[4],
-                                         uint64_t db) {
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "setp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " WG_D32
-      ", {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n"
-      "}\n"
-      : WG_ACC32(d)
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
-}
-
 __device__ __forceinline__ float tanh_approx(float x) {
   float y;
   asm("tanh.approx.f32 %0, %1;" : "=f"(y) : "f"(x));
   return y;
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // nearest even
-  return *reinterpret_cast<uint32_t*>(&v);
 }
 
 // -- the kernel --------------------------------------------------------------
@@ -339,7 +203,7 @@ __global__ void __launch_bounds__(kThreads, 1)
                    desc_kmajor(kt + c * kBK * kRow + 32 * kk), c | kk);
       wg_commit();
       wg_wait_all();
-      fence_acc(sc);
+      fence_regs(sc);
       mbar_arrive(bar(2, s));
 
       // scale and softcap, in log2 units
@@ -415,7 +279,7 @@ __global__ void __launch_bounds__(kThreads, 1)
       mbar_wait(bar(1, s), full_parity);
       const uint32_t vt = sv + s * kKVBytes;
 #pragma unroll
-      for (int c = 0; c < NC; ++c) fence_acc(o[c]);
+      for (int c = 0; c < NC; ++c) fence_regs(o[c]);
       wg_fence();
 #pragma unroll
       for (int kk = 0; kk < 4; ++kk)
@@ -426,7 +290,7 @@ __global__ void __launch_bounds__(kThreads, 1)
       wg_commit();
       wg_wait_all();
 #pragma unroll
-      for (int c = 0; c < NC; ++c) fence_acc(o[c]);
+      for (int c = 0; c < NC; ++c) fence_regs(o[c]);
       mbar_arrive(bar(3, s));
     }
 
@@ -459,33 +323,6 @@ __global__ void __launch_bounds__(kThreads, 1)
 }
 
 // -- host side ---------------------------------------------------------------
-
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                                 void*, const cuuint64_t*, const cuuint64_t*,
-                                 const cuuint32_t*, const cuuint32_t*,
-                                 CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion,
-                                 CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled from libcuda, looked up through the runtime (no
-// link flag).
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* ptr = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    const cudaError_t err = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &ptr, 12000, cudaEnableDefault, &found);
-#else
-    const cudaError_t err = cudaGetDriverEntryPoint(
-        "cuTensorMapEncodeTiled", &ptr, cudaEnableDefault, &found);
-#endif
-    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiled>(ptr);
-  }
-  return fn;
-}
 
 // A 4-D bf16 map (dh, heads, rows, batch) with boxes of 64 x 1 x
 // box_rows x 1 and the 128-byte swizzle; st_* are element strides.  A

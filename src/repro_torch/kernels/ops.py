@@ -241,9 +241,10 @@ def cin_layer_bwd(dz, w, x_prev, x0):
     if _on_cpu(dz, w, x_prev, x0):
         return ref.cin_layer_bwd_ref(dz, w, x_prev, x0)
     out = tuple(load().cin_layer_bwd(dz, w, x_prev, x0))
-    # one count a call: the binding launches the input gradients' kernel
-    # and dw's partial sums and, when it cuts the batch into parts, their
-    # sum in a fixed order
+    # one count a call: the binding launches the layout pre-passes (dz,
+    # x0 and x_prev transposed, w^T split into TF32 halves), the input
+    # gradients' kernel, dw's kernel and, when it cuts the batch into
+    # parts, their sum in a fixed order
     if dz.numel() and w.shape[1]:  # launched unless empty or K = 0
         _count("cin_layer_bwd")
     return out
@@ -278,6 +279,14 @@ def cin_layer(w, x_prev, x0):
     return _CinLayer.apply(w, x_prev, x0)
 
 
+def _check_tma_head(dh: int, what: str) -> None:
+    """Raises ValueError unless TMA can read rows of ``dh`` bf16 values:
+    a multiple of 8 (16 bytes) in [8, 256]."""
+    if dh % 8 or not 8 <= dh <= 256:
+        raise ValueError(f"{what} loads by TMA, which needs dh a multiple of "
+                         f"8 in [8, 256], got {dh}")
+
+
 def flash_kernel(q, k, v) -> str:
     """The kernel a CUDA call of ``flash_attention`` launches, by dtype:
     ``"flash_attention_wgmma"`` (bf16 wgmma, TMA loads) for bf16,
@@ -293,10 +302,7 @@ def flash_kernel(q, k, v) -> str:
     not contiguous is copied first, and then meets the rules."""
     if q.dtype != torch.bfloat16:
         return "flash_attention"
-    dh = q.shape[-1]
-    if dh % 8 or not 8 <= dh <= 256:
-        raise ValueError(f"bf16 flash attention loads by TMA, which needs dh "
-                         f"a multiple of 8 in [8, 256], got {dh}")
+    _check_tma_head(q.shape[-1], "bf16 flash attention")
     for name, x in (("q", q), ("k", k), ("v", v)):
         if x.stride(-1) != 1:
             continue  # copied to a contiguous tensor
@@ -326,7 +332,8 @@ def flash_attention_bwd(dout, q, k, v, out, *, causal: bool = True,
     (B, T, H, dh) -> (dq, dk, dv) shaped and typed like q, k and v; see
     ``ref.flash_attention_bwd_ref``.  Raises ValueError when a query row
     admits no key (its forward weighs masked keys alike; no path needs
-    its gradient)."""
+    its gradient) and, on the card, for a bf16 dh that TMA cannot read
+    (as the bf16 forward does)."""
     scale = 1.0 / math.sqrt(q.shape[-1]) if scale is None else scale
     if _empty_query_rows(q.shape[1], k.shape[1], window):
         raise ValueError(f"flash attention's backward needs every query "
@@ -336,12 +343,15 @@ def flash_attention_bwd(dout, q, k, v, out, *, causal: bool = True,
         return ref.flash_attention_bwd_ref(dout, q, k, v, out, causal=causal,
                                            window=window, softcap=softcap,
                                            scale=scale)
+    if q.dtype == torch.bfloat16:
+        _check_tma_head(q.shape[-1], "bf16 flash attention's backward")
     grads = tuple(load().flash_attention_bwd(
         dout, q, k, v, out, bool(causal), int(window), float(softcap or 0.0),
         float(scale)))
-    # one count a call: the binding launches the rows' log-sum-exp and
-    # rowsum(dO o O), then dk and dv a kv tile a block, then dq a query
-    # tile a block
+    # one count a call: the binding launches three kernels, the rows'
+    # log-sum-exp and rowsum(dO o O), then dk and dv a kv tile a block,
+    # then dq a query tile a block (bf16: wgmma with TMA loads; f32: the
+    # CUDA cores)
     if q.numel() and k.shape[1]:  # launched for B, T, H, S > 0
         _count("flash_attention_bwd")
     return grads

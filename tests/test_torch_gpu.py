@@ -452,8 +452,8 @@ def test_flash_attention_f32_reads_unaligned_strided_inputs(cuda):
 
 
 def test_flash_attention_wgmma_refuses_what_tma_cannot_read(cuda):
-    """A bf16 call that breaks a TMA rule raises; it never runs the
-    f32 kernel instead."""
+    """A bf16 call that breaks a TMA rule raises, forward and backward;
+    it never runs the f32 kernels instead."""
     x = torch.randn(1, 8, 2, 72, device=cuda).to(torch.bfloat16)
     odd = x[..., :68]  # head stride 144 bytes, dh 68
     before = dict(ops.LAUNCHES)
@@ -461,6 +461,11 @@ def test_flash_attention_wgmma_refuses_what_tma_cannot_read(cuda):
         ops.flash_attention(odd, odd, odd)
     with pytest.raises(RuntimeError, match="multiple of 8"):
         ops.load().flash_attention_wgmma(odd, odd, odd, True, -1, 0.0, 1.0)
+    with pytest.raises(ValueError, match="multiple of 8"):
+        ops.flash_attention_bwd(odd, odd, odd, odd, odd)
+    with pytest.raises(RuntimeError, match="multiple of 8"):
+        ops.load().flash_attention_bwd(odd, odd, odd, odd, odd, True, -1,
+                                       0.0, 1.0)
     assert ops.LAUNCHES == before
 
 
@@ -1162,21 +1167,37 @@ def test_dot_interact_bwd_kernel(cuda, b, f, d, dtype):
     assert torch.equal(got, ops.dot_interact_bwd(g, x))
 
 
-@pytest.mark.parametrize("b,hp,m,d,ho", [(5, 8, 12, 4, 16), (3, 7, 5, 1, 41),
-                                         (8, 39, 39, 10, 200),
-                                         (13, 3, 64, 5, 7),
-                                         (4096, 39, 39, 10, 200),
-                                         (700, 200, 39, 10, 200)])
-def test_cin_layer_bwd_kernel(cuda, b, hp, m, d, ho):
-    """Ragged column blocks, m = 64 (four rows a thread), and B = 4,096
+@pytest.mark.parametrize("b,hp,m,d,ho,x0_is", [
+    (5, 8, 12, 4, 16, "own"), (3, 7, 5, 1, 41, "own"),
+    (8, 39, 39, 10, 200, "own"), (13, 3, 64, 5, 7, "own"),
+    (4096, 39, 39, 10, 200, "own"), (700, 200, 39, 10, 200, "own"),
+    # x_prev is x0 (xDeepFM's first layer)
+    (4096, 39, 39, 10, 200, "x_prev"),
+    # x0 is x_prev's leading m rows: at B = 1 both are contiguous and
+    # start at one address, yet x_prev holds more rows
+    (1, 50, 39, 10, 200, "head"),
+    # dx channel tiles of three h of m = 39 padded to 40 (Hp = 17: the
+    # last tile holds two), of one h of m = 64, of m = 40 unpadded and of
+    # m = 33 padded to 40; 257 columns (a block of one); D = 1
+    (257, 17, 39, 1, 200, "own"), (700, 41, 39, 1, 200, "own"),
+    (129, 3, 40, 2, 256, "own"), (300, 5, 33, 3, 97, "own"),
+    # the columns cut into three parts (B = 4,096, D = 3) at m = 64
+    (4096, 5, 64, 3, 100, "own"),
+])
+def test_cin_layer_bwd_kernel(cuda, b, hp, m, d, ho, x0_is):
+    """Ragged column blocks, the dx kernel's channel tiles at their edges
+    (m padded to a multiple of 8, a last tile short of h), D = 1, H_out
+    up to 256, x_prev given as x0 or x0 as x_prev's head, and B = 4,096
     and 700 (the columns cut into parts summed in a fixed order)."""
     gen = torch.Generator(device=cuda).manual_seed(hp + ho)
     k = hp * m
+    x_prev = torch.randn(b, hp, d, generator=gen, device=cuda)
+    x0 = {"own": lambda: torch.randn(b, m, d, generator=gen, device=cuda),
+          "x_prev": lambda: x_prev, "head": lambda: x_prev[:, :m]}[x0_is]()
     args = (torch.randn(b, ho, d, generator=gen, device=cuda),
             (2.0 / (ho + k)) ** 0.5 * torch.randn(ho, k, generator=gen,
                                                   device=cuda),
-            torch.randn(b, hp, d, generator=gen, device=cuda),
-            torch.randn(b, m, d, generator=gen, device=cuda))
+            x_prev, x0)
     got = _launched_once("cin_layer_bwd", lambda: ops.cin_layer_bwd(*args))
     _close_rel(got, ref.cin_layer_bwd_ref(*args))
     assert all(torch.equal(a, b_) for a, b_ in
@@ -1192,6 +1213,18 @@ def test_cin_layer_bwd_kernel(cuda, b, hp, m, d, ho):
     ((2, 150, 150, 4, 2, 64), dict(causal=False, window=33, softcap=50.0)),
     ((1, 300, 300, 8, 4, 256), dict(window=100, softcap=50.0,
                                     scale=1 / 16)),
+    # the bf16 kernels' tiles (64 keys and 64 queries a kv step, 128
+    # queries and 32 keys a q step): T and S off them, a window edge
+    # inside a tile, dh 8 to 256, groups of 1, 2, 16 and 36 heads of 1,
+    # and glm4-9b's group of 16 heads at dh 128
+    ((1, 200, 200, 16, 1, 8), {}),
+    ((2, 300, 300, 32, 2, 128), {}),
+    ((1, 130, 190, 2, 2, 64), dict(window=70)),
+    ((1, 160, 160, 36, 36, 64), dict(softcap=50.0)),
+    ((2, 97, 97, 4, 2, 128), dict(causal=False, window=50)),
+    ((1, 257, 257, 4, 2, 256), dict(window=129, softcap=50.0,
+                                    scale=1 / 16)),
+    ((4, 2112, 2112, 4, 2, 64), dict(window=300)),
 ])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_attention_bwd_kernel(cuda, shape, kw, dtype):
