@@ -50,13 +50,17 @@ In order, it
      backward kernels training DLRM, xDeepFM and the LMs needs, each
      gradient within 5e-5 (f32) or 2e-2 (bf16) of its largest magnitude
      of the plain version, bitwise repeatable, at small shapes and at
-     the training shapes: ``dot_interact_bwd`` at DLRM's train_batch
-     (B = 65,536, bf16 and f32; library: dout placed into G and a bmm),
+     the training shapes: ``dot_interact_bwd`` at the warp-pipelined
+     kernel's edges (B = 1, B one past a whole grid of warps, F = 16,
+     17, 32, 33, D = 8, 56, 63, 72, 128, feats at a base off 16 bytes)
+     and at DLRM's train_batch (B = 65,536, bf16 and f32; library: dout
+     placed into G and a bmm),
      ``cin_layer_bwd`` at xDeepFM's (B = 65,536, Hp = 39 and 200;
      library: the einsums in 8 chunks), ``flash_attention_bwd`` at
      train_4k's T = S = 4,096 for gemma2's heads (global, a 1,024 window
      and a ragged T = 4,000, in bf16 and f32; library: compiled
-     flex_attention's backward), glm4-9b's and minicpm-2b's (bf16),
+     flex_attention's backward in each dtype), glm4-9b's and
+     minicpm-2b's (bf16),
      each bf16 one also against an f32 reference by its relative
      Frobenius error and its worst row's;
   4. serves full-width ``GeneratedSource`` windows through
@@ -211,8 +215,8 @@ In order, it
      train_4k (B = 8 of 4,096 in 2 microbatches, glm4 at 12 of 40
      layers): ms a step, model TFLOP/s, peak memory, finite losses,
      exactly each step's forward and backward kernel launches (and one
-     more xDeepFM and gemma2-2b step profiled: device busy, the CIN and
-     flash kernels' shares); then each
+     more DLRM-RM2, xDeepFM and gemma2-2b step profiled: device busy,
+     the dot interaction, CIN and flash kernels' shares); then each
      arch's smoke widths from one init on the card against the CPU (the
      loss within 1e-5, every gradient within 5e-5 of its largest
      magnitude, 2e-2 for the bf16 tables; the LMs' run the f32 flash
@@ -1188,31 +1192,53 @@ def counted(name: str, fn):
     return out
 
 
+# the warp-pipelined backward's edges (B, F, D, feats' offset in
+# elements into a flat buffer): one sample, strips of 16 rows and one
+# pass of 32 (F = 33 writes straight to device memory), n8 tiles and
+# 32-byte column steps, rows that are not 16-byte multiples, a base that
+# is not 16-byte aligned; B one past a whole grid of warps is added per
+# card (4 to 16 warps an SM)
+DOT_BWD_EDGES = ((1, 27, 64, 0), (50, 16, 64, 0), (50, 17, 64, 0),
+                 (50, 32, 64, 0), (50, 33, 64, 0), (50, 27, 8, 0),
+                 (50, 27, 56, 0), (50, 27, 72, 0), (50, 27, 128, 0),
+                 (300, 27, 63, 0), (9, 27, 64, 1), (5, 27, 63, 1))
+
+
 def check_dot_interact_bwd(dev):
-    """Small shapes (F = 1 and 2, D = 63), then DLRM-RM2's train_batch
-    (B = 65,536, F = 27, D = 64) in bf16 (the path's dtype) and f32,
-    against ``ref.dot_interact_bwd_ref``, bitwise repeats.  The library
-    time is the same function in the inputs' dtype by torch ops: dout
-    placed into G, then ``torch.bmm(G + G^T, X)``."""
+    """Small shapes (F = 1 and 2, D = 63) and DOT_BWD_EDGES, then
+    DLRM-RM2's train_batch (B = 65,536, F = 27, D = 64) in bf16 (the
+    path's dtype) and f32, against ``ref.dot_interact_bwd_ref``, bitwise
+    repeats.  The library time is the same function in the inputs' dtype
+    by torch ops: dout placed into G, then ``torch.bmm(G + G^T, X)``."""
     import torch
     from repro_torch.kernels import ops, ref
 
     gen = torch.Generator(device=dev).manual_seed(21)
 
-    def inputs(b, f, d, dt):
-        x = (0.3 * torch.randn(b, f, d, generator=gen, device=dev)).to(dt)
+    def inputs(b, f, d, dt, offset=0):
+        flat = 0.3 * torch.randn(offset + b * f * d, generator=gen,
+                                 device=dev)
+        x = flat.to(dt)[offset:].view(b, f, d)
         g = torch.randn(b, f * (f - 1) // 2, generator=gen,
                         device=dev).to(dt)
         return g, x
 
-    for b, f, d in ((7, 13, 32), (5, 27, 63), (3, 1, 4), (4, 2, 8),
-                    (33, 27, 64)):
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    cases = ((7, 13, 32, 0), (5, 27, 63, 0), (3, 1, 4, 0), (4, 2, 8, 0),
+             (33, 27, 64, 0), *DOT_BWD_EDGES,
+             *((sms * w + 1, 27, 64, 0) for w in (4, 8, 12, 16)))
+    t0 = time.perf_counter()
+    for b, f, d, offset in cases:
         for dt in (torch.float32, torch.bfloat16):
-            g, x = inputs(b, f, d, dt)
+            g, x = inputs(b, f, d, dt, offset)
+            what = f"dot_interact_bwd {(b, f, d, dt)} offset {offset}"
             got = counted("dot_interact_bwd",
                           lambda: ops.dot_interact_bwd(g, x))
-            close_rel((got,), (ref.dot_interact_bwd_ref(g, x),),
-                      f"dot_interact_bwd {(b, f, d, dt)}")
+            close_rel((got,), (ref.dot_interact_bwd_ref(g, x),), what)
+            repeat_bitwise(lambda: ops.dot_interact_bwd(g, x), got, what)
+    log(f"dot_interact_bwd: {len(cases)} small and edge shapes x 2 dtypes "
+        f"within tol of the plain version, bitwise repeats "
+        f"({time.perf_counter() - t0:.1f}s)")
     rows = {}
     b, f, d = 65_536, 27, 64
     iu, ju = torch.tril_indices(f, f, offset=-1, device=dev)
@@ -1252,7 +1278,11 @@ def check_dot_interact_bwd(dev):
             f"the bound (plain {r['plain_ms']:.4f}, G + bmm "
             f"{r['library_ms']:.4f}, bound {r['bound_ms']:.4f} by "
             f"{r['bound_by']})")
-    return rows["bf16"]
+    line = dict(rows["bf16"])
+    line["f32"] = {k: rows["f32"][k]
+                   for k in ("ms", "plain_ms", "bound_ms", "library_ms",
+                             "max_abs_err")}
+    return line
 
 
 def check_cin_bwd(dev):
@@ -1451,8 +1481,9 @@ def check_flash_bwd(dev):
     bf16; each against ``ref.flash_attention_bwd_ref`` with a bitwise
     repeat, and the bf16 train_4k layers also against the f32 reference
     (``check_flash_bwd_f32``).  The kernel line reports gemma2's global
-    layer in bf16, timed beside compiled ``flex_attention``'s
-    backward."""
+    layer in bf16 (its ``f32`` entry the same layer in f32), each timed
+    beside compiled ``flex_attention``'s backward in the same dtype, or
+    with the reason that fails."""
     import torch
     from repro_torch.kernels import ops, ref
 
@@ -1514,12 +1545,13 @@ def check_flash_bwd(dev):
                     lambda: ref.flash_attention_bwd_ref(*x, **kw), reps=2,
                     warm=1)
                 b_ms, by = flash_bwd_bound(*shape, x[1].element_size(), -1)
-                lib_ms, lib_err = (flex_backward_ms(dev, x[1:4], x[0], -1)
-                                   if dt == torch.bfloat16 else (None, None))
+                t_lib = time.perf_counter()
+                lib_ms, lib_err = flex_backward_ms(dev, x[1:4], x[0], -1)
                 rows[("line", dname)] = {
                     "max_abs_err": err, "rel_err": rel, "ms": ms,
                     "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": by,
                     "library_ms": lib_ms, "library_error": lib_err,
+                    "library_s": time.perf_counter() - t_lib,
                     "shape": f"B=1 T=S=4096 H=8 Hkv=4 dh=256 causal, "
                              f"softcap 50, {dname}"}
                 if dname == "f32":
@@ -1546,6 +1578,7 @@ def check_flash_bwd(dev):
         lib = (f"flex_attention backward {r['library_ms']:.3f} ms"
                if r["library_ms"] is not None
                else f"flex_attention backward: {r['library_error']}")
+        lib += f", compiled and timed in {r['library_s']:.1f}s"
         all_f32 = (f", all in f32 {r['bound_all_f32_ms']:.4f}"
                    if dname == "f32" else "")
         log(f"flash_attention_bwd [{r['shape']}]: rel err "
@@ -1556,7 +1589,7 @@ def check_flash_bwd(dev):
     line = dict(rows[("line", "bf16")])
     line["f32"] = {k: rows[("line", "f32")][k]
                    for k in ("ms", "plain_ms", "bound_ms", "bound_all_f32_ms",
-                             "max_abs_err")}
+                             "library_ms", "library_error", "max_abs_err")}
     line["f32_ref"] = f32_refs
     return line
 
@@ -3370,10 +3403,12 @@ ZOO_TRAIN = {"dlrm-rm2": ("train_batch", 3), "xdeepfm": ("train_batch", 3),
              "gemma2-2b": ("train_4k", 2), "glm4-9b": ("train_4k", 2),
              "minicpm-2b": ("train_4k", 2)}
 # the steps profiled after the count, with the kernels split out of the
-# device time: the CIN forward and backward (its pre-passes, dx, dw and
-# parts' sum kernels), the bf16 flash forward and the backward's
-# launches (namespace hw)
-ZOO_TRAIN_PROFILED = {"xdeepfm": ("cin_wgmma_kernel", "cin_bwd_"),
+# device time: the dot interaction forward and backward, the CIN forward
+# and backward (its pre-passes, dx, dw and parts' sum kernels), the bf16
+# flash forward and the backward's launches (namespace hw)
+ZOO_TRAIN_PROFILED = {"dlrm-rm2": ("dot_interact_kernel",
+                                   "dot_interact_bwd_kernel"),
+                      "xdeepfm": ("cin_wgmma_kernel", "cin_bwd_"),
                       "gemma2-2b": ("flash_wgmma_kernel", "::hw::")}
 
 
@@ -3435,9 +3470,11 @@ def train_zoo_cell(arch: str, seed: int) -> dict:
     if not all(math.isfinite(x) for x in losses):
         raise AssertionError(f"{arch} {shape}: losses {losses}")
     if arch in ZOO_TRAIN_PROFILED:
+        t0 = time.perf_counter()
         profile_call(f"{arch} x {shape}, one step (outside the count)",
                      lambda: cell.fn(state, batch), rows=10,
                      kernel=ZOO_TRAIN_PROFILED[arch], warmup=True)
+        log(f"  (profiled in {time.perf_counter() - t0:.1f}s)")
     tflop = cell.meta["model_flops"] / 1e12
     cuts = f"cuts {cell.meta['cuts']}" if "cuts" in cell.meta else "no cut"
     log(f"{arch} x {shape} (full widths, {cuts}): set-up {setup_s:.2f} s; "

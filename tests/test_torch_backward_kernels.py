@@ -12,8 +12,10 @@ softcap, GQA 4:2, ragged T) and the kernel-level ``kernels.ref.
 flash_attention_ref`` (non-causal, S > T).  Each gradient within 1e-5 of
 its largest magnitude in f32 (sums in another order), 2e-2 in bf16
 (bf16 rounds at other places in the two frameworks).  Also: the in-place
-optimizer updates against the functional ones bit for bit, and the
-flash backward's refusal of query rows that admit no key.
+optimizer updates against the functional ones bit for bit, the
+flash backward's refusal of query rows that admit no key, and the index
+arithmetic of the dot-interaction backward kernel emulated (the walk that
+forms G + G^T, its padded product, the divide-free chunk steps).
 """
 import jax
 import jax.numpy as jnp
@@ -63,6 +65,88 @@ def test_dot_interact_bwd_matches_jax_grad(b, f, d, bf16):
     got = ops.dot_interact_bwd(tg, tx)
     assert got.dtype == tx.dtype and want.dtype == jx.dtype
     _close(got, want, BF16_REL if bf16 else F32_REL)
+
+
+# csrc/dot_interact_bwd.cu's index arithmetic, emulated: the card tests
+# hold the kernel itself (tests/test_torch_gpu.py)
+
+def _walk_advance(i, j, n):
+    """``Walk::advance``: (i, j) of packed gradient e -> that of e + n,
+    past each row of i entries to the next."""
+    j += n
+    while j >= i:
+        j -= i
+        i += 1
+    return i, j
+
+
+def _kernel_s(g_row, f):
+    """S = G + G^T as the bf16 path forms it in shared memory: a zero
+    (16 s, 16 s) buffer, s = ceil(F / 16), into which lane l of the warp
+    writes packed gradients l, l + 32, ... at (i, j) and (j, i), walking
+    (i, j) 32 gradients at a time from ``Walk(l)``."""
+    n = 16 * ((f + 15) // 16)
+    s = np.zeros((n, n), np.float32)
+    for lane in range(32):
+        i, j = _walk_advance(1, lane, 0)
+        for e in range(lane, f * (f - 1) // 2, 32):
+            s[i, j] = s[j, i] = g_row[e]
+            i, j = _walk_advance(i, j, 32)
+    return s
+
+
+@pytest.mark.parametrize("f", [1, 2, 13, 16, 17, 27, 32, 33, 64])
+def test_dot_interact_bwd_kernel_walk_forms_g_plus_gt(f):
+    """Every packed gradient lands at its np.tril_indices place and the
+    mirrored one; the diagonal and the padding past F stay zero."""
+    p = f * (f - 1) // 2
+    g_row = np.arange(1, p + 1, dtype=np.float32)
+    want = np.zeros_like(_kernel_s(g_row, f))
+    iu, ju = np.tril_indices(f, k=-1)
+    want[iu, ju] = want[ju, iu] = g_row
+    np.testing.assert_array_equal(_kernel_s(g_row, f), want)
+
+
+@pytest.mark.parametrize("b,f,d", [(4, 27, 64), (3, 33, 8), (2, 1, 4)])
+@pytest.mark.parametrize("bf16", [False, True])
+def test_dot_interact_bwd_kernel_padding_matches_jax_grad(b, f, d, bf16):
+    """The bf16 path's product over the padded S, X's rows past F read as
+    row F - 1 (S's zero columns cancel them), exact products summed in
+    f64 and rounded once, against jax.grad."""
+    rng = np.random.default_rng(b + f + d)
+    x = (0.5 * rng.normal(size=(b, f, d))).astype(np.float32)
+    g = rng.normal(size=(b, f * (f - 1) // 2)).astype(np.float32)
+    jx, jg = jnp.asarray(x), jnp.asarray(g)
+    if bf16:
+        jx, jg = jx.astype(jnp.bfloat16), jg.astype(jnp.bfloat16)
+        x, g = np.asarray(jx, np.float32), np.asarray(jg, np.float32)
+    (want,) = _grads(jdlrm.dot_interact, (jx,), jg.astype(jnp.float32))
+    n = 16 * ((f + 15) // 16)
+    rows = np.minimum(np.arange(n), f - 1)
+    got = np.stack([(_kernel_s(g[k], f).astype(np.float64)
+                     @ x[k][rows].astype(np.float64))[:f]
+                    for k in range(b)]).astype(np.float32)
+    if bf16:
+        got = np.asarray(jnp.asarray(got).astype(jnp.bfloat16), np.float32)
+    _close(torch.from_numpy(got), want, BF16_REL if bf16 else F32_REL)
+
+
+@pytest.mark.parametrize("per_row", [1, 2, 3, 8, 16, 31, 32, 33, 64, 70])
+def test_dot_interact_bwd_kernel_chunk_steps_as_a_divide(per_row):
+    """``Chunk``'s divide-free steps give each lane the (row, item) of
+    items lane, lane + 32, ... of rows of per_row items, as divmod does."""
+    rows = 27
+    for lane in range(32):
+        r, c = lane // per_row, lane % per_row
+        dr, dc = 32 // per_row, 32 % per_row
+        got = []
+        while r < rows:
+            got.append((r, c))
+            r, c = r + dr, c + dc
+            if c >= per_row:
+                r, c = r + 1, c - per_row
+        assert got == [divmod(idx, per_row)
+                       for idx in range(lane, rows * per_row, 32)]
 
 
 @pytest.mark.parametrize("b,hp,m,d,ho", [(6, 39, 39, 10, 200),

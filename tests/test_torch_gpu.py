@@ -1153,18 +1153,46 @@ def _launched_once(name, fn):
     return out
 
 
-@pytest.mark.parametrize("b,f,d", [(7, 13, 32), (5, 27, 63), (3, 1, 4),
-                                   (4, 2, 8), (1000, 27, 64)])
+def _bwd_case(b, f, d, offset=0):
+    """A case of ``test_dot_interact_bwd_kernel``: b None stands for each
+    batch one sample past a whole grid of warps (4 to 16 warps an SM);
+    ``offset`` views feats one element into a flat buffer."""
+    name = "grid-warps+1" if b is None else str(b)
+    return pytest.param(b, f, d, offset,
+                        id=f"{name}-{f}-{d}" + ("-unaligned" if offset
+                                                else ""))
+
+
+@pytest.mark.parametrize("b,f,d,offset", [
+    _bwd_case(7, 13, 32), _bwd_case(5, 27, 63), _bwd_case(3, 1, 4),
+    _bwd_case(4, 2, 8), _bwd_case(1000, 27, 64),
+    # the warp-pipelined kernel's edges: one sample; the grid's warps
+    # taking one sample more than a whole round; strips of 16 rows and one
+    # pass of 32 (F = 33 writes straight to device memory); n8 tiles and
+    # 32-byte column steps; rows that are not 16-byte multiples; a base
+    # that is not 16-byte aligned (plain loads)
+    _bwd_case(1, 27, 64), _bwd_case(None, 27, 64),
+    _bwd_case(50, 16, 64), _bwd_case(50, 17, 64), _bwd_case(50, 32, 64),
+    _bwd_case(50, 33, 64), _bwd_case(50, 27, 8), _bwd_case(50, 27, 56),
+    _bwd_case(50, 27, 72), _bwd_case(50, 27, 128), _bwd_case(300, 27, 63),
+    _bwd_case(9, 27, 64, 1), _bwd_case(5, 27, 63, 1)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_dot_interact_bwd_kernel(cuda, b, f, d, dtype):
-    gen = torch.Generator(device=cuda).manual_seed(b + f)
-    x = (0.3 * torch.randn(b, f, d, generator=gen, device=cuda)).to(dtype)
-    g = torch.randn(b, f * (f - 1) // 2, generator=gen,
-                    device=cuda).to(dtype)
-    got = _launched_once("dot_interact_bwd",
-                         lambda: ops.dot_interact_bwd(g, x))
-    _close_rel((got,), (ref.dot_interact_bwd_ref(g, x),))
-    assert torch.equal(got, ops.dot_interact_bwd(g, x))
+def test_dot_interact_bwd_kernel(cuda, b, f, d, offset, dtype):
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    for bsz in [b] if b is not None else [sms * w + 1 for w in (4, 8, 12,
+                                                                16)]:
+        gen = torch.Generator(device=cuda).manual_seed(bsz + f)
+        flat = 0.3 * torch.randn(offset + bsz * f * d, generator=gen,
+                                 device=cuda)
+        x = flat.to(dtype)[offset:].view(bsz, f, d)
+        assert x.data_ptr() % 16 == (2 * offset if dtype == torch.bfloat16
+                                     else 4 * offset)
+        g = torch.randn(bsz, f * (f - 1) // 2, generator=gen,
+                        device=cuda).to(dtype)
+        got = _launched_once("dot_interact_bwd",
+                             lambda: ops.dot_interact_bwd(g, x))
+        _close_rel((got,), (ref.dot_interact_bwd_ref(g, x),))
+        assert torch.equal(got, ops.dot_interact_bwd(g, x))
 
 
 @pytest.mark.parametrize("b,hp,m,d,ho,x0_is", [
