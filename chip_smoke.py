@@ -59,8 +59,8 @@ In order, it
      library: the einsums in 8 chunks), ``flash_attention_bwd`` at
      train_4k's T = S = 4,096 for gemma2's heads (global, a 1,024 window
      and a ragged T = 4,000, in bf16 and f32; library: compiled
-     flex_attention's backward in each dtype), glm4-9b's and
-     minicpm-2b's (bf16),
+     flex_attention's backward in each dtype), glm4-9b's,
+     minicpm-2b's, granite-moe-1b-a400m's and olmoe-1b-7b's (bf16),
      each bf16 one also against an f32 reference by its relative
      Frobenius error and its worst row's;
   4. serves full-width ``GeneratedSource`` windows through
@@ -190,6 +190,22 @@ In order, it
      never in decode, a profiled decode step; then the f32 step(T) =
      prefill(T + 1) identity at T = 16,376 and full depth within 2e-3,
      the f32 kernel 80 times;
+  8c. the MoE LMs, granite-moe-1b-a400m and olmoe-1b-7b, at
+     ``full_config()``: the bf16 kernel at each one's head layout (16
+     query heads on 8 kv heads at dh = 64; 16 heads at dh = 128) as in
+     8b; one MoE layer at the full widths on 4,096 tokens, the grouped
+     path (``lm._moe_grouped``) against the plain one (``lm._moe_ref``)
+     in bf16 (2e-2) and f32 (1e-5), forward and every gradient, the
+     bf16 output against the plain f32 one (rel 1e-2 over the tokens
+     routed alike, the others counted), bitwise repeats, no token
+     dropped, the grouped and the plain forward timed there and at a
+     decode_32k step's tokens; the prefill_32k and decode_32k cells at the config
+     modules' cut batches (granite B = 4 and 32, olmoe B = 4 and 12)
+     after a warm call, x 1 and x 2, the wgmma kernel once a layer a
+     prefill forward and never in decode, one host read of the routing
+     counts a layer a call; the f32 identity as in 8b, each layer's
+     routing margin of the last token logged and its experts the same
+     in the step and in prefill(T + 1);
   9. trains on the card.  9a: DIN's train_batch cell at
      ``full_config()`` (10 M items, B = 65,536) through
      ``configs.get_arch("din").make_cell("train_batch")``, one warm and
@@ -211,12 +227,14 @@ In order, it
      zoo's train cells at full width, one warm and 3 (recsys) or 2 (LM)
      timed steps each, the counters reset before and read after:
      DLRM-RM2's and xDeepFM's train_batch (B = 65,536, no cut; the
-     hybrid optimizer), gemma2-2b's, glm4-9b's and minicpm-2b's
-     train_4k (B = 8 of 4,096 in 2 microbatches, glm4 at 12 of 40
-     layers): ms a step, model TFLOP/s, peak memory, finite losses,
-     exactly each step's forward and backward kernel launches (and one
-     more DLRM-RM2, xDeepFM and gemma2-2b step profiled: device busy,
-     the dot interaction, CIN and flash kernels' shares); then each
+     hybrid optimizer), gemma2-2b's, glm4-9b's, minicpm-2b's,
+     granite-moe-1b-a400m's and olmoe-1b-7b's train_4k (B = 8 of 4,096
+     in 2 microbatches, glm4 at 12 of 40 layers, olmoe at its config's
+     ``TRAIN_LAYERS`` of 16): ms a step, model TFLOP/s, peak memory,
+     finite losses, exactly each step's forward and backward kernel
+     launches (and one more DLRM-RM2, xDeepFM and gemma2-2b step
+     profiled: device busy, the dot interaction, CIN and flash kernels'
+     shares); then each
      arch's smoke widths from one init on the card against the CPU (the
      loss within 1e-5, every gradient within 5e-5 of its largest
      magnitude, 2e-2 for the bf16 tables; the LMs' run the f32 flash
@@ -273,7 +291,8 @@ In order, it
  12. prints the smoke's wall time, the ``kernels`` JSON line (the
      backward kernels' launches are the training paths'; phase 11's
      members' launches are added to the window kernels' counts; the
-     wgmma row carries phase 8b's head-layout rows), the card line and,
+     wgmma row carries phases 8b's and 8c's head-layout rows), the card
+     line and,
      last, the ``{"ok": true, ...}`` line.
 
 Any failed check raises and the script exits non-zero without the last
@@ -1477,9 +1496,10 @@ def check_flash_bwd(dev):
     train_4k layers (B = 1, T = S = 4,096): gemma2-2b's heads (8 on 4, dh
     256, scale 1/16, softcap 50) global, with a 1,024 window (< T; the
     path's 4,096 window equals T) and at a ragged T = S = 4,000, in bf16
-    and f32; glm4-9b's (32 on 2, dh 128) and minicpm-2b's (36, dh 64) in
-    bf16; each against ``ref.flash_attention_bwd_ref`` with a bitwise
-    repeat, and the bf16 train_4k layers also against the f32 reference
+    and f32; glm4-9b's (32 on 2, dh 128), minicpm-2b's (36, dh 64),
+    granite-moe-1b-a400m's (16 on 8, dh 64) and olmoe-1b-7b's (16, dh
+    128) in bf16; each against ``ref.flash_attention_bwd_ref`` with a
+    bitwise repeat, and the bf16 train_4k layers also against the f32 reference
     (``check_flash_bwd_f32``).  The kernel line reports gemma2's global
     layer in bf16 (its ``f32`` entry the same layer in f32), each timed
     beside compiled ``flex_attention``'s backward in the same dtype, or
@@ -1560,7 +1580,11 @@ def check_flash_bwd(dev):
             del x
             torch.cuda.empty_cache()
     for label, shape in (("glm4-9b heads", (1, 4096, 4096, 32, 2, 128)),
-                         ("minicpm-2b heads", (1, 4096, 4096, 36, 36, 64))):
+                         ("minicpm-2b heads", (1, 4096, 4096, 36, 36, 64)),
+                         ("granite-moe-1b-a400m heads",
+                          (1, 4096, 4096, 16, 8, 64)),
+                         ("olmoe-1b-7b heads",
+                          (1, 4096, 4096, 16, 16, 128))):
         (rel, err), x = check(shape, torch.bfloat16, label)
         ms = cuda_ms(lambda: ops.flash_attention_bwd(*x), reps=2, warm=1)
         b_ms, by = flash_bwd_bound(*shape, 2, -1)
@@ -2988,6 +3012,8 @@ def serve_lm_cells(seed: int, arch: str = "gemma2-2b",
     from repro_torch import configs
     from repro_torch.kernels import ops
 
+    from repro_torch.models import lm
+
     mod = configs.get_arch(arch)
     cfg = mod.full_config()
     launched = 0
@@ -3000,6 +3026,7 @@ def serve_lm_cells(seed: int, arch: str = "gemma2-2b",
         setup_s = time.perf_counter() - t0
         torch.cuda.reset_peak_memory_stats()
         ops.reset_launches()
+        lm.HOST_READS["moe_counts"] = 0
         out = cell.fn(*args)  # warm call
         times = []
         for _ in range(calls):
@@ -3012,6 +3039,13 @@ def serve_lm_cells(seed: int, arch: str = "gemma2-2b",
         per_call = cfg.n_layers if cell.kind == "prefill" else 0
         lm_launch_check(f"{arch} x {shape}", got,
                         bf16=(1 + calls) * per_call)
+        reads = lm.HOST_READS["moe_counts"]
+        if reads != (1 + calls) * (cfg.n_layers if cfg.moe else 0):
+            raise AssertionError(f"{arch} x {shape}: {reads} host reads "
+                                 f"of the routing counts in {1 + calls} "
+                                 f"calls")
+        routing = (f"; host reads of the routing counts "
+                   f"{reads // (1 + calls)} a call" if cfg.moe else "")
         if cell.kind == "decode":
             profile_call(f"{arch} x {shape}, one step",
                          lambda: cell.fn(*args))
@@ -3027,8 +3061,8 @@ def serve_lm_cells(seed: int, arch: str = "gemma2-2b",
             f"{setup_s:.2f} s; calls {', '.join(f'{t:.3f}' for t in times)}"
             f" ms; {tflop / (min(times) * 1e-3):.2f} model TFLOP/s at the "
             f"fastest; peak memory {peak_gb:.2f} GB; launches "
-            f"{got[BF16_FLASH]} {BF16_FLASH} ({per_call} a forward); "
-            f"logits sum {float(out.double().sum()):.6f}")
+            f"{got[BF16_FLASH]} {BF16_FLASH} ({per_call} a forward)"
+            f"{routing}; logits sum {float(out.double().sum()):.6f}")
         del args, out, cell
         gc.collect()
         torch.cuda.empty_cache()
@@ -3282,6 +3316,245 @@ def serve_dense_lms(seed: int) -> dict:
     return out
 
 
+# -- phase 8c: the MoE LMs at full width -------------------------------------
+
+MOE_LMS = ("granite-moe-1b-a400m", "olmoe-1b-7b")
+MOE_CALLS = {"prefill_32k": 1, "decode_32k": 2}
+MOE_LAYER_SHAPE = (2, 2048)  # (B, T): the one-layer check's 4,096 tokens
+MOE_BF16_TOL = 2e-2  # grouped vs plain in bf16, of the largest magnitude
+MOE_F32_TOL = 1e-5  # grouped vs plain in f32, of the largest magnitude
+# the bf16 grouped layer against the plain one in f32 on the same bf16
+# inputs: ||err|| / ||want|| over the tokens that route to the same k
+# experts in bf16 and in f32 (a bf16 router logit can reorder two close
+# probabilities: such tokens are counted and logged, not held)
+MOE_F32_REL_TOL = 1e-2
+MOE_GRAD_NAMES = ("x", "router", "w1", "w2", "w3")
+
+
+def moe_fwd_bwd(fn, cfg, p, x, cot):
+    """fn(p, cfg, x) -> (out, aux) on copies of p's leaves and x that
+    require grad, then the gradient of sum(out * cot) + aux: (out, aux,
+    [dx, d router, d w1, d w2, d w3])."""
+    import torch
+
+    leaf = {k: v.detach().clone().requires_grad_(True) for k, v in p.items()}
+    xg = x.detach().clone().requires_grad_(True)
+    out, aux = fn(leaf, cfg, xg)
+    ((out.float() * cot).sum() + aux).backward()
+    grads = [xg.grad] + [leaf[k].grad for k in MOE_GRAD_NAMES[1:]]
+    return out.detach(), aux.detach(), grads
+
+
+def moe_route_sets(p, cfg, xt):
+    """Each token's k experts, sorted: (n, k)."""
+    from repro_torch.models import lm
+    return lm._route(p, cfg, xt)[2].sort(-1).values
+
+
+def check_moe_layer(arch: str, seed: int) -> None:
+    """One MoE layer of ``arch`` at the full widths (its router and
+    expert leaves as ``lm.init`` draws them) on MOE_LAYER_SHAPE's 4,096
+    tokens from a seed.  In bf16 (the weights cast once) and in f32, the
+    grouped path (``lm._moe_grouped``) against the plain one
+    (``lm._moe_ref``), forward (MOE_BF16_TOL, MOE_F32_TOL of the largest
+    magnitude) and every gradient of sum(out * cot) + aux (``close_rel``:
+    2e-2 and 5e-5 of each one's largest magnitude); the bf16 grouped
+    output against the f32 plain one on the same bf16 inputs
+    (MOE_F32_REL_TOL over the tokens routed alike, the plain bf16
+    output's distance logged beside it); a second run of the bf16
+    forward and backward bit for bit the first; each token's k rows
+    dispatched (0 tokens reaching no expert).  Times the grouped and the
+    plain bf16 forward on the 4,096 tokens and on a decode_32k step's
+    (the cell's batch, a token a sequence).  Outside the path's count
+    (no flash kernel runs)."""
+    import dataclasses
+
+    import torch
+    from repro_torch import configs
+    from repro_torch.models import lm
+
+    cfg = configs.get_arch(arch).full_config()
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    one = dataclasses.replace(cfg, n_layers=1)
+    full = lm._layer(lm.init(torch.Generator().manual_seed(seed), one,
+                             "cuda"), 0)
+    p32 = {k: full[k] for k in MOE_GRAD_NAMES[1:]}
+    del full
+    p16 = {k: v.to(torch.bfloat16) for k, v in p32.items()}
+    b, t = MOE_LAYER_SHAPE
+    n, k, d = b * t, cfg.moe.top_k, cfg.d_model
+    gen = torch.Generator(device="cuda").manual_seed(seed + 1)
+    x = torch.randn(b, t, d, generator=gen, device="cuda")
+    cot = torch.randn(b, t, d, generator=gen, device="cuda")
+    x16 = x.to(torch.bfloat16)
+    shape = (f"B={b} T={t} d={d} E={cfg.moe.n_experts} k={k} "
+             f"f={cfg.moe.d_expert}")
+
+    # dispatch: every token's k rows reach an expert
+    _, _, top_e = lm._route(p16, cfg, x16.reshape(n, d))
+    order, _, counts = lm._dispatch(top_e, cfg.moe.n_experts)
+    per_token = torch.bincount(order // k, minlength=n)
+    dropped = int((per_token == 0).sum())
+    if dropped or not bool((per_token == k).all()) \
+            or int(counts.sum()) != n * k:
+        raise AssertionError(f"{arch} MoE layer: {dropped} tokens reached "
+                             f"no expert; rows a token "
+                             f"{per_token.unique().tolist()}")
+    idle = int((counts == 0).sum())
+
+    out = {}
+    for name, cf, p, xi in (("bf16", cfg, p16, x16),
+                            ("f32", cfg32, p32, x)):
+        got = moe_fwd_bwd(lm._moe_grouped, cf, p, xi, cot)
+        want = moe_fwd_bwd(lm._moe_ref, cf, p, xi, cot)
+        tol = MOE_BF16_TOL if name == "bf16" else MOE_F32_TOL
+        scale = float(want[0].float().abs().max())
+        err = float((got[0].float() - want[0].float()).abs().max())
+        if not err <= tol * scale:
+            raise AssertionError(f"{arch} MoE layer {name}: grouped vs "
+                                 f"plain max abs err {err:.3e}, tol "
+                                 f"{tol} x {scale:.3e}")
+        aux_err = abs(float(got[1]) - float(want[1]))
+        rel, abs_err = close_rel(got[2], want[2],
+                                 f"{arch} MoE layer {name} gradients")
+        out[name] = {"max_abs_err": err, "scale": scale, "aux": float(got[1]),
+                     "aux_err": aux_err, "grad_rel": rel,
+                     "grad_abs": abs_err}
+        if name == "bf16":
+            first = got
+            repeat_bitwise(
+                lambda: (lambda r: (r[0], r[1], *r[2]))(
+                    moe_fwd_bwd(lm._moe_grouped, cf, p, xi, cot)),
+                (got[0], got[1], *got[2]),
+                f"{arch} MoE layer bf16 forward and backward")
+            plain16 = want[0]
+        del got, want
+    # the bf16 grouped output against the f32 plain one on the same
+    # bf16 inputs, over the tokens routed alike
+    p16_32 = {kk: v.float() for kk, v in p16.items()}
+    with torch.no_grad():
+        ref32, _ = lm._moe_ref(p16_32, cfg32, x16.float())
+        same = (moe_route_sets(p16, cfg, x16.reshape(n, d))
+                == moe_route_sets(p16_32, cfg32,
+                                  x16.float().reshape(n, d))).all(-1)
+    flipped = int((~same).sum())
+    want32 = ref32.reshape(n, d)[same]
+
+    def rel_to_f32(y):
+        y = y.float().reshape(n, d)
+        diff_all = float((y - ref32.reshape(n, d)).norm()
+                         / ref32.norm())
+        return float((y[same] - want32).norm() / want32.norm()), diff_all
+
+    rel, rel_all = rel_to_f32(first[0])
+    plain_rel, plain_all = rel_to_f32(plain16)
+    if not rel <= MOE_F32_REL_TOL:
+        raise AssertionError(f"{arch} MoE layer: bf16 grouped vs f32 plain "
+                             f"rel {rel:.3e} over tokens routed alike "
+                             f"(tol {MOE_F32_REL_TOL})")
+    grouped_ms = cuda_ms(lambda: lm._moe_grouped(p16, cfg, x16), reps=5,
+                         warm=1)
+    plain_ms = cuda_ms(lambda: lm._moe_ref(p16, cfg, x16), reps=3, warm=1)
+    # at a decode step's tokens (one a sequence of the cell's batch)
+    nd = configs.get_arch(arch).CELL_BATCH["decode_32k"]
+    xd = x16.reshape(n, d)[:nd].reshape(nd, 1, d)
+    dec_grouped_ms = cuda_ms(lambda: lm._moe_grouped(p16, cfg, xd),
+                             reps=20, warm=2)
+    dec_plain_ms = cuda_ms(lambda: lm._moe_ref(p16, cfg, xd), reps=20,
+                           warm=2)
+    dec_idle = int((lm._dispatch(lm._route(p16, cfg, xd.reshape(nd, d))[2],
+                                 cfg.moe.n_experts)[2] == 0).sum())
+    b16, f32 = out["bf16"], out["f32"]
+    log(f"{arch} MoE layer [{shape}]: grouped vs plain, bf16 max abs err "
+        f"{b16['max_abs_err']:.3e} (tol {MOE_BF16_TOL} x {b16['scale']:.3e})"
+        f", aux {b16['aux']:.6f} (diff {b16['aux_err']:.1e}), gradients "
+        f"{b16['grad_rel']:.3e} of their largest; f32 max abs err "
+        f"{f32['max_abs_err']:.3e} (tol {MOE_F32_TOL} x {f32['scale']:.3e}),"
+        f" aux diff {f32['aux_err']:.1e}, gradients {f32['grad_rel']:.3e}; "
+        f"bf16 forward and backward bitwise repeatable; 0 of {n} tokens "
+        f"dropped ({k} rows each), {idle} of {cfg.moe.n_experts} experts "
+        f"without a row")
+    log(f"{arch} MoE layer bf16 vs f32 plain on the same bf16 inputs: "
+        f"grouped rel {rel:.3e} (tol {MOE_F32_REL_TOL}), plain bf16 rel "
+        f"{plain_rel:.3e}, over the {n - flipped} tokens routed alike; "
+        f"{flipped} tokens route otherwise in f32 (all tokens: grouped rel "
+        f"{rel_all:.3e}, plain {plain_all:.3e}); bf16 forward ms: grouped "
+        f"{grouped_ms:.3f}, plain {plain_ms:.3f}; at decode_32k's {nd} "
+        f"tokens ({dec_idle} of {cfg.moe.n_experts} experts without a row)"
+        f": grouped {dec_grouped_ms:.3f}, plain {dec_plain_ms:.3f}")
+
+
+def moe_identity(seed: int, arch: str) -> int:
+    """``dense_identity`` at ``arch`` (the f32 step(T) = prefill(T + 1)
+    within LM_STEP_TOL) with each layer's routing of the last token
+    recorded: the decode step's and prefill(T + 1)'s last row, the margin
+    between the k-th and (k+1)-th probability, and whether both chose
+    the same k experts.  Returns the f32 kernel's launches."""
+    import torch
+    from repro_torch import configs
+    from repro_torch.models import lm
+
+    cfg = configs.get_arch(arch).full_config()
+    k, seen = cfg.moe.top_k, []
+    route = lm._route
+
+    def recorded(p, c, xt):
+        probs, top_w, top_e = route(p, c, xt)
+        top = probs[-1].topk(k + 1).values
+        seen.append((float(top[k - 1] - top[k]),
+                     sorted(top_e[-1].tolist())))
+        return probs, top_w, top_e
+
+    lm._route = recorded
+    try:
+        launched = dense_identity(seed, arch)
+    finally:
+        lm._route = route
+    n = cfg.n_layers
+    step, longer = seen[n:2 * n], seen[2 * n:3 * n]
+    same = [a[1] == b[1] for a, b in zip(step, longer)]
+    log(f"{arch} identity routing of the last token, layer by layer: "
+        f"margin (k-th - (k+1)-th prob) in the step "
+        f"{', '.join(f'{m:.3e}' for m, _ in step)}; the same {k} experts "
+        f"as prefill(T+1) in {sum(same)} of {n} layers")
+    if not all(same):
+        raise AssertionError(f"{arch}: the step and prefill(T+1) route the "
+                             f"last token otherwise in layers "
+                             f"{[i for i, s in enumerate(same) if not s]}")
+    return launched
+
+
+def serve_moe_lms(seed: int) -> dict:
+    """Phase 8c: for granite-moe-1b-a400m and olmoe-1b-7b, the bf16 flash
+    kernel at the arch's head layout (``check_flash_heads``), one MoE
+    layer at the full widths (``check_moe_layer``), the prefill_32k and
+    decode_32k cells at the config modules' cut batches
+    (``serve_lm_cells``, with the routing counts' host reads), and the
+    f32 identity (``moe_identity``).  Returns the cells' wgmma launches,
+    the identity checks' f32 launches and the head-layout rows."""
+    import gc
+
+    import torch
+
+    def release():
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    out = {"bf16": 0, "f32": 0, "heads": {}}
+    for arch in MOE_LMS:
+        t0 = time.perf_counter()
+        out["heads"][arch] = check_flash_heads(arch)
+        release()
+        check_moe_layer(arch, seed)
+        release()
+        out["bf16"] += serve_lm_cells(seed, arch, MOE_CALLS)
+        release()
+        out["f32"] += moe_identity(seed, arch)
+        release()
+        log(f"phase 8c {arch}: {time.perf_counter() - t0:.1f}s")
+    return out
+
+
 # -- phase 9: training on the card ------------------------------------------
 
 TRAIN_STEPS = 5  # timed DIN train_batch steps, after one warm step
@@ -3401,7 +3674,9 @@ def din_card_vs_cpu(seed: int) -> None:
 # step: the LM steps take seconds each, so two; the recsys steps three
 ZOO_TRAIN = {"dlrm-rm2": ("train_batch", 3), "xdeepfm": ("train_batch", 3),
              "gemma2-2b": ("train_4k", 2), "glm4-9b": ("train_4k", 2),
-             "minicpm-2b": ("train_4k", 2)}
+             "minicpm-2b": ("train_4k", 2),
+             "granite-moe-1b-a400m": ("train_4k", 2),
+             "olmoe-1b-7b": ("train_4k", 2)}
 # the steps profiled after the count, with the kernels split out of the
 # device time: the dot interaction forward and backward, the CIN forward
 # and backward (its pre-passes, dx, dw and parts' sum kernels), the bf16
@@ -4769,6 +5044,12 @@ def main(argv=None) -> int:
         f"{time.perf_counter() - t_phase:.1f}s")
     gc.collect()
     torch.cuda.empty_cache()
+    t_phase = time.perf_counter()
+    moe = serve_moe_lms(args.seed)
+    moe_s = time.perf_counter() - t_phase
+    log(f"phase 8c (granite-moe-1b-a400m, olmoe-1b-7b): {moe_s:.1f}s")
+    gc.collect()
+    torch.cuda.empty_cache()
     din_train = train_din_full(args.seed)
     gc.collect()
     torch.cuda.empty_cache()
@@ -4779,12 +5060,18 @@ def main(argv=None) -> int:
     t_phase = time.perf_counter()
     zoo_train = {}
     for arch in ZOO_TRAIN:
+        t0 = time.perf_counter()
         zoo_train[arch] = train_zoo_cell(arch, args.seed)
         gc.collect()
         torch.cuda.empty_cache()
+        if arch in MOE_LMS:
+            moe_s += time.perf_counter() - t0
+    t0 = time.perf_counter()
     zoo_train_card_vs_cpu(args.seed)
-    log(f"phase 9c (DLRM-RM2, xDeepFM, gemma2-2b, glm4-9b, minicpm-2b "
-        f"training): {time.perf_counter() - t_phase:.1f}s")
+    log(f"phase 9c ({', '.join(ZOO_TRAIN)} training): "
+        f"{time.perf_counter() - t_phase:.1f}s (the card-vs-CPU checks "
+        f"{time.perf_counter() - t0:.1f}s)")
+    log(f"the MoE LMs' phases (8c and their 9c train cells): {moe_s:.1f}s")
     cli = serve_trained_cli(args.seed, build_s)
     gc.collect()
     torch.cuda.empty_cache()
@@ -4805,21 +5092,28 @@ def main(argv=None) -> int:
     paths[BF16_FLASH] = (f"gemma2-2b bf16 serve path and cells "
                          f"({', '.join(LM_CALLS)}); "
                          + "; ".join(f"{a} cells ({', '.join(DENSE_CALLS)})"
-                                     for a in DENSE_LMS))
+                                     for a in DENSE_LMS) + "; "
+                         + "; ".join(f"{a} cells ({', '.join(MOE_CALLS)})"
+                                     for a in MOE_LMS))
     paths[F32_FLASH] = ("gemma2-2b f32 prefill(T) and prefill(T + 1) of "
                         "the serve path's identity check; "
                         + "; ".join(f"{a}'s f32 identity check"
-                                    for a in DENSE_LMS))
+                                    for a in DENSE_LMS + MOE_LMS))
     launches.update(zoo_launches)
     by_path.update({k: {f"{arch} cells": zoo_launches[k]}
                     for arch, k in ZOO.items()})
-    launches[BF16_FLASH] = lm_launches + dense["bf16"]
-    launches[F32_FLASH] = f32_launches + dense["f32"]
+    launches[BF16_FLASH] = lm_launches + dense["bf16"] + moe["bf16"]
+    launches[F32_FLASH] = f32_launches + dense["f32"] + moe["f32"]
     by_path[BF16_FLASH] = {"gemma2-2b": lm_launches,
-                           "glm4-9b, minicpm-2b cells": dense["bf16"]}
+                           "glm4-9b, minicpm-2b cells": dense["bf16"],
+                           "granite-moe-1b-a400m, olmoe-1b-7b cells":
+                               moe["bf16"]}
     by_path[F32_FLASH] = {"gemma2-2b identity": f32_launches,
-                          "glm4-9b, minicpm-2b identity": dense["f32"]}
+                          "glm4-9b, minicpm-2b identity": dense["f32"],
+                          "granite-moe-1b-a400m, olmoe-1b-7b identity":
+                              moe["f32"]}
     results[BF16_FLASH]["dense_lm_heads"] = dense["heads"]
+    results[BF16_FLASH]["moe_lm_heads"] = moe["heads"]
     # the training paths (phase 9): DIN's train_batch steps, the offline
     # experiment's training and scoring, the trained stack's windows
     train_counts = {
@@ -4886,6 +5180,8 @@ def main(argv=None) -> int:
          **({"at_32k": r["at_32k"]} if "at_32k" in r else {}),
          **({"dense_lm_heads": r["dense_lm_heads"]}
             if "dense_lm_heads" in r else {}),
+         **({"moe_lm_heads": r["moe_lm_heads"]}
+            if "moe_lm_heads" in r else {}),
          **({"f32": r["f32"]} if "f32" in r else {})}
         for name, r in results.items()]}
     log(f"smoke wall {time.perf_counter() - t_smoke:.1f}s")

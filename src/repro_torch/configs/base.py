@@ -13,7 +13,7 @@ package's configs::
                                           (recsys; the LM has lm.init)
     smoke_loss(params, cfg, batch)        (every arch that trains: din,
                                           dlrm-rm2, xdeepfm, bst, schnet,
-                                          the three dense LMs,
+                                          the five LMs,
                                           greenflow-cascade)
 
 A ``Cell`` is one (architecture x shape) on one card: a function and a
@@ -38,15 +38,14 @@ _MODULES = {
     "xdeepfm": "repro_torch.configs.xdeepfm_arch",
     "gemma2-2b": "repro_torch.configs.gemma2_2b",
     "glm4-9b": "repro_torch.configs.glm4_9b",
+    "granite-moe-1b-a400m": "repro_torch.configs.granite_moe_1b_a400m",
+    "olmoe-1b-7b": "repro_torch.configs.olmoe_1b_7b",
     "minicpm-2b": "repro_torch.configs.minicpm_2b",
     "din": "repro_torch.configs.din_arch",
     "bst": "repro_torch.configs.bst_arch",
     "schnet": "repro_torch.configs.schnet",
     "greenflow-cascade": "repro_torch.configs.greenflow_cascade",
 }
-
-_MOE = "the MoE FFN (ROADMAP queue A item 16: _moe_ref, then EP)"
-_WAITING = {"granite-moe-1b-a400m": _MOE, "olmoe-1b-7b": _MOE}
 
 
 @dataclass
@@ -239,12 +238,8 @@ def registered_shapes() -> tuple[str, ...]:
 
 
 def get_arch(arch_id: str):
-    """The config module of a ported architecture.  An architecture of
-    the JAX package that is not ported yet raises NotImplementedError
-    naming the ROADMAP item that ports it."""
+    """The config module of an architecture; every architecture of the
+    JAX package is ported."""
     if arch_id in _MODULES:
         return importlib.import_module(_MODULES[arch_id])
-    if arch_id in _WAITING:
-        raise NotImplementedError(f"{arch_id!r} is not ported yet; it "
-                                  f"comes with {_WAITING[arch_id]}")
     raise KeyError(f"unknown arch {arch_id!r}; have {sorted(ARCH_IDS)}")

@@ -8,11 +8,11 @@ Selects the arch from the registry, builds its deterministic batch
 pipeline and drives ``training.trainer.Trainer`` (checkpoints, resume,
 SIGTERM preemption) with the JAX CLI's flags.  ``--preset smoke``
 (default) trains the reduced config; ``--preset full`` the published
-one.  Every registered arch trains through its ``smoke_loss`` (din,
-dlrm-rm2, xdeepfm, bst, schnet, gemma2-2b, glm4-9b, minicpm-2b,
-greenflow-cascade); the two MoE archs are not registered yet (ROADMAP
-queue A item 16) and raise in the registry.  It runs on the card unless
-``--device cpu`` is given; without a card it stops with an error.
+one.  Every arch trains through its ``smoke_loss`` (din, dlrm-rm2,
+xdeepfm, bst, schnet, gemma2-2b, glm4-9b, minicpm-2b,
+granite-moe-1b-a400m, olmoe-1b-7b, greenflow-cascade).  It runs on the
+card unless ``--device cpu`` is given; without a card it stops with an
+error.
 Weights are drawn from ``--seed`` by the port's own inits.
 """
 from __future__ import annotations

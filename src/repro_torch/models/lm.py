@@ -3,8 +3,10 @@
 One implementation, config-selected features, as in the JAX package:
   * GQA (n_kv_heads <= n_heads), RoPE (partial fraction, theta) on
     interleaved pairs,
-  * dense gated FFN (SwiGLU/GeGLU); MoE configs build but their FFN is
-    not ported yet (``_ffn_block`` raises),
+  * dense gated FFN (SwiGLU/GeGLU) or a top-k MoE FFN on one card
+    (``_moe_grouped``: tokens grouped by expert, one product an expert,
+    no token dropped; ``_moe_ref`` computes every expert, the JAX
+    package's ``_moe_ref``),
   * gemma2: local/global alternating sliding window, attention and final
     logit softcap, zero-centered RMSNorm, sandwich (pre+post) norms,
   * QK-norm; minicpm's embedding scale, depth-scaled residuals and logit
@@ -22,12 +24,12 @@ are recomputed in the backward pass, flash attention's forward kernel
 included.
 ``decode_step`` attends one query against the cache with the plain
 ``_attention``, as the JAX package does, reading only the positions its
-mask admits.  The KV cache is
-allocated once and written in place.  There is no mesh: sharding
-specs, ``constrain`` and the expert-parallel MoE of the JAX package
-have no counterpart here.  Matrices may be stored in f32 (``init``) or
-already in the compute dtype; each use casts to the activations' dtype,
-a no-op for the latter.
+mask admits.  The KV cache is allocated once and written in place.
+There is no mesh: sharding specs, ``constrain`` and the expert-parallel
+MoE (``_moe_ep``, with its capacity drop) of the JAX package have no
+counterpart here.  Matrices may be stored in f32 (``init``) or already
+in the compute dtype; each use casts to the activations' dtype, a no-op
+for the latter.
 """
 from __future__ import annotations
 
@@ -46,7 +48,9 @@ INT32_MAX = 2 ** 31 - 1
 # gemma2-2b's 256,000 vocabulary, and each chunk is recomputed in the
 # backward pass instead of kept
 LOSS_CHUNK = 2048
-MOE_ITEM = "the MoE FFN (ROADMAP queue A item 16: _moe_ref, then EP)"
+# host reads of the MoE's per-expert row counts (one a MoE layer call:
+# the split sizes of ``_moe_grouped``); a caller may reset and read it
+HOST_READS = {"moe_counts": 0}
 
 
 @dataclass(frozen=True)
@@ -339,10 +343,119 @@ def _dense_ffn(p, cfg: LMConfig, x):
     return h @ p["w2"].to(x.dtype)
 
 
+def _route(p, cfg: LMConfig, xt):
+    """The JAX package's router: xt (n, d) -> (probs (n, E) f32, top_w
+    (n, k) f32, top_e (n, k)).  The logits come out of a product in
+    xt's dtype, then f32; softmax, the k largest probabilities in
+    descending order, renormalized over the k.  Both MoE versions route
+    through it, so they pick the same experts."""
+    logits = (xt @ p["router"].to(xt.dtype)).float()
+    probs = torch.softmax(logits, dim=-1)
+    top_w, top_e = torch.topk(probs, cfg.moe.top_k, dim=-1, sorted=True)
+    return probs, top_w / top_w.sum(-1, keepdim=True), top_e
+
+
+def _router_aux(probs, top_e, moe: MoEConfig):
+    """Switch-style load-balance loss in f32: E * sum_e f_e * P_e, with
+    f_e the share of tokens whose first choice is e and P_e the mean
+    probability of e."""
+    e = probs.shape[-1]
+    hot = F.one_hot(top_e[..., 0], e).to(probs.dtype)
+    return e * torch.sum(hot.mean(0) * probs.mean(0))
+
+
+def _moe_ref(p, cfg: LMConfig, x):
+    """The plain MoE, the JAX package's ``_moe_ref``: every expert
+    computed for every token, then the gated combine in x's dtype.
+    x (B, T, d) -> (out (B, T, d), aux)."""
+    n = x.shape[0] * x.shape[1]
+    xt = x.reshape(n, cfg.d_model)
+    probs, top_w, top_e = _route(p, cfg, xt)
+    gates = torch.zeros_like(probs).scatter(1, top_e, top_w)
+    h = _act(cfg)(torch.einsum("nd,edf->nef", xt, p["w1"].to(x.dtype)))
+    if cfg.gated_ffn:
+        h = h * torch.einsum("nd,edf->nef", xt, p["w3"].to(x.dtype))
+    y = torch.einsum("nef,efd->ned", h, p["w2"].to(x.dtype))
+    out = torch.einsum("ned,ne->nd", y, gates.to(x.dtype))
+    return out.reshape(x.shape), _router_aux(probs, top_e, cfg.moe)
+
+
+class _Permute(torch.autograd.Function):
+    """Rows ``x[order // k]``: with k = 1 the rows of x in ``order``;
+    with k > 1 each of x's rows in each of its k slots, the n * k slots
+    in ``order``.  The gradient goes back by the inverse permutation, a
+    gather, and each row sums its k slots in slot order (``x[order]``'s
+    own backward accumulates by atomics)."""
+
+    @staticmethod
+    def forward(ctx, x, order, inverse, k):
+        ctx.save_for_backward(inverse)
+        ctx.k = k
+        return x.index_select(0, order // k if k > 1 else order)
+
+    @staticmethod
+    def backward(ctx, grad):
+        inverse, = ctx.saved_tensors
+        g = grad.index_select(0, inverse)
+        if ctx.k > 1:
+            g = g.view(-1, ctx.k, g.shape[-1]).sum(1)
+        return g, None, None, None
+
+
+def _dispatch(top_e, n_experts: int):
+    """top_e (n, k) -> (order, inverse, counts): the n * k assignments,
+    flattened token-major, ordered by a stable sort on the expert id (so
+    each expert's rows stay in token order), the inverse permutation and
+    the number of rows of each expert (E,)."""
+    flat = top_e.reshape(-1)
+    order = torch.argsort(flat, stable=True)
+    inverse = torch.empty_like(order).scatter_(
+        0, order, torch.arange(order.numel(), device=order.device))
+    return order, inverse, torch.bincount(flat, minlength=n_experts)
+
+
+def _moe_grouped(p, cfg: LMConfig, x):
+    """The MoE every cell runs: x (B, T, d) -> (out (B, T, d), aux).
+    Each token's k rows, gathered in expert order (``_dispatch``,
+    ``_Permute``), go through one ``act(x_e @ w1_e) * (x_e @ w3_e) @
+    w2_e`` an expert that has rows, the experts' matrices from one ``unbind(0)`` of each leaf (so
+    a leaf's gradient is stacked once).  The rows go back by the inverse
+    permutation and each token sums its k rows in slot order, the gates
+    in f32, then casts.  No token is dropped.  The per-expert row counts
+    are the split sizes: one host read a call (``HOST_READS``).  No
+    sum runs by atomics, so outputs and gradients repeat bitwise."""
+    m = cfg.moe
+    n, d, k = x.shape[0] * x.shape[1], cfg.d_model, m.top_k
+    xt = x.reshape(n, d)
+    probs, top_w, top_e = _route(p, cfg, xt)
+    order, inverse, counts = _dispatch(top_e, m.n_experts)
+    HOST_READS["moe_counts"] += 1
+    counts = counts.tolist()
+    rows = _Permute.apply(xt, order, inverse, k)
+    w1 = p["w1"].to(x.dtype).unbind(0)
+    w2 = p["w2"].to(x.dtype).unbind(0)
+    w3 = p["w3"].to(x.dtype).unbind(0) if cfg.gated_ffn else None
+    act, ys = _act(cfg), []
+    for e, xe in enumerate(rows.split(counts)):
+        if counts[e]:
+            h = act(xe @ w1[e])
+            if cfg.gated_ffn:
+                h = h * (xe @ w3[e])
+            ys.append(h @ w2[e])
+    y = _Permute.apply(torch.cat(ys), inverse, order, 1).view(n, k, d)
+    slots = y.unbind(1)
+    out = slots[0].float() * top_w[:, :1]
+    for j in range(1, k):
+        out = out + slots[j].float() * top_w[:, j:j + 1]
+    return (out.to(x.dtype).reshape(x.shape),
+            _router_aux(probs, top_e, m))
+
+
 def _ffn_block(p, cfg: LMConfig, x):
-    if cfg.moe is not None:
-        raise NotImplementedError(f"{cfg.name}: {MOE_ITEM} is not ported")
-    return _dense_ffn(p, cfg, x)
+    """(out, aux): the dense FFN with aux 0.0, or the grouped MoE."""
+    if cfg.moe is None:
+        return _dense_ffn(p, cfg, x), 0.0
+    return _moe_grouped(p, cfg, x)
 
 
 # -- block + forward --------------------------------------------------------
@@ -358,10 +471,10 @@ def _block(p, cfg: LMConfig, x, positions, window: int, kv=None,
                                    zero_centered=zc)
     x = x + cfg.residual_scale * attn_out
     h = L.rmsnorm_apply(p["ln_ffn"], x, zero_centered=zc)
-    ffn_out = _ffn_block(p, cfg, h)
+    ffn_out, aux = _ffn_block(p, cfg, h)
     if cfg.sandwich_norm:
         ffn_out = L.rmsnorm_apply(p["ln_ffn_post"], ffn_out, zero_centered=zc)
-    return x + cfg.residual_scale * ffn_out, new_kv
+    return x + cfg.residual_scale * ffn_out, new_kv, aux
 
 
 def _embed(params, cfg: LMConfig, tokens):
@@ -390,27 +503,34 @@ def _final_norm(params, cfg: LMConfig, x):
 
 
 def _hidden(params, cfg: LMConfig, tokens):
-    """tokens (B, T) -> the final-normed hidden states (B, T, d).  With
+    """tokens (B, T) -> (the final-normed hidden states (B, T, d), the
+    MoE's router aux summed over layers; 0.0 for a dense FFN).  With
     grad mode on and ``cfg.remat``, each layer runs under
     ``torch.utils.checkpoint`` (non-reentrant): only its input is kept,
-    and its activations are recomputed in the backward pass."""
+    and its activations (the MoE's routing too) are recomputed in the
+    backward pass."""
     b, t = tokens.shape
     x = _embed(params, cfg, tokens)
     positions = _positions(b, t, tokens.device)
     remat = cfg.remat and torch.is_grad_enabled()
+    aux = 0.0
     for i in range(cfg.n_layers):
         def layer(x, i=i):
-            return _block(_layer(params, i), cfg, x, positions,
-                          cfg.window_for_layer(i))[0]
+            y, _, a = _block(_layer(params, i), cfg, x, positions,
+                             cfg.window_for_layer(i))
+            return y, a
 
-        x = checkpoint(layer, x, use_reentrant=False) if remat else layer(x)
-    return _final_norm(params, cfg, x)
+        x, a = (checkpoint(layer, x, use_reentrant=False) if remat
+                else layer(x))
+        aux = aux + a
+    return _final_norm(params, cfg, x), aux
 
 
 @torch.no_grad()
 def forward(params, cfg: LMConfig, tokens):
-    """tokens (B, T) -> logits (B, T, padded_vocab); no loss."""
-    return _unembed(params, cfg, _hidden(params, cfg, tokens))
+    """tokens (B, T) -> logits (B, T, padded_vocab); no loss (the MoE's
+    aux is dropped)."""
+    return _unembed(params, cfg, _hidden(params, cfg, tokens)[0])
 
 
 def _token_nll(params, cfg: LMConfig, x, targets):
@@ -424,13 +544,15 @@ def _token_nll(params, cfg: LMConfig, x, targets):
 def loss_fn(params, cfg: LMConfig, batch: dict):
     """The JAX package's masked next-token loss: batch tokens, targets
     (B, T) int and mask (B, T) -> sum(NLL * mask) / max(sum(mask), 1),
-    the NLL from f32 logits.  Differentiable (the flash kernel's backward
-    carries attention's gradient).  The logits are formed ``LOSS_CHUNK``
-    positions at a time, each chunk under ``torch.utils.checkpoint``
-    when grad mode is on, so no more than a chunk's (LOSS_CHUNK, V) f32
-    logits live at once; the per-position NLL is the same function."""
+    the NLL from f32 logits, plus ``router_aux_weight`` x the layers'
+    mean router aux for a MoE (the JAX package's term).  Differentiable
+    (the flash kernel's backward carries attention's gradient).  The
+    logits are formed ``LOSS_CHUNK`` positions at a time, each chunk
+    under ``torch.utils.checkpoint`` when grad mode is on, so no more
+    than a chunk's (LOSS_CHUNK, V) f32 logits live at once; the
+    per-position NLL is the same function."""
     tokens = batch["tokens"]
-    x = _hidden(params, cfg, tokens)
+    x, aux = _hidden(params, cfg, tokens)
     x = x.reshape(-1, x.shape[-1])
     targets = batch["targets"].reshape(-1)
     grad = torch.is_grad_enabled()
@@ -445,7 +567,10 @@ def loss_fn(params, cfg: LMConfig, batch: dict):
                    if grad and x.shape[0] > LOSS_CHUNK else chunk(xs, ts))
     mask = batch["mask"].float()
     nll = torch.cat(nll).reshape(mask.shape) * mask
-    return nll.sum() / torch.clamp(mask.sum(), min=1.0)
+    loss = nll.sum() / torch.clamp(mask.sum(), min=1.0)
+    if cfg.moe:
+        loss = loss + cfg.moe.router_aux_weight * aux / cfg.n_layers
+    return loss
 
 
 # -- serving: prefill + single-token decode with a KV cache -----------------
@@ -472,8 +597,8 @@ def prefill(params, cfg: LMConfig, tokens, max_len: int):
     positions = _positions(b, t, tokens.device)
     cache = init_cache(cfg, b, max_len, device=tokens.device)
     for i in range(cfg.n_layers):
-        x, (k, v) = _block(_layer(params, i), cfg, x, positions,
-                           cfg.window_for_layer(i))
+        x, (k, v), _ = _block(_layer(params, i), cfg, x, positions,
+                              cfg.window_for_layer(i))
         cache["k"][i, :, :t] = k
         cache["v"][i, :, :t] = v
     cache["length"] = t
@@ -495,9 +620,9 @@ def decode_step(params, cfg: LMConfig, token, cache: dict):
     positions = torch.full((b, 1), pos, dtype=torch.int32,
                            device=token.device)
     for i in range(cfg.n_layers):
-        x, _ = _block(_layer(params, i), cfg, x, positions,
-                      cfg.window_for_layer(i),
-                      kv=(cache["k"][i], cache["v"][i]), pos=pos)
+        x, _, _ = _block(_layer(params, i), cfg, x, positions,
+                         cfg.window_for_layer(i),
+                         kv=(cache["k"][i], cache["v"][i]), pos=pos)
     logits = _unembed(params, cfg, _final_norm(params, cfg, x))[:, 0]
     return logits, {"k": cache["k"], "v": cache["v"], "length": pos + 1}
 

@@ -1310,7 +1310,8 @@ def test_autograd_launches_the_backward_kernels(cuda, dtype):
 
 
 @pytest.mark.parametrize("arch", ["dlrm-rm2", "xdeepfm", "gemma2-2b",
-                                  "glm4-9b", "minicpm-2b"])
+                                  "glm4-9b", "minicpm-2b",
+                                  "granite-moe-1b-a400m", "olmoe-1b-7b"])
 def test_smoke_train_step_card_vs_cpu(cuda, arch):
     """Each arch's smoke-width train cell from one init, on the card and
     on the CPU: the loss within 1e-5 and every gradient within BWD_REL of
@@ -1337,3 +1338,82 @@ def test_smoke_train_step_card_vs_cpu(cuda, arch):
                                rtol=1e-5, atol=1e-5)
     _close_rel([g.cpu() for g in leaves(out["cuda"][1])],
                leaves(out["cpu"][1]))
+
+
+# -- the MoE FFN: no kernel; the grouped path against the plain one ----------
+
+MOE_FWD_TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
+MOE_NAMES = ("router", "w1", "w2", "w3")
+
+
+def _moe_layer(device, dtype):
+    """A MoE layer at d = 256, 16 experts, top 4, d_expert = 128 (its
+    leaves as ``lm.init`` draws them, in ``dtype``) and its config."""
+    import dataclasses
+
+    from repro_torch.models import lm
+
+    cfg = lm.LMConfig(name="moe-card", n_layers=1, d_model=256, n_heads=4,
+                      n_kv_heads=4, d_head=64, d_ff=128, vocab=64,
+                      padded_vocab=64,
+                      moe=lm.MoEConfig(n_experts=16, top_k=4, d_expert=128))
+    cfg = dataclasses.replace(cfg, dtype=str(dtype).split(".")[-1])
+    p = lm._layer(lm.init(_gen(), cfg), 0)
+    return cfg, {k_: p[k_].to(device=device, dtype=dtype)
+                 for k_ in MOE_NAMES}
+
+
+def _moe_fwd_bwd(fn, cfg, p, x, cot):
+    leaf = {k_: v.clone().requires_grad_(True) for k_, v in p.items()}
+    xg = x.clone().requires_grad_(True)
+    out, aux = fn(leaf, cfg, xg)
+    ((out.float() * cot).sum() + aux).backward()
+    return [out.detach(), aux.detach(), xg.grad] + \
+        [leaf[k_].grad for k_ in MOE_NAMES]
+
+
+@pytest.mark.parametrize("tokens", [512, 7])  # 7: fewer than the experts
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_moe_grouped_matches_plain_on_the_card(cuda, dtype, tokens):
+    """``lm._moe_grouped`` against ``lm._moe_ref`` on the card: the output
+    within 1e-5 (f32) or 2e-2 (bf16) of its largest magnitude, the aux
+    equal, every gradient (x, router, w1, w2, w3) within BWD_REL; a
+    second grouped run bit for bit the first."""
+    from repro_torch.models import lm
+
+    cfg, p = _moe_layer(cuda, dtype)
+    gen = _gen()
+    x = torch.randn(1, tokens, cfg.d_model, generator=gen).to(cuda, dtype)
+    cot = torch.randn(1, tokens, cfg.d_model, generator=gen).to(cuda)
+    got = _moe_fwd_bwd(lm._moe_grouped, cfg, p, x, cot)
+    want = _moe_fwd_bwd(lm._moe_ref, cfg, p, x, cot)
+    scale = float(want[0].float().abs().max())
+    assert float((got[0].float() - want[0].float()).abs().max()) <= \
+        MOE_FWD_TOL[dtype] * scale
+    torch.testing.assert_close(got[1], want[1], rtol=0, atol=0)
+    _close_rel(got[2:], want[2:])
+    again = _moe_fwd_bwd(lm._moe_grouped, cfg, p, x, cot)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+def test_moe_grouped_card_vs_cpu(cuda):
+    """The grouped path in f32 on the card and on the CPU, from the same
+    inputs: output and gradients within 1e-5 of their largest
+    magnitude, the same experts picked."""
+    from repro_torch.models import lm
+
+    cfg, p = _moe_layer("cpu", torch.float32)
+    gen = _gen()
+    x = torch.randn(2, 300, cfg.d_model, generator=gen)
+    cot = torch.randn(2, 300, cfg.d_model, generator=gen)
+    want = _moe_fwd_bwd(lm._moe_grouped, cfg, p, x, cot)
+    got = _moe_fwd_bwd(lm._moe_grouped, cfg,
+                       {k_: v.to(cuda) for k_, v in p.items()}, x.to(cuda),
+                       cot.to(cuda))
+    assert torch.equal(
+        lm._route(p, cfg, x.reshape(-1, cfg.d_model))[2],
+        lm._route({k_: v.to(cuda) for k_, v in p.items()}, cfg,
+                  x.to(cuda).reshape(-1, cfg.d_model))[2].cpu())
+    for g, w in zip(got, want):
+        scale = float(w.abs().max()) or 1.0
+        assert float((g.cpu() - w).abs().max()) <= 1e-5 * scale

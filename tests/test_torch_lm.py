@@ -292,14 +292,21 @@ def test_bf16_prefill_and_decode_match_jax():
 
 
 def test_moe_config_builds_but_its_ffn_waits():
+    """The MoE FFN is ported (ROADMAP queue A item 16): a MoE config's
+    forward runs, is finite, and its loss carries a positive router
+    aux."""
     cfg = lm.LMConfig(name="moe-smoke", n_layers=1, d_model=16, n_heads=2,
                       n_kv_heads=1, d_head=8, d_ff=32, vocab=32,
                       padded_vocab=32, dtype="float32",
                       moe=lm.MoEConfig(n_experts=4, top_k=2, d_expert=8))
     p = lm.init(torch.Generator().manual_seed(0), cfg)
     assert p["layers"]["w1"].shape == (1, 4, 16, 8)
-    with pytest.raises(NotImplementedError, match="ROADMAP queue A item 16"):
-        lm.forward(p, cfg, torch.zeros((1, 4), dtype=torch.int64))
+    toks = torch.arange(8, dtype=torch.int64).reshape(2, 4)
+    out = lm.forward(p, cfg, toks)
+    assert out.shape == (2, 4, 32) and torch.isfinite(out).all()
+    with torch.no_grad():
+        _, aux = lm._hidden(p, cfg, toks)
+    assert float(aux) > 0
     assert cfg.n_active_params() < cfg.n_params()
 
 
@@ -372,10 +379,14 @@ def test_init_is_seeded_and_shaped():
 
 def test_registry_returns_gemma_and_names_what_waits():
     assert get_arch("gemma2-2b") is gemma2_2b
-    for arch in ("granite-moe-1b-a400m", "olmoe-1b-7b"):
-        with pytest.raises(NotImplementedError, match="item 16"):
-            get_arch(arch)
-    for arch in ("glm4-9b", "minicpm-2b", "gemma2-2b"):
+    # the MoE archs are ported (ROADMAP queue A item 16)
+    for arch, name in (("granite-moe-1b-a400m", "granite_moe_1b_a400m"),
+                       ("olmoe-1b-7b", "olmoe_1b_7b")):
+        assert get_arch(arch).__name__ == f"repro_torch.configs.{name}"
+        with pytest.raises(NotImplementedError, match="full-attention"):
+            get_arch(arch).make_cell("long_500k")
+    for arch in ("glm4-9b", "minicpm-2b", "gemma2-2b",
+                 "granite-moe-1b-a400m", "olmoe-1b-7b"):
         mod = get_arch(arch)
         assert mod.ARCH_ID == arch and mod.FAMILY == "lm"
         # train_4k is ported (ROADMAP queue A item 25): B = 8 of 4,096

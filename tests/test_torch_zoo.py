@@ -28,7 +28,7 @@ from repro.models.recsys import dlrm as jdlrm
 from repro.models.recsys import xdeepfm as jxdfm
 from repro.training import checkpoint
 from repro_torch import bridge
-from repro_torch.configs import dlrm_rm2, get_arch, xdeepfm_arch
+from repro_torch.configs import ARCH_IDS, dlrm_rm2, get_arch, xdeepfm_arch
 from repro_torch.core import flops
 from repro_torch.kernels import ops
 from repro_torch.models import layers as L
@@ -269,12 +269,14 @@ def test_normal_table_is_drawn_in_chunks_on_its_generator():
 def test_registry_names_what_waits():
     assert get_arch("dlrm-rm2") is dlrm_rm2
     assert get_arch("xdeepfm") is xdeepfm_arch
+    # every arch of the JAX package is ported; the MoE LMs last
+    # (ROADMAP queue A item 16)
     for arch, name in (("bst", "bst_arch"), ("schnet", "schnet"),
-                       ("glm4-9b", "glm4_9b"), ("minicpm-2b", "minicpm_2b")):
+                       ("glm4-9b", "glm4_9b"), ("minicpm-2b", "minicpm_2b"),
+                       ("granite-moe-1b-a400m", "granite_moe_1b_a400m"),
+                       ("olmoe-1b-7b", "olmoe_1b_7b")):
         assert get_arch(arch).__name__ == f"repro_torch.configs.{name}"
-    for arch in ("granite-moe-1b-a400m", "olmoe-1b-7b"):
-        with pytest.raises(NotImplementedError, match="item 16"):
-            get_arch(arch)
+    assert all(get_arch(a).ARCH_ID == a for a in ARCH_IDS)
     with pytest.raises(KeyError):
         get_arch("nope")
     # train_batch is ported (ROADMAP queue A item 25): the hybrid cell
